@@ -1,0 +1,264 @@
+"""repro_torch.api — one k-relaxation API for the graph workloads.
+PyTorch port of ``repro.api`` (``solve`` for BFS, PageRank and
+Δ-stepping SSSP; batching, telemetry and resilience are later slices).
+
+    from repro_torch import api
+    from repro_torch.graphs import kronecker
+
+    g = kronecker(12, 16, weighted=True)                    # on the card
+    r = api.solve(g, "pagerank", iters=20, backend="cuda")  # CUDA kernels
+    r = api.solve(g, "bfs", root=0, policy="auto", backend="cuda")
+    r = api.solve(g, "sssp_delta", source=0, delta=2.0)     # dense backend
+
+``policy`` picks the direction per step (``"push"``, ``"pull"``,
+``"gs"``, ``"grs"``, ``"auto"`` or a DirectionPolicy); ``backend`` the
+memory system (``"dense"``, ``"ell"``, ``"cuda"`` or an ExchangeBackend).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+
+from .core.algorithms import (bfs_init, bfs_program, pagerank_init,
+                              pagerank_program, sssp_delta_finalize,
+                              sssp_delta_init, sssp_delta_program)
+from .core.backend import (CudaBackend, DenseBackend, EllBackend,
+                           ExchangeBackend)
+from .core.cost_model import Cost, StepTrace
+from .core.direction import (AutoSwitch, Direction, DirectionPolicy, Fixed,
+                             GenericSwitch, GreedySwitch)
+from .core.engine import PushPullEngine
+from .graphs.structure import Graph
+
+__all__ = ["RunResult", "AlgorithmSpec", "EngineCache", "register",
+           "algorithms", "get_spec", "solve", "validate_vertex_indices",
+           "POLICY_SHORTHANDS", "BACKEND_SHORTHANDS", "DenseBackend",
+           "EllBackend", "CudaBackend", "ExchangeBackend", "Fixed",
+           "GenericSwitch", "GreedySwitch", "AutoSwitch", "Direction"]
+
+
+class RunResult(NamedTuple):
+    """Result of ``solve``: the algorithm's public ``state``, the §4
+    ``cost`` counters, ``steps`` (relaxation steps across all phases),
+    ``push_steps``, ``converged``, ``epochs`` (1 for flat programs) and
+    the per-step ``trace`` when ``solve(..., trace=N)`` was given."""
+    state: Any
+    cost: Cost
+    steps: int
+    push_steps: int
+    converged: bool
+    epochs: int
+    trace: Optional[StepTrace] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AlgorithmSpec:
+    """How an algorithm plugs into the engine.
+
+    build(g, *, policy, backend, **static_kw) -> (program,
+        default_max_steps); raises NotImplementedError/ValueError for
+        (policy, backend) combinations it cannot run.
+    init(g, **kw) -> (init_state, init_frontier).
+    finalize(g, state) -> public state.
+    runtime_keys: kwargs consumed only by ``init`` (not in the cache key).
+    """
+    name: str
+    build: Callable
+    init: Callable
+    finalize: Callable = staticmethod(lambda g, state: state)
+    default_policy: DirectionPolicy = GenericSwitch()
+    runtime_keys: tuple = ()
+    paper: str = ""
+
+
+_REGISTRY: dict[str, AlgorithmSpec] = {}
+
+
+class EngineCache:
+    """Bounded FIFO of built engines keyed by hashable tuples;
+    unhashable keys skip caching and rebuild every call."""
+
+    def __init__(self, max_size: int = 128):
+        self.max_size = max_size
+        self._data: dict = {}
+
+    def get_or_build(self, key, build: Callable):
+        try:
+            hash(key)
+        except TypeError:
+            return build()
+        engine = self._data.get(key)
+        if engine is None:
+            engine = build()
+            while len(self._data) >= self.max_size:
+                self._data.pop(next(iter(self._data)))
+            self._data[key] = engine
+        return engine
+
+
+_ENGINE_CACHE = EngineCache()
+
+
+def register(spec: AlgorithmSpec) -> AlgorithmSpec:
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def algorithms() -> list[str]:
+    """Names accepted by ``solve``."""
+    return sorted(_REGISTRY)
+
+
+def get_spec(name: str) -> AlgorithmSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown algorithm {name!r}; registered: {algorithms()}"
+        ) from None
+
+
+POLICY_SHORTHANDS: dict[str, Callable[[], DirectionPolicy]] = {
+    "push": lambda: Fixed(Direction.PUSH),
+    "pull": lambda: Fixed(Direction.PULL),
+    "gs": GenericSwitch,
+    "grs": GreedySwitch,
+    "auto": AutoSwitch,
+}
+
+# one shared instance per name: engines are cached per backend instance,
+# and the CUDA backend keeps its per-graph bin plans and layouts
+BACKEND_SHORTHANDS: dict[str, ExchangeBackend] = {
+    "dense": DenseBackend(),
+    "ell": EllBackend(),
+    "cuda": CudaBackend(),
+}
+
+# solve(trace=True) records up to this many steps
+_DEFAULT_TRACE_CAPACITY = 256
+
+_VERTEX_KEYS = ("root", "source")
+
+
+def validate_vertex_indices(g: Graph, name: str, value) -> None:
+    """Raise ``ValueError`` naming any vertex index outside ``[0, n)``."""
+    if hasattr(value, "cpu"):
+        value = value.cpu()
+    arr = np.asarray(value)
+    if arr.size == 0:
+        return
+    if arr.dtype == object or not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(
+            f"{name}={value!r} is not a vertex index (expected integer "
+            f"in [0, {g.n}))")
+    bad = (arr < 0) | (arr >= g.n)
+    if bad.any():
+        first = int(arr.reshape(-1)[np.flatnonzero(bad.reshape(-1))[0]])
+        raise ValueError(
+            f"{name} contains vertex index {first} out of range for a "
+            f"graph with n={g.n} vertices (valid: 0..{g.n - 1})")
+
+
+def _resolve_policy(policy) -> DirectionPolicy:
+    if not isinstance(policy, str):
+        return policy
+    try:
+        return POLICY_SHORTHANDS[policy]()
+    except KeyError:
+        raise ValueError(
+            f"unknown policy shorthand {policy!r}; valid options: "
+            f"{sorted(POLICY_SHORTHANDS)} (or pass a DirectionPolicy "
+            "instance)") from None
+
+
+def _resolve_backend(backend) -> ExchangeBackend:
+    if backend is None:
+        return BACKEND_SHORTHANDS["dense"]
+    if not isinstance(backend, str):
+        return backend
+    try:
+        return BACKEND_SHORTHANDS[backend]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend shorthand {backend!r}; valid options: "
+            f"{sorted(BACKEND_SHORTHANDS)} (or pass an ExchangeBackend "
+            "instance)") from None
+
+
+def solve(g: Graph, algorithm: str, *,
+          policy: Optional[DirectionPolicy | str] = None,
+          backend: Optional[ExchangeBackend | str] = None,
+          max_steps: Optional[int] = None, trace: int | bool = 0,
+          **kw) -> RunResult:
+    """Run ``algorithm`` on ``g`` (on ``g``'s device) under a direction
+    policy and an exchange backend.
+
+    Args:
+        g: the :class:`~repro_torch.graphs.structure.Graph`.
+        algorithm: ``"bfs"``, ``"pagerank"`` or ``"sssp_delta"``.
+        policy: a DirectionPolicy or ``"push"``, ``"pull"``, ``"gs"``,
+            ``"grs"``, ``"auto"``; default: the algorithm's own.
+        backend: an ExchangeBackend or ``"dense"`` (default), ``"ell"``,
+            ``"cuda"`` (the CUDA kernels; plain versions on CPU tensors).
+        max_steps: per-phase step bound (bounds epochs for phase
+            programs).
+        trace: StepTrace capacity, or True for 256 slots.
+        **kw: ``root``, ``source``, ``iters``, ``damp``, ``delta``, ...
+
+    Raises:
+        KeyError: unknown algorithm.
+        ValueError: unknown shorthand, unsupported (policy × backend)
+            combination, or a ``root``/``source`` outside ``[0, n)``.
+    """
+    spec = get_spec(algorithm)
+    for vkey in _VERTEX_KEYS:
+        if vkey in kw:
+            validate_vertex_indices(g, vkey, kw[vkey])
+    policy = (spec.default_policy if policy is None
+              else _resolve_policy(policy))
+    backend = _resolve_backend(backend)
+    trace_capacity = (_DEFAULT_TRACE_CAPACITY if trace is True
+                      else int(trace))
+    static_kw = {k: v for k, v in kw.items() if k not in spec.runtime_keys}
+
+    def build_engine() -> PushPullEngine:
+        try:
+            program, default_steps = spec.build(
+                g, policy=policy, backend=backend, **static_kw)
+        except (NotImplementedError, ValueError) as e:
+            raise ValueError(
+                f"algorithm {algorithm!r} does not support the "
+                f"combination policy={policy.name} × "
+                f"backend={backend.name}: {e}") from e
+        return PushPullEngine(
+            program=program, policy=policy,
+            max_steps=default_steps if max_steps is None else max_steps,
+            backend=backend, trace_capacity=trace_capacity)
+
+    engine = _ENGINE_CACHE.get_or_build(
+        (algorithm, spec, policy, backend,
+         tuple(sorted(static_kw.items())),
+         g.n, g.m, g.d_ell, max_steps, trace_capacity), build_engine)
+    init_state, init_frontier = spec.init(g, **kw)
+    res = engine.run(g, init_state, init_frontier)
+    return RunResult(state=spec.finalize(g, res.state), cost=res.cost,
+                     steps=res.steps, push_steps=res.push_steps,
+                     converged=res.converged, epochs=res.epochs,
+                     trace=res.trace)
+
+
+register(AlgorithmSpec(
+    name="bfs", build=bfs_program, init=bfs_init,
+    runtime_keys=("root",), paper="§3.3/§4.3 Alg. 3"))
+
+register(AlgorithmSpec(
+    name="pagerank", build=pagerank_program, init=pagerank_init,
+    default_policy=Fixed(Direction.PULL), paper="§3.1/§4.1 Alg. 1"))
+
+register(AlgorithmSpec(
+    name="sssp_delta", build=sssp_delta_program, init=sssp_delta_init,
+    finalize=sssp_delta_finalize, default_policy=Fixed(Direction.PUSH),
+    runtime_keys=("source",), paper="§3.4/§4.4 Alg. 4"))

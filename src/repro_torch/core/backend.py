@@ -1,0 +1,312 @@
+"""ExchangeBackend — pluggable k-relaxation execution (paper §4, §7).
+PyTorch port of ``repro.core.backend`` (single-device backends).
+
+A backend answers one question — "given wire values and a frontier,
+combine messages per destination" — and charges the §4 counters:
+
+  * ``DenseBackend`` — the dense-frontier segment ops
+    (``push_relax`` / ``pull_relax``).
+  * ``EllBackend``   — pull in the ELL (padded-row) layout; push falls
+    back to the CSC segment scatter.
+  * ``CudaBackend``  — the ELL semantics executed by the hand-written
+    CUDA kernels (port of the JAX package's ``PallasBackend``): full-scan
+    ``ell_spmv``, frontier ``ell_pull_frontier`` and binned ``coo_push``.
+
+The engine's host loop decides the direction before it calls a backend,
+so ``relax`` dispatches on a concrete :class:`Direction`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Callable, Optional
+
+import torch
+
+from ..graphs.structure import Graph, pad_values
+from ..kernels.coo_push import build_push_plan, coo_push
+from ..kernels.ell_pull_frontier import (default_pull_cap,
+                                         ell_pull_frontier_full,
+                                         frontier_rows)
+from ..kernels.ell_spmv import _out_dtype, ell_spmv
+from ..kernels.layout import build_dual_ell
+from .cost_model import COUNTER, Cost, counter
+from .direction import Direction
+from .primitives import (combine_identity, frontier_in_edges,
+                         frontier_out_edges, mask_untouched, pull_relax,
+                         pull_relax_ell, push_relax)
+
+__all__ = ["ExchangeBackend", "DenseBackend", "EllBackend", "CudaBackend",
+           "require_backend", "classify_msg_fn"]
+
+
+def require_backend(algorithm: str, backend, *allowed) -> None:
+    """Raise when ``backend`` is not one of the ``allowed`` classes."""
+    if backend is None or isinstance(backend, tuple(allowed)):
+        return
+    names = ", ".join(c.__name__ for c in allowed)
+    raise NotImplementedError(
+        f"{algorithm} supports only [{names}] backends, "
+        f"not {type(backend).__name__}")
+
+
+def _width(values: torch.Tensor) -> int:
+    return 1 if values.ndim == 1 else int(values.shape[-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeBackend:
+    """Protocol: how one k-relaxation step touches memory.
+
+    ``push`` scatters from the frontier with combining writes; ``pull``
+    gathers privately into touched destinations. Both return
+    ``(combined_msgs, cost)``. ``pull_scans_all`` says whether this
+    backend's pull reads every edge whatever the touched set.
+    """
+
+    pull_scans_all = False
+
+    def push(self, g: Graph, values, frontier, combine: str,
+             msg_fn: Optional[Callable], cost: Cost):
+        raise NotImplementedError
+
+    def pull(self, g: Graph, values, touched, combine: str,
+             msg_fn: Optional[Callable], cost: Cost):
+        raise NotImplementedError
+
+    def relax(self, g: Graph, values, frontier, *, direction: Direction,
+              combine: str = "sum", msg_fn: Optional[Callable] = None,
+              touched=None, cost: Optional[Cost] = None):
+        cost = Cost.zeros(values.device) if cost is None else cost
+        if direction == Direction.PUSH:
+            return self.push(g, values, frontier, combine, msg_fn, cost)
+        return self.pull(g, values, touched, combine, msg_fn, cost)
+
+    def predict_comm_bytes(self, g: Graph, values, frontier) -> tuple:
+        """Predicted inter-device bytes of a (push, pull) step: none on
+        one device."""
+        return counter(0, g.device), counter(0, g.device)
+
+    def predict_pull_scan(self, g: Graph, touched, values=None,
+                          combine: str = "sum",
+                          msg_fn: Optional[Callable] = None) -> tuple:
+        """Predicted ``(edges_read, vertices_written)`` of one pull step,
+        per payload column — exactly what ``pull`` then charges."""
+        if touched is None or self.pull_scans_all:
+            return counter(g.m, g.device), counter(g.n, g.device)
+        return frontier_in_edges(g, touched), touched.to(COUNTER).sum()
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseBackend(ExchangeBackend):
+    """Dense-frontier segment ops."""
+
+    def push(self, g, values, frontier, combine, msg_fn, cost):
+        return push_relax(g, values, frontier, combine=combine,
+                          msg_fn=msg_fn, cost=cost)
+
+    def pull(self, g, values, touched, combine, msg_fn, cost):
+        return pull_relax(g, values, touched=touched, combine=combine,
+                          msg_fn=msg_fn, cost=cost)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllBackend(ExchangeBackend):
+    """Pull in the ELL layout; push falls back to the CSC segment
+    scatter."""
+
+    pull_scans_all = True
+
+    def push(self, g, values, frontier, combine, msg_fn, cost):
+        return push_relax(g, values, frontier, combine=combine,
+                          msg_fn=msg_fn, cost=cost)
+
+    def pull(self, g, values, touched, combine, msg_fn, cost):
+        out, cost = pull_relax_ell(g, values, combine=combine,
+                                   msg_fn=msg_fn, cost=cost)
+        if touched is not None:
+            out = mask_untouched(out, touched, combine)
+        return out, cost
+
+
+# msg_fn classification: the kernels implement the three wire-message
+# shapes every algorithm uses. A msg_fn is probed on values that mix
+# signs, zero and large magnitudes, so a function that only coincides
+# with a mode on tame inputs is rejected rather than mis-dispatched.
+_MSG_PROBE_X = (0.5, -1.25, 2.0, 0.0, 3e6, -7e5, 1e-4, 64.0)
+_MSG_PROBE_W = (1.5, 0.25, -3.0, 2.0, -2e6, 4e5, 5e3, -0.125)
+_MSG_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def classify_msg_fn(msg_fn: Optional[Callable]) -> Optional[str]:
+    """Kernel message mode for ``msg_fn``: ``"copy"`` (None), ``"mul"``
+    (value × weight), ``"add"`` (value + weight), or None when it
+    matches none of them (the caller falls back to the primitives)."""
+    if msg_fn is None:
+        return "copy"
+    try:
+        return _MSG_CACHE[msg_fn]
+    except (KeyError, TypeError):
+        pass
+    mode = None
+    x = torch.tensor(_MSG_PROBE_X, dtype=torch.float32)
+    w = torch.tensor(_MSG_PROBE_W, dtype=torch.float32)
+    try:
+        got = torch.as_tensor(msg_fn(x, w))
+        for cand, want in (("copy", x), ("mul", x * w), ("add", x + w)):
+            if got.shape == x.shape and torch.allclose(
+                    got.to(torch.float64), want.to(torch.float64),
+                    rtol=1e-6, atol=1e-6):
+                mode = cand
+                break
+    except Exception:      # arbitrary callables may reject the probe
+        mode = None
+    try:
+        _MSG_CACHE[msg_fn] = mode
+    except TypeError:      # non-weakrefable callables skip the cache
+        pass
+    return mode
+
+
+_KERNEL_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CudaBackend(EllBackend):
+    """The ELL backend's semantics executed by the CUDA kernels.
+
+    ``pull`` with no touched set runs the full-scan ``ell_spmv``. With a
+    touched set it counts the set: an empty set returns the identity
+    with no launch; a set that fits (at most ``default_pull_cap`` rows
+    and fewer than ``m / d_ell``) runs ``ell_pull_frontier`` on the row
+    list compacted to the next power of two ≥ 8; anything else runs the
+    full scan and masks. ``push`` runs ``coo_push`` over a bin plan built
+    once per graph. Charges equal ``predict_pull_scan`` (pull) and
+    ``m`` reads + ``m`` writes of binning plus ``k·width`` (push).
+
+    Cells outside the kernels' coverage — a msg_fn other than copy, mul
+    or add, a combine outside sum/min/max, rank > 2, a dtype outside
+    f32/f64/i32/i64 — run ``EllBackend``'s plain paths and are counted
+    in ``stats["fallback_*"]``. There is no other fallback: a kernel that
+    fails to build or launch raises.
+    """
+    pull_scans_all = False
+
+    stats: dict = dataclasses.field(
+        default_factory=lambda: {"kernel_pull": 0, "kernel_push": 0,
+                                 "kernel_pull_frontier": 0,
+                                 "skip_empty_pull": 0,
+                                 "fallback_pull": 0, "fallback_push": 0})
+    _plans: dict = dataclasses.field(default_factory=dict, repr=False)
+    _layouts: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    # identity eq/hash: instances carry per-graph caches, and the engine
+    # cache keys on the backend
+    __hash__ = object.__hash__
+
+    def __eq__(self, other):
+        return self is other
+
+    def _mode(self, values, combine, msg_fn) -> Optional[str]:
+        if combine not in ("sum", "max", "min"):
+            return None
+        if values.ndim not in (1, 2) or values.dtype not in _KERNEL_DTYPES:
+            return None
+        return classify_msg_fn(msg_fn)
+
+    def _cached(self, cache: dict, g: Graph, build: Callable):
+        # keyed by id(g) with a weakref guard against id reuse
+        hit = cache.get(id(g))
+        if hit is not None and hit[0]() is g:
+            return hit[1]
+        obj = build()
+        cache[id(g)] = (weakref.ref(g), obj)
+        return obj
+
+    def push_plan(self, g: Graph):
+        return self._cached(self._plans, g, lambda: build_push_plan(
+            g.coo_src, g.coo_dst, g.coo_w, g.n))
+
+    def dual_layout(self, g: Graph):
+        return self._cached(self._layouts, g, lambda: build_dual_ell(g))
+
+    def _pull_scan_stats(self, g: Graph, touched) -> tuple:
+        """(edges_read, rows_written, count, fits) of a kernel pull with
+        this touched set — the one formula behind both the prediction and
+        the charge. The restriction pays only when the rows fit the cap
+        and their gather (count × d_ell) undercuts the m-edge scan."""
+        cnt = int(touched.sum())
+        fits = 0 < cnt <= default_pull_cap(g.n, g.m, g.d_ell) \
+            and cnt * g.d_ell < g.m
+        if cnt == 0:
+            edges, verts = 0, 0
+        elif fits:
+            edges, verts = cnt * g.d_ell, cnt
+        else:
+            edges, verts = g.m, g.n
+        return edges, verts, cnt, fits
+
+    def predict_pull_scan(self, g, touched, values=None, combine="sum",
+                          msg_fn=None):
+        if (touched is None or values is None
+                or self._mode(values, combine, msg_fn) is None):
+            return counter(g.m, g.device), counter(g.n, g.device)
+        edges, verts, _, _ = self._pull_scan_stats(g, touched)
+        return counter(edges, g.device), counter(verts, g.device)
+
+    def pull(self, g, values, touched, combine, msg_fn, cost):
+        mode = self._mode(values, combine, msg_fn)
+        if mode is None:
+            self.stats["fallback_pull"] += 1
+            return super().pull(g, values, touched, combine, msg_fn, cost)
+        width = _width(values)
+        if touched is None:
+            self.stats["kernel_pull"] += 1
+            out = ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
+                           combine=combine, msg=mode)
+            return out, cost.charge(reads=counter(g.m, g.device) * width,
+                                    writes=counter(g.n, g.device) * width)
+        edges, verts, cnt, fits = self._pull_scan_stats(g, touched)
+        if cnt == 0:
+            self.stats["skip_empty_pull"] += 1
+            odt = _out_dtype(values.dtype, g.ell_w.dtype, mode, combine)
+            out = torch.full((g.n,) + tuple(values.shape[1:]),
+                             combine_identity(combine, odt), dtype=odt,
+                             device=values.device)
+        elif fits:
+            self.stats["kernel_pull_frontier"] += 1
+            layout = self.dual_layout(g)
+            rows_n = max(8, 1 << (cnt - 1).bit_length())
+            out = ell_pull_frontier_full(
+                pad_values(values), layout.in_idx, layout.in_w,
+                frontier_rows(touched, rows_n), combine=combine, msg=mode)
+        else:
+            self.stats["kernel_pull"] += 1
+            out = mask_untouched(
+                ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
+                         combine=combine, msg=mode), touched, combine)
+        return out, cost.charge(reads=counter(edges * width, g.device),
+                                writes=counter(verts * width, g.device))
+
+    def push(self, g, values, frontier, combine, msg_fn, cost):
+        mode = self._mode(values, combine, msg_fn)
+        if mode is None:
+            self.stats["fallback_push"] += 1
+            return super().push(g, values, frontier, combine, msg_fn, cost)
+        self.stats["kernel_push"] += 1
+        out = coo_push(values, frontier, g.coo_src, g.coo_dst, g.coo_w, g.n,
+                       combine=combine, msg=mode,
+                       plan=self.push_plan(g) if g.m else None)
+        k = frontier_out_edges(g, frontier)
+        width = _width(values)
+        # the binning pass reads and rewrites every edge once
+        cost = cost.charge(reads=counter(g.m, g.device),
+                           writes=counter(g.m, g.device))
+        cost = cost.charge(reads=k * width).charge_combining_writes(
+            k * width, float_data=values.dtype.is_floating_point)
+        return out, cost

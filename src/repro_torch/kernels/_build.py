@@ -1,0 +1,148 @@
+"""Build and load the CUDA kernels; count their launches.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds) and loaded with ``ctypes``. Libraries live in
+``build/repro_torch/`` at the repository root, named by a hash of the
+sources and flags, so an edited source is rebuilt at its next use. All
+missing libraries are compiled at once, one ``nvcc`` process each.
+
+Nothing here runs at import: the CPU tests import every module, and
+this host may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
+           "count_launch", "launch_counts", "reset_launch_counts",
+           "check_status", "lib_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# argument types of each library's entry point (pointers and the stream
+# as c_void_p, so ctypes never cuts a 64-bit address)
+_SIGNATURES = {
+    "ell_spmv": ("repro_ell_spmv",
+                 [_P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P]),
+    "ell_pull_frontier": ("repro_ell_pull_frontier",
+                          [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L, _I,
+                           _I, _P]),
+    "coo_push": ("repro_coo_push",
+                 [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I,
+                  _P]),
+}
+
+_LIBS: dict = {}
+_LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def count_launch(name: str) -> None:
+    """Called by a wrapper right after it launched kernel ``name``."""
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.is_file() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    """Where kernel ``name``'s library lives (its build log beside it)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every kernel library that is missing, all in parallel.
+    Returns {name: seconds} for the ones compiled; raises with the
+    compiler's output if any fails."""
+    todo = {name: lib_path(name) for name in KERNELS
+            if not lib_path(name).is_file()}
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out)
+    seconds, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_bytes(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
+                          + log.decode(errors="replace"))
+            continue
+        os.replace(tmp, out)          # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def load(name: str):
+    """The entry point of kernel ``name``'s library (built on first use),
+    with its ctypes signature set."""
+    hit = _LIBS.get(name)
+    if hit is None:
+        path = lib_path(name)
+        if not path.is_file():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = lib.repro_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        hit = _LIBS[name] = (fn, err)
+    return hit[0]
+
+
+def check_status(rc: int, name: str) -> None:
+    """Raise if a launch of kernel ``name`` returned a CUDA error; else
+    count the launch."""
+    if rc != 0:
+        err = _LIBS[name][1](rc).decode()
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {rc} ({err})")
+    count_launch(name)

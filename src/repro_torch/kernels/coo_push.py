@@ -1,0 +1,194 @@
+"""Binned, contention-free push relaxation.
+
+Port of ``repro.kernels.coo_push.coo_push_pallas`` (strategy "scan"),
+with its phase-1 binning:
+
+**Phase 1 — binning** (:func:`build_push_plan`, host, once per graph).
+Bin ``b`` owns destinations ``[b·bin_n, (b+1)·bin_n)``. The COO edges are
+dst-sorted, so bin ``b`` is the contiguous slice
+``in_ptr[b·bin_n] : in_ptr[min((b+1)·bin_n, n)]`` of the edge list; the
+plan packs it into row ``b`` of ``[nb, cap]`` arrays (sentinel ``n`` /
+weight 0 beyond the bin's edges) beside a within-bin CSR pointer
+``ptr[nb, bin_n+1]``. This is the layout the JAX package builds through
+``pa_regroup_by_dst`` and gathers in-trace in ``bin_plan_traced``.
+
+**Phase 2 — per-bin reduce** (:func:`coo_push`). Every destination
+combines ``msg(x[src], w)`` over its in-edges whose source is active.
+On a CUDA tensor this launches ``csrc/coo_push.cu`` (one CTA per bin,
+one thread per destination); on a CPU tensor it runs
+:func:`coo_push_plain`. Destinations with no active in-edge hold the
+identity. The output dtype is the message promotion, with no int
+widening; float sums accumulate in float64 and round once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..graphs.structure import resolve_device
+from ..sparse.segment import reduce_identity
+from ._build import check_status, load
+from .ell_spmv import (COMBINE_CODES, DTYPE_CODES, MSG_CODES, _msg_dtype,
+                       _stream, apply_msg)
+
+__all__ = ["PushBinPlan", "build_push_plan", "default_bin_cap",
+           "coo_push", "coo_push_plain", "DEFAULT_BIN_N"]
+
+# destinations per bin = threads per CTA
+DEFAULT_BIN_N = 256
+
+
+def _round_up(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PushBinPlan:
+    """Phase-1 output: ``src/dst/w`` are ``[nb, cap]`` (row ``b`` holds
+    bin ``b``'s dst-sorted edges, then padding); ``ptr`` is int32
+    ``[nb, bin_n+1]`` (destination ``b·bin_n + j`` owns slots
+    ``ptr[b, j]:ptr[b, j+1]`` of row ``b``). ``max_run`` is the longest
+    single-destination run."""
+    src: torch.Tensor
+    dst: torch.Tensor
+    w: torch.Tensor
+    ptr: torch.Tensor
+    bin_n: int
+    cap: int
+    nb: int
+    max_run: int
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def build_push_plan(src, dst, w, n: int, bin_n: int = DEFAULT_BIN_N,
+                    align: int = 128, device=None) -> PushBinPlan:
+    """Host-side binning of dst-sorted edges (``src/dst/w`` of length m,
+    tensors or arrays). Each bin is a contiguous slice of the edge list;
+    ``cap`` is the largest bin rounded up to ``align``. The plan lands on
+    ``device`` (default: ``src``'s device if it is a tensor, else the
+    card)."""
+    if device is None and isinstance(src, torch.Tensor):
+        dev = src.device
+    else:
+        dev = resolve_device(device)
+    src, dst = _host(src).astype(np.int32), _host(dst).astype(np.int32)
+    w = _host(w).astype(np.float32)
+    m = int(src.shape[0])
+    nb = max(1, _round_up(n, bin_n) // bin_n)
+    in_ptr = np.searchsorted(dst, np.arange(n + 1)).astype(np.int64)
+    starts = np.minimum(np.arange(nb + 1, dtype=np.int64) * bin_n, n)
+    off = in_ptr[starts]
+    counts = np.diff(off)
+    cap = max(1, _round_up(int(counts.max()) if m else 0, align))
+    slot = np.arange(cap, dtype=np.int64)
+    in_bin = slot[None, :] < counts[:, None]
+    pos = np.where(in_bin, off[:-1, None] + slot[None, :], 0)
+    take = (lambda a, fill: np.where(in_bin, a[pos], fill)  # noqa: E731
+            if m else np.full((nb, cap), fill, a.dtype))
+    ridx = np.minimum(starts[:-1, None]
+                      + np.arange(bin_n + 1, dtype=np.int64)[None, :], n)
+    ptr = (in_ptr[ridx] - off[:-1, None]).astype(np.int32)
+    runs = np.diff(ptr, axis=1)
+    max_run = int(runs.max()) if runs.size else 1
+
+    def dev_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return PushBinPlan(src=dev_(take(src, n).astype(np.int32)),
+                       dst=dev_(take(dst, n).astype(np.int32)),
+                       w=dev_(take(w, 0).astype(np.float32)),
+                       ptr=dev_(ptr), bin_n=int(bin_n), cap=int(cap),
+                       nb=int(nb), max_run=max(max_run, 1))
+
+
+def default_bin_cap(n: int, m: int, d_ell: int, bin_n: int,
+                    align: int) -> int:
+    """Static bin capacity of the JAX package's traced binning pass:
+    twice the mean bin load with at least one full max-degree row, never
+    more than the whole edge list."""
+    nb = max(1, _round_up(n, bin_n) // bin_n)
+    mean = -(-max(m, 1) // nb)
+    return _round_up(min(max(m, 1), max(d_ell, 2 * mean)), max(align, 1))
+
+
+def coo_push_plain(x: torch.Tensor, active: torch.Tensor,
+                   plan: PushBinPlan, n: int, combine: str = "sum",
+                   msg: str = "mul") -> torch.Tensor:
+    """Plain PyTorch version of the binned reduce over ``plan``."""
+    mdt = _msg_dtype(x.dtype, plan.w.dtype, msg)
+    slot = torch.arange(plan.cap, device=x.device)
+    edges = plan.ptr[:, -1:].to(torch.int64)
+    src = plan.src.to(torch.int64)
+    ok = (slot[None, :] < edges) & (src >= 0) & (src < n)
+    safe = torch.where(ok, src, 0)
+    ok = (ok & active[safe]).flatten()
+    msgs = apply_msg(x[safe.flatten()], plan.w.flatten(), msg, mdt)
+    dst = torch.where(ok, plan.dst.flatten().to(torch.int64), n)
+    if ok.ndim < msgs.ndim:
+        ok = ok[:, None]
+    shape = (n + 1,) + tuple(x.shape[1:])
+    if combine == "sum":
+        acc = torch.float64 if mdt.is_floating_point else torch.int64
+        out = torch.zeros(shape, dtype=acc, device=x.device)
+        out.index_add_(0, dst, torch.where(ok, msgs.to(acc), 0))
+    else:
+        out = torch.full(shape, reduce_identity(combine, mdt), dtype=mdt,
+                         device=x.device)
+        idx = dst.reshape((-1,) + (1,) * (msgs.ndim - 1)).expand_as(msgs)
+        out.scatter_reduce_(0, idx, msgs,
+                            reduce="amin" if combine == "min" else "amax",
+                            include_self=True)
+    return out[:n].to(mdt)
+
+
+def coo_push(x: torch.Tensor, active: torch.Tensor, src: torch.Tensor,
+             dst: torch.Tensor, w: torch.Tensor, n: int,
+             combine: str = "sum", msg: str = "mul",
+             plan: Optional[PushBinPlan] = None) -> torch.Tensor:
+    """Two-phase push-combine over dst-sorted COO edges.
+
+    x: [n] or [n, B] source payloads; active: bool[n] frontier; src/dst:
+    int32 [m] (sorted by dst); w: float32 [m]. Returns [n] or [n, B];
+    destinations with no active in-edge hold the combine identity.
+    ``plan`` is the cached phase-1 layout (built here when absent).
+    """
+    if combine not in COMBINE_CODES or msg not in MSG_CODES:
+        raise ValueError(f"unsupported combine={combine!r} / msg={msg!r}")
+    if x.dtype not in DTYPE_CODES or x.ndim not in (1, 2):
+        raise ValueError(f"payload {x.dtype} rank {x.ndim} not in "
+                         "f32/f64/i32/i64 × rank 1/2")
+    if active.dtype != torch.bool or active.shape != (n,) \
+            or x.shape[0] != n:
+        raise ValueError("x must have n rows and active be bool [n]")
+    odt = _msg_dtype(x.dtype, w.dtype, msg)
+    if src.shape[0] == 0:
+        # edgeless graph: every destination holds the combine identity
+        return torch.full((n,) + tuple(x.shape[1:]),
+                          reduce_identity(combine, odt), dtype=odt,
+                          device=x.device)
+    if plan is None:
+        plan = build_push_plan(src, dst, w, n)
+    if x.device.type == "cpu":
+        return coo_push_plain(x, active, plan, n, combine, msg)
+    if x.device.type != "cuda":
+        raise ValueError(f"coo_push runs on cuda or cpu, not {x.device}")
+    devs = {t.device for t in (x, active, plan.src, plan.w, plan.ptr)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {devs}")
+    x, active = x.contiguous(), active.contiguous()
+    out = torch.empty((n,) + tuple(x.shape[1:]), dtype=odt, device=x.device)
+    width = 1 if x.ndim == 1 else x.shape[1]
+    fn = load("coo_push")
+    rc = fn(x.data_ptr(), DTYPE_CODES[x.dtype], active.data_ptr(),
+            plan.src.data_ptr(), plan.w.data_ptr(), plan.ptr.data_ptr(),
+            out.data_ptr(), n, plan.nb, plan.bin_n, plan.cap, width,
+            COMBINE_CODES[combine], MSG_CODES[msg], _stream())
+    check_status(rc, "coo_push")
+    return out

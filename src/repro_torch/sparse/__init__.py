@@ -1,0 +1,3 @@
+from .segment import reduce_identity, segment_max, segment_min, segment_sum
+
+__all__ = ["segment_sum", "segment_min", "segment_max", "reduce_identity"]

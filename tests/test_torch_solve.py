@@ -1,0 +1,131 @@
+"""The port's ``solve`` against the JAX package's ``repro.api.solve``.
+
+BFS, PageRank and Δ-stepping SSSP under every policy, with the port's
+backends paired to the reference's: dense↔dense, ell↔ell and
+cuda↔pallas (on the CPU the port's CUDA backend runs each kernel's plain
+version; the reference's Pallas backend runs its kernels in interpret
+mode). The port's graph carries the reference graph's arrays across.
+
+Integer and min/max state must match bit for bit, float sums to
+rtol = atol = 1e-5; the §4 Cost counters, steps, push steps, epochs,
+the converged flag and every StepTrace row must be exactly equal.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import api as ref_api
+from repro.core import PallasBackend
+from repro.graphs import erdos_renyi as ref_erdos_renyi
+from repro_torch import api
+from repro_torch.core import CudaBackend
+from repro_torch.graphs import GRAPH_ARRAYS, graph_from_arrays
+
+ALGS = {"bfs": {"root": 3}, "pagerank": {"iters": 6},
+        "sssp_delta": {"source": 3, "delta": 2.5}}
+POLICIES = ("push", "pull", "gs", "grs", "auto")
+BACKENDS = ("dense", "ell", "cuda")
+TRACE = 32
+
+
+@pytest.fixture(scope="module")
+def pair():
+    g = ref_erdos_renyi(160, 4.0, seed=11, weighted=True)
+    tg = graph_from_arrays({f: np.asarray(getattr(g, f))
+                            for f in GRAPH_ARRAYS},
+                           n=g.n, m=g.m, d_ell=g.d_ell, device="cpu")
+    return g, tg
+
+
+def ref_backend(name: str):
+    if name != "cuda":
+        return name
+    # pinned blocks: no tuner probe, no tuner cache file
+    return PallasBackend(autotune=False, block_n=64, block_e=128,
+                         push_block_n=64, push_strategy="scan")
+
+
+def assert_states(got, want):
+    want_leaves = jax.tree_util.tree_leaves(want)
+    got_leaves = ([got[k] for k in sorted(got)] if isinstance(got, dict)
+                  else [got])
+    assert len(got_leaves) == len(want_leaves)
+    for a, b in zip(got_leaves, want_leaves):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("alg", sorted(ALGS))
+def test_solve_matches_reference(pair, alg, policy, backend):
+    g, tg = pair
+    kw = ALGS[alg]
+    want = ref_api.solve(g, alg, policy=policy,
+                         backend=ref_backend(backend), trace=TRACE, **kw)
+    port_backend = CudaBackend() if backend == "cuda" else backend
+    got = api.solve(tg, alg, policy=policy, backend=port_backend,
+                    trace=TRACE, **kw)
+    assert_states(got.state, want.state)
+    assert got.cost.as_dict() == want.cost.as_dict()
+    assert (got.steps, got.push_steps, got.epochs, got.converged) == (
+        int(want.steps), int(want.push_steps), int(want.epochs),
+        bool(want.converged))
+    steps = int(want.steps)
+    assert got.trace.as_dict(steps) == want.trace.as_dict(steps)
+    if backend == "cuda":
+        s = port_backend.stats
+        assert s["fallback_pull"] == s["fallback_push"] == 0
+        assert s["kernel_pull"] + s["kernel_pull_frontier"] \
+            + s["kernel_push"] > 0
+
+
+def test_cuda_backend_reaches_all_three_kernel_paths(pair):
+    """Over the slice, the CUDA backend dispatches the full scan, the
+    frontier pull, the binned push and the empty-set skip."""
+    _, tg = pair
+    be = CudaBackend()
+    for alg, kw in ALGS.items():
+        for policy in ("push", "pull"):
+            api.solve(tg, alg, policy=policy, backend=be, **kw)
+    s = be.stats
+    assert s["kernel_pull"] > 0 and s["kernel_pull_frontier"] > 0
+    assert s["kernel_push"] > 0
+    assert s["fallback_pull"] == s["fallback_push"] == 0
+
+
+def test_unsupported_cells_fall_back_and_are_counted(pair):
+    """A msg_fn outside copy/mul/add runs the plain ELL-backend path (the
+    reference's coverage fallback), with its result, and is counted."""
+    _, tg = pair
+    be, ell = CudaBackend(), api.EllBackend()
+    values = torch.linspace(0.0, 1.0, tg.n)
+    frontier = torch.ones(tg.n, dtype=torch.bool)
+    for direction, fn in ((api.Direction.PULL, lambda x, w: x * w * 2),
+                          (api.Direction.PUSH,
+                           lambda x, w: torch.clamp(x + w, max=3.0))):
+        got, _ = be.relax(tg, values, frontier, direction=direction,
+                          combine="sum", msg_fn=fn)
+        want, _ = ell.relax(tg, values, frontier, direction=direction,
+                            combine="sum", msg_fn=fn)
+        torch.testing.assert_close(got, want)
+    assert be.stats["fallback_pull"] == be.stats["fallback_push"] == 1
+    assert be.stats["kernel_pull"] == be.stats["kernel_push"] == 0
+
+
+def test_solve_rejects_bad_inputs(pair):
+    _, tg = pair
+    with pytest.raises(ValueError, match="out of range"):
+        api.solve(tg, "bfs", root=tg.n)
+    with pytest.raises(ValueError, match="unknown backend"):
+        api.solve(tg, "bfs", root=0, backend="pallas")
+    with pytest.raises(ValueError, match="unknown policy"):
+        api.solve(tg, "bfs", root=0, policy="sideways")
+    with pytest.raises(KeyError, match="unknown algorithm"):
+        api.solve(tg, "wcc")
