@@ -1,6 +1,8 @@
 """repro_torch.api — one k-relaxation API for the graph workloads.
-PyTorch port of ``repro.api`` (``solve`` for BFS, PageRank and
-Δ-stepping SSSP; batching, telemetry and resilience are later slices).
+PyTorch port of ``repro.api``: ``solve`` for BFS, PageRank, personalized
+PageRank and Δ-stepping SSSP, and ``solve_batch`` for B queries of the
+source-parameterized ones in one engine run (telemetry and resilience
+are later slices).
 
     from repro_torch import api
     from repro_torch.graphs import kronecker
@@ -9,6 +11,8 @@ PyTorch port of ``repro.api`` (``solve`` for BFS, PageRank and
     r = api.solve(g, "pagerank", iters=20, backend="cuda")  # CUDA kernels
     r = api.solve(g, "bfs", root=0, policy="auto", backend="cuda")
     r = api.solve(g, "sssp_delta", source=0, delta=2.0)     # dense backend
+    br = api.solve_batch(g, "ppr", sources=[0, 5, 9], backend="cuda")
+    br.states[1]["ranks"]          # == solve(g, "ppr", source=5).state
 
 ``policy`` picks the direction per step (``"push"``, ``"pull"``,
 ``"gs"``, ``"grs"``, ``"auto"`` or a DirectionPolicy); ``backend`` the
@@ -23,7 +27,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 
 from .core.algorithms import (bfs_init, bfs_program, pagerank_init,
-                              pagerank_program, sssp_delta_finalize,
+                              pagerank_program, ppr_finalize, ppr_init,
+                              ppr_program, sssp_delta_finalize,
                               sssp_delta_init, sssp_delta_program)
 from .core.backend import (CudaBackend, DenseBackend, EllBackend,
                            ExchangeBackend)
@@ -34,7 +39,8 @@ from .core.engine import PushPullEngine
 from .graphs.structure import Graph
 
 __all__ = ["RunResult", "AlgorithmSpec", "EngineCache", "register",
-           "algorithms", "get_spec", "solve", "validate_vertex_indices",
+           "algorithms", "get_spec", "solve", "solve_batch",
+           "validate_vertex_indices",
            "POLICY_SHORTHANDS", "BACKEND_SHORTHANDS", "DenseBackend",
            "EllBackend", "CudaBackend", "ExchangeBackend", "Fixed",
            "GenericSwitch", "GreedySwitch", "AutoSwitch", "Direction"]
@@ -130,7 +136,8 @@ POLICY_SHORTHANDS: dict[str, Callable[[], DirectionPolicy]] = {
 }
 
 # one shared instance per name: engines are cached per backend instance,
-# and the CUDA backend keeps its per-graph bin plans and layouts
+# and the CUDA backend keeps its per-graph bin plans, layouts and tuner
+# results
 BACKEND_SHORTHANDS: dict[str, ExchangeBackend] = {
     "dense": DenseBackend(),
     "ell": EllBackend(),
@@ -198,7 +205,8 @@ def solve(g: Graph, algorithm: str, *,
 
     Args:
         g: the :class:`~repro_torch.graphs.structure.Graph`.
-        algorithm: ``"bfs"``, ``"pagerank"`` or ``"sssp_delta"``.
+        algorithm: ``"bfs"``, ``"pagerank"``, ``"ppr"`` or
+            ``"sssp_delta"``.
         policy: a DirectionPolicy or ``"push"``, ``"pull"``, ``"gs"``,
             ``"grs"``, ``"auto"``; default: the algorithm's own.
         backend: an ExchangeBackend or ``"dense"`` (default), ``"ell"``,
@@ -250,6 +258,33 @@ def solve(g: Graph, algorithm: str, *,
                      trace=res.trace)
 
 
+def solve_batch(g: Graph, algorithm: str, *, sources,
+                policy: Optional[DirectionPolicy | str] = None,
+                backend: Optional[ExchangeBackend | str] = None,
+                max_steps: Optional[int] = None, **kw):
+    """Run B queries of ``algorithm`` (one per entry of ``sources``) as
+    one batched engine run over ``g``: B payload columns, one graph scan
+    per pull step, one union-frontier scatter per push step. Per-query
+    results equal a loop of single-source :func:`solve` calls.
+
+    Only ``"bfs"``, ``"sssp_delta"`` and ``"ppr"`` have batched programs
+    (``repro_torch.service.batchable()``).
+
+        br = api.solve_batch(g, "bfs", sources=[0, 5, 9])
+        br.states[1]["dist"]       # == solve(g, "bfs", root=5).state["dist"]
+
+    Returns a :class:`repro_torch.service.BatchResult`.
+
+    Raises:
+        KeyError: unknown algorithm, or one without a batched program.
+        ValueError: empty ``sources``, a source outside ``[0, n)``, or
+            an unsupported (policy × backend) cell.
+    """
+    from .service.batch import solve_batch as _solve_batch
+    return _solve_batch(g, algorithm, sources=sources, policy=policy,
+                        backend=backend, max_steps=max_steps, **kw)
+
+
 register(AlgorithmSpec(
     name="bfs", build=bfs_program, init=bfs_init,
     runtime_keys=("root",), paper="§3.3/§4.3 Alg. 3"))
@@ -257,6 +292,11 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="pagerank", build=pagerank_program, init=pagerank_init,
     default_policy=Fixed(Direction.PULL), paper="§3.1/§4.1 Alg. 1"))
+
+register(AlgorithmSpec(
+    name="ppr", build=ppr_program, init=ppr_init, finalize=ppr_finalize,
+    default_policy=Fixed(Direction.PULL), runtime_keys=("source",),
+    paper="§3.1 (personalized variant; service-layer batching)"))
 
 register(AlgorithmSpec(
     name="sssp_delta", build=sssp_delta_program, init=sssp_delta_init,

@@ -10,7 +10,9 @@ combine messages per destination" — and charges the §4 counters:
     back to the CSC segment scatter.
   * ``CudaBackend``  — the ELL semantics executed by the hand-written
     CUDA kernels (port of the JAX package's ``PallasBackend``): full-scan
-    ``ell_spmv``, frontier ``ell_pull_frontier`` and binned ``coo_push``.
+    ``ell_spmv``, frontier ``ell_pull_frontier`` and binned ``coo_push``
+    ("scan" or the one-hot "mxu" reduce), with block sizes and the push
+    strategy from the autotuner (``kernels/tune.py``).
 
 The engine's host loop decides the direction before it calls a backend,
 so ``relax`` dispatches on a concrete :class:`Direction`.
@@ -25,7 +27,9 @@ from typing import Callable, Optional
 import torch
 
 from ..graphs.structure import Graph, pad_values
-from ..kernels.coo_push import build_push_plan, coo_push
+from ..kernels import tune
+from ..kernels.coo_push import (DEFAULT_BIN_N, MXU_MAX_BIN, build_push_plan,
+                                coo_push)
 from ..kernels.ell_pull_frontier import (default_pull_cap,
                                          ell_pull_frontier_full,
                                          frontier_rows)
@@ -186,8 +190,20 @@ class CudaBackend(EllBackend):
     and fewer than ``m / d_ell``) runs ``ell_pull_frontier`` on the row
     list compacted to the next power of two ≥ 8; anything else runs the
     full scan and masks. ``push`` runs ``coo_push`` over a bin plan built
-    once per graph. Charges equal ``predict_pull_scan`` (pull) and
-    ``m`` reads + ``m`` writes of binning plus ``k·width`` (push).
+    once per (graph, bin width). Charges equal ``predict_pull_scan``
+    (pull) and ``m`` reads + ``m`` writes of binning plus ``k·width``
+    (push).
+
+    Block sizes and the push reduce strategy come from
+    ``kernels/tune.py``, probed once per (graph shape, payload shape,
+    device; the frontier pull also keys on the compacted row capacity)
+    and cached on this instance and on disk, unless pinned through
+    ``block_n`` (pull rows per CTA), ``block_e`` (push edge chunk),
+    ``push_block_n`` (push bin width) and ``push_strategy`` ("scan" |
+    "mxu"). A partial pin overrides only its own part (a pinned "mxu"
+    over a tuned bin wider than 256 takes 256, the widest bin its kernel
+    takes). With ``autotune=False`` each unpinned part takes its
+    ladder's first rung.
 
     Cells outside the kernels' coverage — a msg_fn other than copy, mul
     or add, a combine outside sum/min/max, rank > 2, a dtype outside
@@ -197,11 +213,17 @@ class CudaBackend(EllBackend):
     """
     pull_scans_all = False
 
+    block_n: Optional[int] = None        # pull rows per CTA (None = tune)
+    block_e: Optional[int] = None        # push edge chunk
+    push_block_n: Optional[int] = None   # push destination-bin width
+    push_strategy: Optional[str] = None  # push reduce ("scan" | "mxu")
+    autotune: bool = True
     stats: dict = dataclasses.field(
         default_factory=lambda: {"kernel_pull": 0, "kernel_push": 0,
                                  "kernel_pull_frontier": 0,
                                  "skip_empty_pull": 0,
                                  "fallback_pull": 0, "fallback_push": 0})
+    _tuned: dict = dataclasses.field(default_factory=dict, repr=False)
     _plans: dict = dataclasses.field(default_factory=dict, repr=False)
     _layouts: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -219,21 +241,70 @@ class CudaBackend(EllBackend):
             return None
         return classify_msg_fn(msg_fn)
 
-    def _cached(self, cache: dict, g: Graph, build: Callable):
-        # keyed by id(g) with a weakref guard against id reuse
-        hit = cache.get(id(g))
+    def _cached(self, cache: dict, g: Graph, key, build: Callable):
+        # keyed by (id(g), key) with a weakref guard against id reuse
+        hit = cache.get((id(g), key))
         if hit is not None and hit[0]() is g:
             return hit[1]
         obj = build()
-        cache[id(g)] = (weakref.ref(g), obj)
+        cache[(id(g), key)] = (weakref.ref(g), obj)
         return obj
 
-    def push_plan(self, g: Graph):
-        return self._cached(self._plans, g, lambda: build_push_plan(
-            g.coo_src, g.coo_dst, g.coo_w, g.n))
+    def push_plan(self, g: Graph, bin_n: int = DEFAULT_BIN_N):
+        """The phase-1 bin layout of ``g`` for bins of ``bin_n``
+        destinations, built once."""
+        return self._cached(self._plans, g, bin_n, lambda: build_push_plan(
+            g.coo_src, g.coo_dst, g.coo_w, g.n, bin_n))
 
     def dual_layout(self, g: Graph):
-        return self._cached(self._layouts, g, lambda: build_dual_ell(g))
+        return self._cached(self._layouts, g, "dual",
+                            lambda: build_dual_ell(g))
+
+    def _tune(self, key: tuple, probe: Callable, default: Callable):
+        if key not in self._tuned:
+            self._tuned[key] = probe() if self.autotune else default()
+        return self._tuned[key]
+
+    def _pull_block_n(self, g: Graph, values, combine, mode) -> int:
+        if self.block_n is not None:
+            return self.block_n
+        width, dt = _width(values), values.dtype
+        return self._tune(
+            ("pull", g.n, g.d_ell, width, dt, combine, mode),
+            lambda: tune.tune_pull(g.n, g.d_ell, width, dt, combine, mode,
+                                   values.device),
+            lambda: tune.pull_candidates(g.n)[0])
+
+    def _pull_frontier_block(self, g: Graph, rows: int, values, combine,
+                             mode) -> int:
+        width, dt = _width(values), values.dtype
+        return self._tune(
+            ("pullf", g.n, g.d_ell, rows, width, dt, combine, mode),
+            lambda: tune.tune_pull_frontier(g.n, g.d_ell, rows, width, dt,
+                                            combine, mode, values.device),
+            lambda: tune.pull_frontier_candidates(g.n, rows)[0])
+
+    def push_blocks(self, g: Graph, values, combine,
+                    mode) -> tuple[int, int, str]:
+        """(block_e, bin width, strategy) of a push of ``values``: the
+        pins, then the tuner's choice for the rest."""
+        if (self.block_e is not None and self.push_block_n is not None
+                and self.push_strategy is not None):
+            return self.block_e, self.push_block_n, self.push_strategy
+        width, dt = _width(values), values.dtype
+        be, bn, strat = self._tune(
+            ("push", g.n, g.m, width, dt, combine, mode),
+            lambda: tune.tune_push(g.n, g.m, width, dt, combine, mode,
+                                   values.device),
+            lambda: tune.push_candidates(g.n, g.m)[0])
+        # partial pins override only their own component; a pinned "mxu"
+        # over a tuned bin takes at most the widest bin its kernel takes
+        strat = self.push_strategy or strat
+        if self.push_block_n is not None:
+            bn = self.push_block_n
+        elif strat == "mxu":
+            bn = min(bn, MXU_MAX_BIN)
+        return self.block_e or be, bn, strat
 
     def _pull_scan_stats(self, g: Graph, touched) -> tuple:
         """(edges_read, rows_written, count, fits) of a kernel pull with
@@ -268,7 +339,9 @@ class CudaBackend(EllBackend):
         if touched is None:
             self.stats["kernel_pull"] += 1
             out = ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
-                           combine=combine, msg=mode)
+                           combine=combine, msg=mode,
+                           block_n=self._pull_block_n(g, values, combine,
+                                                      mode))
             return out, cost.charge(reads=counter(g.m, g.device) * width,
                                     writes=counter(g.n, g.device) * width)
         edges, verts, cnt, fits = self._pull_scan_stats(g, touched)
@@ -284,12 +357,17 @@ class CudaBackend(EllBackend):
             rows_n = max(8, 1 << (cnt - 1).bit_length())
             out = ell_pull_frontier_full(
                 pad_values(values), layout.in_idx, layout.in_w,
-                frontier_rows(touched, rows_n), combine=combine, msg=mode)
+                frontier_rows(touched, rows_n), combine=combine, msg=mode,
+                block_r=self._pull_frontier_block(g, rows_n, values,
+                                                  combine, mode))
         else:
             self.stats["kernel_pull"] += 1
             out = mask_untouched(
                 ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
-                         combine=combine, msg=mode), touched, combine)
+                         combine=combine, msg=mode,
+                         block_n=self._pull_block_n(g, values, combine,
+                                                    mode)),
+                touched, combine)
         return out, cost.charge(reads=counter(edges * width, g.device),
                                 writes=counter(verts * width, g.device))
 
@@ -299,9 +377,16 @@ class CudaBackend(EllBackend):
             self.stats["fallback_push"] += 1
             return super().push(g, values, frontier, combine, msg_fn, cost)
         self.stats["kernel_push"] += 1
-        out = coo_push(values, frontier, g.coo_src, g.coo_dst, g.coo_w, g.n,
-                       combine=combine, msg=mode,
-                       plan=self.push_plan(g) if g.m else None)
+        if g.m:
+            block_e, bin_n, strategy = self.push_blocks(g, values, combine,
+                                                        mode)
+            out = coo_push(values, frontier, g.coo_src, g.coo_dst, g.coo_w,
+                           g.n, combine=combine, msg=mode,
+                           plan=self.push_plan(g, bin_n), strategy=strategy,
+                           block_e=block_e)
+        else:
+            out = coo_push(values, frontier, g.coo_src, g.coo_dst, g.coo_w,
+                           g.n, combine=combine, msg=mode)
         k = frontier_out_edges(g, frontier)
         width = _width(values)
         # the binning pass reads and rewrites every edge once

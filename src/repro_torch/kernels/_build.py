@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push")
+KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,13 +38,16 @@ _L = ctypes.c_longlong
 # as c_void_p, so ctypes never cuts a 64-bit address)
 _SIGNATURES = {
     "ell_spmv": ("repro_ell_spmv",
-                 [_P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P]),
+                 [_P, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P]),
     "ell_pull_frontier": ("repro_ell_pull_frontier",
-                          [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L, _I,
-                           _I, _P]),
+                          [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L,
+                           _I, _I, _P]),
     "coo_push": ("repro_coo_push",
-                 [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I,
-                  _P]),
+                 [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I,
+                  _I, _P]),
+    "coo_push_mxu": ("repro_coo_push_mxu",
+                     [_P, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
+                      _L, _I, _I, _P]),
 }
 
 _LIBS: dict = {}

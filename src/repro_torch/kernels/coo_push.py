@@ -1,7 +1,7 @@
 """Binned, contention-free push relaxation.
 
-Port of ``repro.kernels.coo_push.coo_push_pallas`` (strategy "scan"),
-with its phase-1 binning:
+Port of ``repro.kernels.coo_push.coo_push_pallas`` (both strategies,
+"scan" and "mxu"), with its phase-1 binning:
 
 **Phase 1 — binning** (:func:`build_push_plan`, host, once per graph).
 Bin ``b`` owns destinations ``[b·bin_n, (b+1)·bin_n)``. The COO edges are
@@ -13,12 +13,31 @@ weight 0 beyond the bin's edges) beside a within-bin CSR pointer
 ``pa_regroup_by_dst`` and gathers in-trace in ``bin_plan_traced``.
 
 **Phase 2 — per-bin reduce** (:func:`coo_push`). Every destination
-combines ``msg(x[src], w)`` over its in-edges whose source is active.
-On a CUDA tensor this launches ``csrc/coo_push.cu`` (one CTA per bin,
-one thread per destination); on a CPU tensor it runs
-:func:`coo_push_plain`. Destinations with no active in-edge hold the
-identity. The output dtype is the message promotion, with no int
-widening; float sums accumulate in float64 and round once.
+combines ``msg(x[src], w)`` over its in-edges whose source is active,
+by one of two strategies (``PUSH_STRATEGIES``, the tuner's choice):
+
+  * ``"scan"`` — ``csrc/coo_push.cu``: one CTA per bin, one thread per
+    destination walking its run; float sums accumulate in float64 and
+    round once. Plain version: :func:`coo_push_plain`.
+  * ``"mxu"`` — ``csrc/coo_push_mxu.cu``: float32 sums as the one-hot
+    product ``onehot[bin_n, block_e] @ msgs[block_e, B]`` on the tensor
+    cores, accumulated in float32; min, max, integer and float64 sums as
+    a masked window reduce. Plain version: :func:`coo_push_mxu_plain`,
+    which keeps the JAX package's numerics (each ``block_e`` chunk
+    reduced in the message dtype, then chunks combined). Bins are at
+    most 256 destinations wide on the card.
+
+On a CUDA tensor :func:`coo_push` launches the strategy's kernel; on a
+CPU tensor it runs the plain version. Destinations with no active
+in-edge hold the identity. The output dtype is the message promotion,
+with no int widening.
+
+``block_e`` is the edge chunk a kernel stages in shared memory (clamped
+to 4,096 slots for the scan, 256 for the one-hot kernel's tensor-core
+path and 1,024 for its window reduce). The plan's capacity stays aligned to 128 whatever ``block_e``
+is; the kernels mask the ragged last chunk. (The JAX package aligns the
+capacity to ``block_e``, which for the tuner's whole-edge-list rung
+would make a ``[nb, m]`` plan.)
 """
 
 from __future__ import annotations
@@ -32,14 +51,21 @@ import torch
 from ..graphs.structure import resolve_device
 from ..sparse.segment import reduce_identity
 from ._build import check_status, load
-from .ell_spmv import (COMBINE_CODES, DTYPE_CODES, MSG_CODES, _msg_dtype,
-                       _stream, apply_msg)
+from .ell_spmv import (_PLAIN_CHUNK, COMBINE_CODES, DTYPE_CODES, MSG_CODES,
+                       _msg_dtype, _stream, apply_msg)
 
 __all__ = ["PushBinPlan", "build_push_plan", "default_bin_cap",
-           "coo_push", "coo_push_plain", "DEFAULT_BIN_N"]
+           "coo_push", "coo_push_plain", "coo_push_mxu_plain",
+           "DEFAULT_BIN_N", "DEFAULT_BLOCK_E", "MXU_MAX_BIN",
+           "PUSH_STRATEGIES"]
 
-# destinations per bin = threads per CTA
+PUSH_STRATEGIES = ("scan", "mxu")
+# destinations per bin unless the caller (the tuner) says otherwise
 DEFAULT_BIN_N = 256
+# edge chunk per staging pass (the JAX package's default block_e)
+DEFAULT_BLOCK_E = 512
+# widest bin the one-hot kernel takes (4 warps x 4 tiles of 16 rows)
+MXU_MAX_BIN = 256
 
 
 def _round_up(x: int, q: int) -> int:
@@ -148,17 +174,81 @@ def coo_push_plain(x: torch.Tensor, active: torch.Tensor,
     return out[:n].to(mdt)
 
 
+def coo_push_mxu_plain(x: torch.Tensor, active: torch.Tensor,
+                       plan: PushBinPlan, n: int, combine: str = "sum",
+                       msg: str = "mul",
+                       block_e: int = DEFAULT_BLOCK_E) -> torch.Tensor:
+    """Plain PyTorch version of the one-hot strategy, with the JAX
+    package's numerics: each ``block_e`` chunk of a bin is reduced in the
+    message dtype — ``onehot[bin_n, block_e] @ msgs`` for float sums, a
+    masked window reduce for min, max and integer sums — and the chunks
+    are combined in order. Inactive and padded slots carry the
+    identity."""
+    mdt = _msg_dtype(x.dtype, plan.w.dtype, msg)
+    nb, cap, bin_n = plan.nb, plan.cap, plan.bin_n
+    ident = reduce_identity(combine, mdt)
+    slot = torch.arange(cap, device=x.device)
+    src, dst = plan.src.to(torch.int64), plan.dst.to(torch.int64)
+    valid = ((slot[None, :] < plan.ptr[:, -1:].to(torch.int64))
+             & (dst >= 0) & (dst < n) & (src >= 0) & (src < n))
+    safe = torch.where(valid, src, 0)
+    ok = valid & active[safe]
+    msgs = apply_msg(x[safe], plan.w, msg, mdt)          # [nb, cap(, B)]
+    if msgs.ndim == 2:
+        msgs = msgs[..., None]
+    msgs = torch.where(ok[..., None], msgs, ident)
+    base = torch.arange(nb, device=x.device)[:, None] * bin_n
+    rel = torch.where(valid, dst - base, bin_n)         # [nb, cap]
+    width = msgs.shape[-1]
+    be = max(1, min(block_e, cap))
+    rows = torch.arange(bin_n, device=x.device)[None, :, None]
+    float_sum = combine == "sum" and mdt.is_floating_point
+    acc = torch.full((nb, bin_n, width), ident, dtype=mdt, device=x.device)
+    # bins per group bounds the expanded [g, bin_n, be, B] window
+    group = max(1, _PLAIN_CHUNK // (bin_n * be * width))
+    for b0 in range(0, nb, group):
+        part = acc[b0:b0 + group]
+        for e0 in range(0, cap, be):
+            sel = rel[b0:b0 + group, None, e0:e0 + be] == rows
+            m = msgs[b0:b0 + group, e0:e0 + be]       # [g, be, B]
+            if float_sum:
+                local = torch.matmul(sel.to(mdt), m)
+            else:
+                expanded = torch.where(sel[..., None], m[:, None], ident)
+                if combine == "sum":
+                    local = expanded.sum(dim=2).to(mdt)   # wraps like JAX
+                elif combine == "max":
+                    local = expanded.amax(dim=2)
+                else:
+                    local = expanded.amin(dim=2)
+            if combine == "sum":
+                part += local
+            elif combine == "max":
+                torch.maximum(part, local, out=part)
+            else:
+                torch.minimum(part, local, out=part)
+    out = acc.reshape(nb * bin_n, width)[:n]
+    return out if x.ndim == 2 else out[:, 0]
+
+
 def coo_push(x: torch.Tensor, active: torch.Tensor, src: torch.Tensor,
              dst: torch.Tensor, w: torch.Tensor, n: int,
              combine: str = "sum", msg: str = "mul",
-             plan: Optional[PushBinPlan] = None) -> torch.Tensor:
+             plan: Optional[PushBinPlan] = None, strategy: str = "scan",
+             block_e: int = DEFAULT_BLOCK_E,
+             bin_n: int = DEFAULT_BIN_N) -> torch.Tensor:
     """Two-phase push-combine over dst-sorted COO edges.
 
     x: [n] or [n, B] source payloads; active: bool[n] frontier; src/dst:
     int32 [m] (sorted by dst); w: float32 [m]. Returns [n] or [n, B];
     destinations with no active in-edge hold the combine identity.
-    ``plan`` is the cached phase-1 layout (built here when absent).
+    ``plan`` is the cached phase-1 layout (built here with ``bin_n``
+    destinations per bin when absent; a given plan's own bin width
+    rules). ``strategy`` picks the reduce ("scan" | "mxu") and
+    ``block_e`` the staged edge chunk.
     """
+    if strategy not in PUSH_STRATEGIES:
+        raise ValueError(f"strategy={strategy!r} not in {PUSH_STRATEGIES}")
     if combine not in COMBINE_CODES or msg not in MSG_CODES:
         raise ValueError(f"unsupported combine={combine!r} / msg={msg!r}")
     if x.dtype not in DTYPE_CODES or x.ndim not in (1, 2):
@@ -174,21 +264,36 @@ def coo_push(x: torch.Tensor, active: torch.Tensor, src: torch.Tensor,
                           reduce_identity(combine, odt), dtype=odt,
                           device=x.device)
     if plan is None:
-        plan = build_push_plan(src, dst, w, n)
+        plan = build_push_plan(src, dst, w, n, bin_n)
     if x.device.type == "cpu":
+        if strategy == "mxu":
+            return coo_push_mxu_plain(x, active, plan, n, combine, msg,
+                                      block_e)
         return coo_push_plain(x, active, plan, n, combine, msg)
     if x.device.type != "cuda":
         raise ValueError(f"coo_push runs on cuda or cpu, not {x.device}")
     devs = {t.device for t in (x, active, plan.src, plan.w, plan.ptr)}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {devs}")
+    if strategy == "mxu" and plan.bin_n > MXU_MAX_BIN:
+        raise ValueError(f"the one-hot push kernel takes bins of at most "
+                         f"{MXU_MAX_BIN} destinations, not {plan.bin_n}")
     x, active = x.contiguous(), active.contiguous()
     out = torch.empty((n,) + tuple(x.shape[1:]), dtype=odt, device=x.device)
     width = 1 if x.ndim == 1 else x.shape[1]
+    if strategy == "mxu":
+        fn = load("coo_push_mxu")
+        rc = fn(x.data_ptr(), DTYPE_CODES[x.dtype], active.data_ptr(),
+                plan.src.data_ptr(), plan.dst.data_ptr(), plan.w.data_ptr(),
+                plan.ptr.data_ptr(), out.data_ptr(), n, plan.nb, plan.bin_n,
+                plan.cap, width, int(block_e), COMBINE_CODES[combine],
+                MSG_CODES[msg], _stream())
+        check_status(rc, "coo_push_mxu")
+        return out
     fn = load("coo_push")
     rc = fn(x.data_ptr(), DTYPE_CODES[x.dtype], active.data_ptr(),
             plan.src.data_ptr(), plan.w.data_ptr(), plan.ptr.data_ptr(),
             out.data_ptr(), n, plan.nb, plan.bin_n, plan.cap, width,
-            COMBINE_CODES[combine], MSG_CODES[msg], _stream())
+            int(block_e), COMBINE_CODES[combine], MSG_CODES[msg], _stream())
     check_status(rc, "coo_push")
     return out

@@ -13,9 +13,10 @@
 // sector of indices and one of weights even when it is short.
 //
 // Design: the warp-per-row body of the full scan (ell_rows.cuh), with
-// the row id read once per warp from the compacted list. The backend
-// sends a step here only while R x d_ell undercuts the m-edge full scan,
-// so the kernel never reads more than half the full scan's slots.
+// the row id read once per warp from the compacted list; a CTA walks
+// block_r consecutive entries of the list. The backend sends a step here
+// only while R x d_ell undercuts the m-edge full scan, so the kernel
+// never reads more than half the full scan's slots.
 #include "ell_rows.cuh"
 
 extern "C" int repro_ell_pull_frontier(const void* x, int dtype,
@@ -24,11 +25,13 @@ extern "C" int repro_ell_pull_frontier(const void* x, int dtype,
                                        long long R, long long d_ell,
                                        long long num_sources,
                                        long long row_limit, long long B,
-                                       int combine, int msg, void* stream) {
+                                       long long block_r, int combine,
+                                       int msg, void* stream) {
   rk::EllArgs a{x, static_cast<const int32_t*>(idx),
                 static_cast<const float*>(w),
                 static_cast<const int32_t*>(rows), out, R, d_ell,
-                num_sources, row_limit, B, static_cast<cudaStream_t>(stream)};
+                num_sources, row_limit, B, block_r,
+                static_cast<cudaStream_t>(stream)};
   return static_cast<int>(rk::dispatch<rk::EllLauncher>(dtype, combine, msg,
                                                          a));
 }

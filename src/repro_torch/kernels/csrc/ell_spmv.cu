@@ -11,7 +11,8 @@
 // (d_ell ~9.8k, ~350 slots per real edge) it is ~5.15 GB (~1.5 ms), of
 // which almost all is sentinel padding.
 //
-// Design: one warp per row, lanes striding over the row so each step
+// Design: one warp per row (a CTA walks block_n consecutive rows), lanes
+// striding over the row so each step
 // reads 32 consecutive slots (128 B of indices, 128 B of weights,
 // coalesced); register accumulators and a shuffle reduce, so nothing is
 // staged in shared memory and every row is written once. The kernel
@@ -22,11 +23,11 @@
 extern "C" int repro_ell_spmv(const void* x, int dtype, const void* idx,
                               const void* w, void* out, long long n,
                               long long d_ell, long long num_sources,
-                              long long B, int combine, int msg,
-                              void* stream) {
+                              long long B, long long block_n, int combine,
+                              int msg, void* stream) {
   rk::EllArgs a{x, static_cast<const int32_t*>(idx),
                 static_cast<const float*>(w), nullptr, out, n, d_ell,
-                num_sources, n, B, static_cast<cudaStream_t>(stream)};
+                num_sources, n, B, block_n, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(rk::dispatch<rk::EllLauncher>(dtype, combine, msg,
                                                          a));
 }

@@ -25,8 +25,9 @@ import torch
 
 from ..sparse.segment import reduce_identity
 from ._build import check_status, load
-from .ell_spmv import (COMBINE_CODES, DTYPE_CODES, MSG_CODES, _check,
-                       _out_dtype, _stream, gather_rows_plain)
+from .ell_spmv import (COMBINE_CODES, DEFAULT_BLOCK_ROWS, DTYPE_CODES,
+                       MSG_CODES, _check, _out_dtype, _stream,
+                       gather_rows_plain)
 
 __all__ = ["ell_pull_frontier", "ell_pull_frontier_plain",
            "ell_pull_frontier_full", "frontier_rows", "default_pull_cap"]
@@ -66,10 +67,11 @@ def ell_pull_frontier_plain(x_padded, ell_idx, ell_w, rows,
 def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
                       ell_w: torch.Tensor, rows: torch.Tensor,
                       combine: str = "sum", msg: str = "mul",
-                      num_sources: Optional[int] = None) -> torch.Tensor:
+                      num_sources: Optional[int] = None,
+                      block_r: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
     """Frontier-restricted pull: combined messages for ``rows`` only,
     [R] or [R, B] aligned with ``rows``; sentinel slots hold the
-    identity."""
+    identity. ``block_r`` is the number of list entries one CTA walks."""
     n, d_ell = ell_idx.shape
     ns = n if num_sources is None else int(num_sources)
     _check(x_padded, ell_idx, ell_w, combine, msg, ns)
@@ -94,7 +96,7 @@ def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
     fn = load("ell_pull_frontier")
     rc = fn(x_padded.data_ptr(), DTYPE_CODES[x_padded.dtype],
             ell_idx.data_ptr(), ell_w.data_ptr(), rows.data_ptr(),
-            out.data_ptr(), r, d_ell, ns, min(n, ns), width,
+            out.data_ptr(), r, d_ell, ns, min(n, ns), width, int(block_r),
             COMBINE_CODES[combine], MSG_CODES[msg], _stream())
     check_status(rc, "ell_pull_frontier")
     return out
@@ -102,13 +104,13 @@ def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
 
 def ell_pull_frontier_full(x_padded: torch.Tensor, ell_idx: torch.Tensor,
                            ell_w: torch.Tensor, rows: torch.Tensor,
-                           combine: str = "sum",
-                           msg: str = "mul") -> torch.Tensor:
+                           combine: str = "sum", msg: str = "mul",
+                           block_r: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
     """Frontier pull scattered back to the full vertex range: touched
     rows carry their combined messages, every other row the identity."""
     n = ell_idx.shape[0]
     compact = ell_pull_frontier(x_padded, ell_idx, ell_w, rows,
-                                combine=combine, msg=msg)
+                                combine=combine, msg=msg, block_r=block_r)
     odt = _out_dtype(x_padded.dtype, ell_w.dtype, msg, combine)
     # one spill row past the end takes the sentinel slots, then is dropped
     base = torch.full((n + 1,) + tuple(compact.shape[1:]),

@@ -4,9 +4,9 @@
 
 Port of ``repro.kernels.ell_spmv.ell_spmv_pallas``. On a CUDA tensor
 :func:`ell_spmv` launches the hand-written kernel in ``csrc/ell_spmv.cu``
-(one warp per row); on a CPU tensor it runs :func:`ell_spmv_plain`, the
-plain PyTorch version of the same function, which is also what the
-kernel is checked against on the card.
+(one warp per row, ``block_n`` rows per CTA); on a CPU tensor it runs
+:func:`ell_spmv_plain`, the plain PyTorch version of the same function,
+which is also what the kernel is checked against on the card.
 
 Surface: combine ∈ {sum, max, min}; payloads [n+1] or [n+1, B] (sentinel
 row at index n); float32/float64/int32/int64; msg ∈ {copy, mul, add};
@@ -26,12 +26,16 @@ from ..sparse.segment import reduce_identity
 from ._build import check_status, load
 
 __all__ = ["ell_spmv", "ell_spmv_plain", "DTYPE_CODES", "COMBINE_CODES",
-           "MSG_CODES"]
+           "MSG_CODES", "DEFAULT_BLOCK_ROWS"]
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                torch.int64: 3}
 COMBINE_CODES = {"sum": 0, "min": 1, "max": 2}
 MSG_CODES = {"copy": 0, "mul": 1, "add": 2}
+
+# rows one CTA of the ELL kernels walks unless the caller (the tuner)
+# says otherwise: one per warp
+DEFAULT_BLOCK_ROWS = 8
 
 # bound on gathered slots per chunk of the plain version (memory, not speed)
 _PLAIN_CHUNK = 1 << 25
@@ -138,13 +142,15 @@ def ell_spmv_plain(x_padded: torch.Tensor, ell_idx: torch.Tensor,
 
 def ell_spmv(x_padded: torch.Tensor, ell_idx: torch.Tensor,
              ell_w: torch.Tensor, combine: str = "sum", msg: str = "mul",
-             num_sources: Optional[int] = None) -> torch.Tensor:
+             num_sources: Optional[int] = None,
+             block_n: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
     """Pull k-relaxation over the ELL layout.
 
     x_padded: [n+1] or [n+1, B] payloads (sentinel row at index n);
     ell_idx: int32 [n, d_ell]; ell_w: float32 [n, d_ell]. Returns [n] or
     [n, B]; empty rows hold the combine identity. ``num_sources`` is the
-    index validity bound (default n).
+    index validity bound (default n). ``block_n`` is the number of rows
+    one CTA walks (the tuner's tile; no effect on the result).
     """
     n, d_ell = ell_idx.shape
     ns = n if num_sources is None else int(num_sources)
@@ -165,6 +171,7 @@ def ell_spmv(x_padded: torch.Tensor, ell_idx: torch.Tensor,
     fn = load("ell_spmv")
     rc = fn(x_padded.data_ptr(), DTYPE_CODES[x_padded.dtype],
             ell_idx.data_ptr(), ell_w.data_ptr(), out.data_ptr(), n, d_ell,
-            ns, width, COMBINE_CODES[combine], MSG_CODES[msg], _stream())
+            ns, width, int(block_n), COMBINE_CODES[combine], MSG_CODES[msg],
+            _stream())
     check_status(rc, "ell_spmv")
     return out

@@ -1,0 +1,383 @@
+"""Autotuner for the CUDA graph kernels: grid search, disk cache.
+PyTorch port of ``repro.kernels.tune``.
+
+The ``CudaBackend`` probes a candidate grid once per (graph shape,
+payload shape, device) and caches the winner twice over:
+
+  * **on disk** under ``~/.cache/repro/tune_torch.json`` (override the
+    directory with ``$REPRO_CACHE_DIR``), keyed by platform × kernel ×
+    shape × dtype × combine × msg, where the platform is the card's
+    (``cuda-sm90`` on an H100) or ``cpu`` (CPU tensors, where the plain
+    versions are what gets timed);
+  * **in memory** (module-level dict), which also serves when the cache
+    directory is unwritable.
+
+Search space — pull: ``block_n`` rungs (rows one CTA walks); frontier
+pull: ``block_r`` rungs over the compacted row list; push: the
+(block_e, block_n = bin width, strategy) grid over both reduce
+strategies (``"scan"`` | ``"mxu"``). The candidate functions return the
+JAX package's tuples. Probes run inline on synthetic data of the shape
+being solved (a seeded ``torch.Generator``; the push uses uniform sorted
+destinations), one warm-up and one timed call each, timed with CUDA
+events on the card. Push candidates are grouped by (strategy, bin
+width): a group whose first rung lands ≥ ``_PRUNE``× behind the
+incumbent is abandoned, since its other rungs only move block_e. The
+pull ladders ascend in tile size, and a probe stops at the first rung
+≥ ``_PRUNE``× behind the incumbent: larger tiles only take parallelism
+away (the last rung, one CTA for the whole range, can take seconds at
+batch width). A probe that fails raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ._build import launch_counts
+from .coo_push import build_push_plan, coo_push
+from .ell_pull_frontier import ell_pull_frontier
+from .ell_spmv import ell_spmv
+
+__all__ = ["pull_candidates", "pull_frontier_candidates",
+           "push_candidates", "tune_pull", "tune_pull_frontier",
+           "tune_push", "tune_stats", "probe_records", "clear_stats",
+           "cache_dir", "clear_memory_cache"]
+
+_PULL_LADDER = (128, 256, 512, 1024, 2048, 4096)
+_EDGE_LADDER = (1024, 4096, 16384)
+_BIN_LADDER = (128, 256, 1024)
+_PRUNE = 2.0
+
+
+def _round_up(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+def pull_candidates(n: int, width: int | None = None) -> tuple[int, ...]:
+    """``block_n`` rungs for the ELL pull kernel: the ladder below n
+    plus the whole (padded) vertex range, which single-column payloads
+    drop whenever sub-n rungs exist."""
+    n_pad = _round_up(max(n, 8), 8)
+    cands = [c for c in _PULL_LADDER if c < n_pad]
+    if not (width == 1 and cands):
+        cands.append(n_pad)
+    return tuple(cands)
+
+
+def pull_frontier_candidates(n: int, rows: int) -> tuple[int, ...]:
+    """``block_r`` rungs for the frontier pull kernel: the pull ladder
+    clipped below the padded row count, plus the whole-list rung."""
+    r_pad = _round_up(max(rows, 8), 8)
+    cands = [c for c in _PULL_LADDER if c < r_pad]
+    cands.append(r_pad)
+    return tuple(cands)
+
+
+def push_candidates(n: int, m: int) -> tuple[tuple[int, int, str], ...]:
+    """(block_e, block_n, strategy) grid for the two-phase push: scan
+    rungs over the full bin ladder, one-hot rungs over bins of at most
+    256 destinations; ordered scan-first so pruning meets the incumbent
+    early."""
+    n_pad = _round_up(max(n, 8), 8)
+    m_pad = _round_up(max(m, 8), 8)
+    bins = sorted({min(b, n_pad) for b in _BIN_LADDER} | {n_pad})
+    edges = sorted({min(e, m_pad) for e in _EDGE_LADDER} | {m_pad})
+    cands = [(e, b, "scan") for b in bins for e in edges]
+    cands += [(e, b, "mxu") for b in bins if b <= 256 for e in edges]
+    return tuple(cands)
+
+
+# -- persistent cache ---------------------------------------------------
+_MEM_CACHE: dict[str, object] = {}
+_DISK: dict | None = None
+_LOCK = threading.Lock()
+_STATS = {"mem_hits": 0, "disk_hits": 0, "misses": 0, "probes": 0,
+          "writes": 0, "write_errors": 0}
+# what each probe did: key, candidates timed, groups (push) or rungs
+# (pull) pruned, winner, seconds and the kernel launches it made (the
+# newest 256)
+_PROBES: collections.deque = collections.deque(maxlen=256)
+
+
+def tune_stats() -> dict[str, int]:
+    """Snapshot of the process-wide tuner counters."""
+    with _LOCK:
+        return dict(_STATS)
+
+
+def probe_records() -> list[dict]:
+    """One record per probe since the last :func:`clear_stats`."""
+    with _LOCK:
+        return [dict(r) for r in _PROBES]
+
+
+def clear_stats() -> None:
+    with _LOCK:
+        for k in _STATS:
+            _STATS[k] = 0
+        _PROBES.clear()
+
+
+def cache_dir() -> str:
+    return os.environ.get(
+        "REPRO_CACHE_DIR",
+        os.path.join(os.path.expanduser("~"), ".cache", "repro"))
+
+
+def _cache_path() -> str:
+    return os.path.join(cache_dir(), "tune_torch.json")
+
+
+def clear_memory_cache() -> None:
+    """Drop the in-memory tier (tests re-point $REPRO_CACHE_DIR)."""
+    global _DISK
+    with _LOCK:
+        _MEM_CACHE.clear()
+        _DISK = None
+
+
+def _platform(device: torch.device) -> str:
+    if device.type != "cuda":
+        return device.type
+    major, minor = torch.cuda.get_device_capability(device)
+    return f"cuda-sm{major}{minor}"
+
+
+def _cache_key(kernel: str, device: torch.device, shape: tuple, width: int,
+               dtype: torch.dtype, combine: str, msg: str) -> str:
+    dims = "x".join(str(s) for s in shape)
+    dname = str(dtype).removeprefix("torch.")
+    return (f"{_platform(device)}|{kernel}|{dims}|w{width}|{dname}|"
+            f"{combine}|{msg}")
+
+
+def _load_disk() -> dict:
+    """The on-disk tier, or {} for a missing, unreadable, truncated or
+    non-dict file (the next write replaces it atomically)."""
+    try:
+        with open(_cache_path()) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return data if isinstance(data, dict) else {}
+
+
+def _cache_get(key: str):
+    global _DISK
+    with _LOCK:
+        if key in _MEM_CACHE:
+            _STATS["mem_hits"] += 1
+            return _MEM_CACHE[key]
+        if _DISK is None:
+            _DISK = _load_disk()
+        hit = _DISK.get(key)
+        if hit is not None:
+            _STATS["disk_hits"] += 1
+            _MEM_CACHE[key] = hit
+        else:
+            _STATS["misses"] += 1
+        return hit
+
+
+def _cache_put(key: str, value) -> None:
+    global _DISK
+    with _LOCK:
+        _STATS["writes"] += 1
+        _MEM_CACHE[key] = value
+        if _DISK is None:
+            _DISK = {}
+        _DISK[key] = list(value) if isinstance(value, tuple) else value
+        path = _cache_path()
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(_DISK, f, indent=0, sort_keys=True)
+            os.replace(tmp, path)
+        except OSError:
+            # unwritable cache directory: the in-memory tier still serves
+            _STATS["write_errors"] += 1
+
+
+def _time(fn, device: torch.device) -> float:
+    """Seconds of one call of ``fn`` after one warm-up call: CUDA events
+    on the card, the host clock on the CPU."""
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def _record(key: str, timed: int, pruned: int, winner, t0: float,
+            launches0: dict) -> None:
+    now = launch_counts()
+    with _LOCK:
+        _PROBES.append({"key": key, "timed": timed, "pruned": pruned,
+                        "winner": winner,
+                        "seconds": time.perf_counter() - t0,
+                        "launches": {k: now[k] - launches0[k]
+                                     for k in now}})
+
+
+def _ladder(key: str, cands, time_one, t0: float, launches0: dict) -> int:
+    """Time ascending tile rungs until one lands ≥ _PRUNE× behind the
+    incumbent; returns the winner."""
+    best, best_t, timed = None, None, 0
+    for c in cands:
+        t = time_one(c)
+        timed += 1
+        if best_t is None or t < best_t:
+            best, best_t = c, t
+        elif t > _PRUNE * best_t:
+            break
+    _record(key, timed, len(cands) - timed, best, t0, launches0)
+    return best
+
+
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _ones(n: int, width: int, dtype, device) -> torch.Tensor:
+    shape = (n,) if width == 1 else (n, width)
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def _cached_int(key: str):
+    hit = _cache_get(key)
+    if hit is not None:
+        try:
+            return int(hit)
+        except (TypeError, ValueError):
+            pass        # poisoned cache entry: re-probe
+    return None
+
+
+def tune_pull(n: int, d_ell: int, width: int, dtype, combine: str,
+              msg: str, device) -> int:
+    """Best ``block_n`` for an ELL pull of this shape on ``device``
+    (synthetic probe, shape-and-platform-keyed, persisted)."""
+    device = torch.device(device)
+    cands = pull_candidates(n, width)
+    if len(cands) == 1:                   # nothing to probe
+        return cands[0]
+    key = _cache_key("pull", device, (n, d_ell), width, dtype, combine,
+                     msg)
+    hit = _cached_int(key)
+    if hit is not None:
+        return hit
+    with _LOCK:
+        _STATS["probes"] += 1
+    t0, launches0 = time.perf_counter(), launch_counts()
+    gen = _generator(device, 0)
+    idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
+                        dtype=torch.int32, device=device)
+    w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+    x = _ones(n + 1, width, dtype, device)
+    best = _ladder(key, cands, lambda b: _time(lambda: ell_spmv(
+        x, idx, w, combine=combine, msg=msg, block_n=b), device), t0,
+        launches0)
+    _cache_put(key, best)
+    return best
+
+
+def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
+                       combine: str, msg: str, device) -> int:
+    """Best ``block_r`` for a frontier pull of ``rows`` compacted rows
+    (keyed on the row capacity on top of the usual shape key)."""
+    device = torch.device(device)
+    cands = pull_frontier_candidates(n, rows)
+    if len(cands) == 1:
+        return cands[0]
+    key = _cache_key("pullf", device, (n, d_ell, rows), width, dtype,
+                     combine, msg)
+    hit = _cached_int(key)
+    if hit is not None:
+        return hit
+    with _LOCK:
+        _STATS["probes"] += 1
+    t0, launches0 = time.perf_counter(), launch_counts()
+    gen = _generator(device, 2)
+    idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
+                        dtype=torch.int32, device=device)
+    w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+    x = _ones(n + 1, width, dtype, device)
+    rids = torch.randperm(n, generator=gen, device=device)[:rows]
+    rids = torch.cat([rids, rids.new_full((max(0, rows - n),), n)])
+    rids = rids.to(torch.int32)
+    best = _ladder(key, cands, lambda b: _time(lambda: ell_pull_frontier(
+        x, idx, w, rids, combine=combine, msg=msg, block_r=b), device), t0,
+        launches0)
+    _cache_put(key, best)
+    return best
+
+
+def tune_push(n: int, m: int, width: int, dtype, combine: str, msg: str,
+              device) -> tuple[int, int, str]:
+    """Best ``(block_e, block_n, strategy)`` for a two-phase push of this
+    shape: grid search with group pruning, persisted."""
+    device = torch.device(device)
+    cands = push_candidates(n, m)
+    if len(cands) == 1:
+        return cands[0]
+    key = _cache_key("push", device, (n, m), width, dtype, combine, msg)
+    hit = _cache_get(key)
+    if hit is not None:
+        try:
+            be, bn, strat = hit
+            return int(be), int(bn), str(strat)
+        except (TypeError, ValueError):
+            pass   # poisoned cache entry: fall through and re-probe
+    with _LOCK:
+        _STATS["probes"] += 1
+    t0, launches0 = time.perf_counter(), launch_counts()
+    gen = _generator(device, 1)
+    dst = torch.sort(torch.randint(0, n, (m,), generator=gen,
+                                   dtype=torch.int32, device=device))[0]
+    src = torch.randint(0, n, (m,), generator=gen, dtype=torch.int32,
+                        device=device)
+    w = torch.ones((m,), dtype=torch.float32, device=device)
+    x = _ones(n, width, dtype, device)
+    active = torch.ones((n,), dtype=torch.bool, device=device)
+    host = (src.cpu().numpy(), dst.cpu().numpy(),
+            np.ones(m, dtype=np.float32))
+    plans: dict[int, object] = {}         # one plan per bin width
+    best, best_t, timed = None, None, 0
+    pruned: set[tuple[str, int]] = set()
+    seen: set[tuple[str, int]] = set()
+    for block_e, block_n, strategy in cands:
+        group = (strategy, block_n)
+        if group in pruned:
+            continue
+        if block_n not in plans:
+            plans[block_n] = build_push_plan(*host, n, block_n,
+                                             device=device)
+        t = _time(lambda: coo_push(
+            x, active, src, dst, w, n, combine=combine, msg=msg,
+            plan=plans[block_n], strategy=strategy, block_e=block_e),
+            device)
+        timed += 1
+        first = group not in seen
+        seen.add(group)
+        if best_t is None or t < best_t:
+            best, best_t = (block_e, block_n, strategy), t
+        elif first and t > _PRUNE * best_t:
+            pruned.add(group)    # the rest of the group only moves block_e
+    _record(key, timed, len(pruned), list(best), t0, launches0)
+    _cache_put(key, best)
+    return best

@@ -5,13 +5,13 @@
 Builds the two graphs ``chip_smoke.py`` runs (the full CA-road stand-in
 and Kronecker scale 16) and, for each (graph, algorithm, policy), runs
 the solve through the CUDA backend three times: once to warm up (bin
-plans, library loads), once for the wall time, and once under
-``torch.profiler`` with CPU and CUDA activities. From the profiled run it
-prints one JSON line: the wall times, the summed device time of every
-kernel and copy on the card, the device's busy share of the profiled
-wall, device operations per step, and the five names that took the most
-device time. Needs a CUDA device; where the profiler records no device
-activity it says so (``"device_events": 0``) instead of a share.
+plans, tuner probes, library loads), once for the wall time, and once
+under ``torch.profiler`` with CPU and CUDA activities. From the profiled
+run it prints one JSON line: the wall times, the summed device time of
+every kernel and copy on the card, the device's busy share of the
+profiled wall, device operations per step, and the five names that took
+the most device time. Needs a CUDA device; where the profiler records no
+device activity it says so (``"device_events": 0``) instead of a share.
 """
 
 from __future__ import annotations

@@ -17,10 +17,11 @@ import torch
 
 import chip_smoke as cs
 from repro_torch import api
-from repro_torch.graphs import erdos_renyi, standin
+from repro_torch.graphs import erdos_renyi, standin, star
 from repro_torch.graphs.structure import pad_values
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tune
 from repro_torch.kernels.coo_push import (build_push_plan, coo_push,
+                                          coo_push_mxu_plain,
                                           coo_push_plain)
 from repro_torch.kernels.ell_pull_frontier import (ell_pull_frontier,
                                                    ell_pull_frontier_full,
@@ -30,6 +31,15 @@ from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_plain
 from repro_torch.core.primitives import mask_untouched
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def tune_cache(tmp_path, monkeypatch):
+    """The autotuned backends write their cache under ``tmp_path``."""
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))
+    tune.clear_memory_cache()
+    yield
+    tune.clear_memory_cache()
 
 
 @pytest.fixture(scope="module")
@@ -85,9 +95,12 @@ def test_each_wrapper_counts_its_launches(graphs, cuda):
     ell_spmv(x, g.ell_idx, g.ell_w)
     ell_pull_frontier(x, g.ell_idx, g.ell_w, rows)
     coo_push(x[:-1], active, g.coo_src, g.coo_dst, g.coo_w, g.n)
+    coo_push(x[:-1], active, g.coo_src, g.coo_dst, g.coo_w, g.n,
+             strategy="mxu")
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "ell_spmv": 1, "ell_pull_frontier": 1, "coo_push": 1}
+        "ell_spmv": 1, "ell_pull_frontier": 1, "coo_push": 1,
+        "coo_push_mxu": 1}
 
 
 def test_frontier_full_equals_masked_full_scan(cuda):
@@ -121,3 +134,67 @@ def test_cuda_solve_matches_dense_on_card(cuda, alg, kw, policy):
                        f"{alg}/{policy} {k}")
     assert be.stats["fallback_pull"] == be.stats["fallback_push"] == 0
     assert got.steps == want.steps and got.converged == want.converged
+
+
+@pytest.mark.parametrize("batch", (None, 8, 32), ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("case", ("ragged", "duplicate_edges", "star"))
+def test_mxu_push_matches_plain(graphs, cuda, case, batch):
+    """The one-hot push against its plain version over combine × dtype ×
+    msg, with bins of 8, 100 and 256 and chunks of 64 and 4,096 slots;
+    ``star`` has one hub taking every edge of its bin. The plain version
+    sums float32 in float32 (the reference's numerics), and two float32
+    sums of the hub's ~2,000 terms agree to 1e-5 only when the terms do
+    not cancel, so the star's float payloads are non-negative."""
+    g = star(3000, device=cuda) if case == "star" else graphs[case]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    active = torch.rand(g.n, generator=gen, device=cuda) < 0.7
+    for bin_n in (8, 100, 256):
+        plan = build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, bin_n)
+        for i, (dtype, combine, msg) in enumerate(
+                (d, c, m) for d in cs.DTYPES for c in cs.COMBINES
+                for m in cs.MSGS):
+            shape = (g.n,) + (() if batch is None else (batch,))
+            x = cs.payload(shape, dtype, i, cuda)
+            if case == "star" and dtype.is_floating_point:
+                x = x.abs()
+            for block_e in (64, 4096):
+                got = coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w,
+                               g.n, combine, msg, plan=plan,
+                               strategy="mxu", block_e=block_e)
+                want = coo_push_mxu_plain(x, active, plan, g.n, combine,
+                                          msg, block_e)
+                cs.max_abs_err(got, want, combine,
+                               f"mxu {case} bin {bin_n} {dtype} {combine} "
+                               f"{msg} be {block_e}")
+
+
+def test_mxu_push_refuses_wide_bins(graphs, cuda):
+    g = graphs["ragged"]
+    plan = build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, 512)
+    x = torch.ones(g.n, device=cuda)
+    active = torch.ones(g.n, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="at most 256"):
+        coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w, g.n, plan=plan,
+                 strategy="mxu")
+
+
+@pytest.mark.parametrize("strategy", ("scan", "mxu"))
+@pytest.mark.parametrize("alg,kw,key", [("bfs", {}, "root"),
+                                        ("sssp_delta", {"delta": 4.0},
+                                         "source"),
+                                        ("ppr", {}, "source")])
+def test_batched_solve_equals_single_source_on_card(cuda, alg, kw, key,
+                                                    strategy):
+    g = standin("rca", scale=1 / 256, weighted=True, device=cuda)
+    sources = [0, 17, 300, 17, 4000]
+    be = api.CudaBackend(push_strategy=strategy, autotune=False)
+    br = api.solve_batch(g, alg, sources=sources, policy="push",
+                         backend=be, **kw)
+    for i, s in enumerate(sources):
+        one = api.solve(g, alg, policy="push", backend=be, **{key: s}, **kw)
+        for k, want in one.state.items():
+            cs.max_abs_err(br.states[i][k], want,
+                           "sum" if alg == "ppr" else "min",
+                           f"{alg}/{strategy} source {s} {k}")
+    assert be.stats["fallback_pull"] == be.stats["fallback_push"] == 0
+    assert bool(br.done.all())

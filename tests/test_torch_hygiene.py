@@ -37,6 +37,11 @@ def port_modules() -> list[str]:
 
 
 def test_modules_import_without_jax_or_repro():
+    # the serving slice's modules are among those checked
+    assert {"repro_torch.service.scheduler", "repro_torch.service.batch",
+            "repro_torch.service.cache", "repro_torch.service.programs",
+            "repro_torch.resilience.errors", "repro_torch.kernels.tune",
+            "repro_torch.core.algorithms.ppr"} <= set(port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for name in {port_modules() + ['chip_smoke']!r}:\n"
@@ -73,7 +78,7 @@ def test_cuda_sources_have_a_plain_c_interface():
     """The kernels build with nvcc alone: no PyTorch headers."""
     sources = sorted((PKG / "kernels" / "csrc").glob("*.cu*"))
     assert {p.stem for p in sources if p.suffix == ".cu"} == {
-        "ell_spmv", "ell_pull_frontier", "coo_push"}
+        "ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu"}
     for p in sources:
         assert "torch/" not in p.read_text() and "ATen" not in p.read_text()
 

@@ -1,0 +1,202 @@
+"""The port's batched serving against the JAX package's ``repro.service``.
+
+  * ``api.solve_batch`` for BFS, Δ-stepping SSSP and personalized
+    PageRank against ``repro.api.solve_batch``, backends paired
+    dense↔dense, ell↔ell and cuda↔pallas (blocks and push strategy
+    pinned on both sides, for both strategies; on the CPU the port runs
+    each kernel's plain version, the reference its Pallas kernels in
+    interpret mode), under push and pull;
+  * ``QueryService`` against the reference ``QueryService`` on the same
+    submit sequence: results, cache hits, coalescing, chunk and batch
+    counts, ``AdmissionError`` past ``max_queue`` and
+    ``DeadlineExceeded`` under an injected clock.
+
+Integer and min/max state bit for bit, float sums rtol = atol = 1e-5;
+Cost counters, steps, push steps, epochs, converged and done exactly.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import api as ref_api
+from repro.core import PallasBackend
+from repro.graphs import erdos_renyi as ref_erdos_renyi
+from repro.service import QueryService as RefQueryService
+from repro_torch import api
+from repro_torch.core import CudaBackend
+from repro_torch.graphs import GRAPH_ARRAYS, graph_from_arrays
+from repro_torch.resilience import AdmissionError, DeadlineExceeded
+from repro_torch.service import QueryService, batchable
+
+ALGS = {"bfs": {}, "sssp_delta": {"delta": 2.5}, "ppr": {}}
+SOURCES = [0, 3, 7, 3, 101]
+PAIRS = ("dense", "ell", "cuda-scan", "cuda-mxu")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    g = ref_erdos_renyi(120, 4.0, seed=11, weighted=True)
+    tg = graph_from_arrays({f: np.asarray(getattr(g, f))
+                            for f in GRAPH_ARRAYS},
+                           n=g.n, m=g.m, d_ell=g.d_ell, device="cpu")
+    return g, tg
+
+
+def backends(name: str):
+    """(reference, port) backends of one pair; the CUDA side pinned so
+    neither tuner probes or writes a cache file."""
+    if not name.startswith("cuda"):
+        return name, name
+    strategy = name.split("-")[1]
+    pins = dict(autotune=False, block_n=64, block_e=128, push_block_n=64,
+                push_strategy=strategy)
+    return PallasBackend(**pins), CudaBackend(**pins)
+
+
+def assert_state(got: dict, want: dict, what: str):
+    assert sorted(got) == sorted(want), what
+    for k in want:
+        a, b = got[k].numpy(), np.asarray(want[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, k)
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{what} {k}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("policy", ("push", "pull"))
+@pytest.mark.parametrize("backend", PAIRS)
+@pytest.mark.parametrize("alg", sorted(ALGS))
+def test_solve_batch_matches_reference(pair, alg, backend, policy):
+    g, tg = pair
+    ref_be, port_be = backends(backend)
+    want = ref_api.solve_batch(g, alg, sources=SOURCES, policy=policy,
+                               backend=ref_be, **ALGS[alg])
+    got = api.solve_batch(tg, alg, sources=SOURCES, policy=policy,
+                          backend=port_be, **ALGS[alg])
+    assert got.batch == want.batch == len(SOURCES)
+    for i in range(len(SOURCES)):
+        assert_state(got.states[i], want.states[i], f"query {i}")
+    assert got.cost.as_dict() == want.cost.as_dict()
+    assert (got.steps, got.push_steps, got.epochs, got.converged) == (
+        int(want.steps), int(want.push_steps), int(want.epochs),
+        bool(want.converged))
+    np.testing.assert_array_equal(got.done.numpy(), np.asarray(want.done))
+    if isinstance(port_be, CudaBackend):
+        assert port_be.stats["fallback_push"] == 0
+        assert port_be.stats["fallback_pull"] == 0
+
+
+def test_solve_batch_rejects_bad_inputs(pair):
+    _, tg = pair
+    assert batchable() == ["bfs", "ppr", "sssp_delta"]
+    with pytest.raises(KeyError, match="no batched program"):
+        api.solve_batch(tg, "pagerank", sources=[0])
+    with pytest.raises(ValueError, match="non-empty"):
+        api.solve_batch(tg, "bfs", sources=[])
+    with pytest.raises(ValueError, match="out of range"):
+        api.solve_batch(tg, "bfs", sources=[0, tg.n])
+
+
+# -- QueryService ---------------------------------------------------------
+def drive(svc_cls, g, backend):
+    """One submit sequence: three groups, a duplicate that coalesces, an
+    unbatchable query, slot refills over short chunks, then a repeat that
+    hits the cache."""
+    svc = svc_cls(g, slots=3, chunk_steps=3)
+    subs = ([("bfs", s, {}) for s in (0, 5, 9, 12, 40)]
+            + [("ppr", s, {}) for s in (2, 2, 30)]
+            + [("sssp_delta", s, {"delta": 2.5}) for s in (1, 77, 3)]
+            + [("pagerank", None, {"iters": 5})])
+    rids = [svc.submit(a, s, backend=backend, **kw) for a, s, kw in subs]
+    svc.run_until_complete()
+    again = svc.submit("bfs", 9, backend=backend)
+    out = []
+    for rid in rids + [again]:
+        rec = svc.record(rid)
+        out.append((rec.algorithm, rec.state, rec.cached, rec.converged))
+    return out, svc.stats()
+
+
+STAT_KEYS = ("submitted", "pending", "coalesced", "batches_started",
+             "chunks_run", "force_retired", "deadline_expired",
+             "admission_rejected")
+
+
+@pytest.mark.parametrize("backend", ("dense", "cuda-mxu"))
+def test_query_service_matches_reference(pair, backend):
+    g, tg = pair
+    ref_be, port_be = backends(backend)
+    want, want_stats = drive(RefQueryService, g, ref_be)
+    got, got_stats = drive(QueryService, tg, port_be)
+    for (alg, gs, gc, gv), (_, ws, wc, wv) in zip(got, want):
+        if not isinstance(ws, dict):
+            gs, ws = {"rank": gs}, {"rank": ws}
+        assert_state(gs, jax.device_get(ws), alg)
+        assert (gc, gv) == (wc, wv), alg
+    assert got[-1][2] is True                  # the repeat hit the cache
+    assert got_stats["coalesced"] == 1
+    for k in STAT_KEYS:
+        assert got_stats[k] == want_stats[k], k
+    assert got_stats["cache"] == want_stats["cache"]
+
+
+def test_admission_control_matches_reference(pair):
+    g, tg = pair
+    results = []
+    for cls, graph, err in ((RefQueryService, g, None),
+                            (QueryService, tg, AdmissionError)):
+        svc = cls(graph, max_queue=2)
+        svc.submit("bfs", 0)
+        svc.submit("bfs", 1)
+        with pytest.raises(RuntimeError) as exc:
+            svc.submit("bfs", 2)
+        assert type(exc.value).__name__ == "AdmissionError"
+        if err is not None:
+            assert isinstance(exc.value, err) and exc.value.max_queue == 2
+        svc.submit("bfs", 1)                     # coalesces: admitted
+        svc.run_until_complete()
+        results.append((svc.stats()["admission_rejected"],
+                        svc.stats()["coalesced"], svc.stats()["submitted"]))
+    assert results[0] == results[1] == (1, 1, 3)
+
+
+def test_deadlines_match_reference(pair):
+    g, tg = pair
+    outcomes = []
+    for cls, graph in ((RefQueryService, g), (QueryService, tg)):
+        now = [0.0]
+        svc = cls(graph, slots=2, chunk_steps=2, clock=lambda: now[0])
+        late = svc.submit("sssp_delta", 1, delta=2.5, deadline_ms=5.0)
+        ok = svc.submit("sssp_delta", 2, delta=2.5)
+        queued = svc.submit("ppr", 4, deadline_ms=50.0)
+        now[0] = 0.02                     # 20 ms: `late` has expired
+        svc.run_until_complete()
+        with pytest.raises(RuntimeError) as exc:
+            svc.poll(late)
+        cause = exc.value.__cause__
+        assert type(cause).__name__ == "DeadlineExceeded"
+        assert svc.status(late)["status"] == "failed"
+        outcomes.append((cause.where, svc.poll(ok) is not None,
+                         svc.poll(queued) is not None,
+                         svc.stats()["deadline_expired"]))
+        if cls is QueryService:
+            assert isinstance(cause, DeadlineExceeded)
+    assert outcomes[0] == outcomes[1]
+
+
+def test_batched_results_do_not_alias_the_running_batch(pair):
+    """A finished query's state is a copy: refilling its slot does not
+    change what the caller already holds."""
+    _, tg = pair
+    svc = QueryService(tg, slots=2, chunk_steps=1)
+    rids = [svc.submit("bfs", s) for s in (0, 50, 60, 70)]
+    svc.run_until_complete()
+    for rid, s in zip(rids, (0, 50, 60, 70)):
+        want = api.solve(tg, "bfs", root=s).state
+        got = svc.poll(rid)
+        for k in want:
+            assert torch.equal(got[k], want[k])

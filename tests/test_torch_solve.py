@@ -47,6 +47,12 @@ def ref_backend(name: str):
                          push_block_n=64, push_strategy="scan")
 
 
+def port_cuda_backend() -> CudaBackend:
+    """The port's side pinned the same way (no probe, no cache file)."""
+    return CudaBackend(autotune=False, block_n=64, block_e=128,
+                       push_block_n=64, push_strategy="scan")
+
+
 def assert_states(got, want):
     want_leaves = jax.tree_util.tree_leaves(want)
     got_leaves = ([got[k] for k in sorted(got)] if isinstance(got, dict)
@@ -69,7 +75,7 @@ def test_solve_matches_reference(pair, alg, policy, backend):
     kw = ALGS[alg]
     want = ref_api.solve(g, alg, policy=policy,
                          backend=ref_backend(backend), trace=TRACE, **kw)
-    port_backend = CudaBackend() if backend == "cuda" else backend
+    port_backend = port_cuda_backend() if backend == "cuda" else backend
     got = api.solve(tg, alg, policy=policy, backend=port_backend,
                     trace=TRACE, **kw)
     assert_states(got.state, want.state)
@@ -90,7 +96,7 @@ def test_cuda_backend_reaches_all_three_kernel_paths(pair):
     """Over the slice, the CUDA backend dispatches the full scan, the
     frontier pull, the binned push and the empty-set skip."""
     _, tg = pair
-    be = CudaBackend()
+    be = port_cuda_backend()
     for alg, kw in ALGS.items():
         for policy in ("push", "pull"):
             api.solve(tg, alg, policy=policy, backend=be, **kw)
@@ -104,7 +110,7 @@ def test_unsupported_cells_fall_back_and_are_counted(pair):
     """A msg_fn outside copy/mul/add runs the plain ELL-backend path (the
     reference's coverage fallback), with its result, and is counted."""
     _, tg = pair
-    be, ell = CudaBackend(), api.EllBackend()
+    be, ell = port_cuda_backend(), api.EllBackend()
     values = torch.linspace(0.0, 1.0, tg.n)
     frontier = torch.ones(tg.n, dtype=torch.bool)
     for direction, fn in ((api.Direction.PULL, lambda x, w: x * w * 2),
