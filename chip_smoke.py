@@ -42,15 +42,38 @@ non-zero:
      the plain version, the bound of the card and, where one PyTorch
      call computes the same function, ``torch.sparse.mm`` on the CSR of
      the same graph (a yardstick the port never calls).
+  7. ``"model_kernel_grid"``: flash attention against its plain version
+     over head dim {64, 128, 256} × T {1, 63, 130, 4096} × GQA group
+     {1, 2, 4} × window {global, 17, 4096} × softcap {0, 50} × {bf16,
+     f32}; the CIN layer over B {1, 37, 512} × (Hp, F, H, D) {(39, 39,
+     200, 10), (200, 39, 200, 10), (5, 4, 7, 6)} × {f32, bf16}.
+  8. Main path of slice 3, model serving, weights from seeded
+     generators on the card: llama3.2-1b (full config) prefills B = 2 ×
+     T = 4,096 (twice: the first pays the GEMM heuristics and the
+     allocator, the second is timed and profiled) and decodes 32 tokens;
+     gemma2-9b at full width, 2 layers, prefills 1 × 8,192 (the 4,096
+     window binds, the ring cache is built) and decodes 16; xDeepFM
+     (full config) serves ``serve_p99`` (B = 512), ``serve_bulk``
+     (B = 262,144) and ``retrieval_cand`` (1 M candidates). Each
+     phase's JSON line lists its cuts under ``reduced``. After the
+     launch counts are read: each LM's prefill with the flash kernel
+     against ``attn_impl="naive"`` (logits and cache) and its first
+     decode step against a prefill one token longer; xDeepFM with the
+     kernel against the plain CIN at serve_p99 and on 4,096 rows of the
+     bulk batch, retrieval against a float64 recomputation.
+  9. Each model kernel at its path's shapes, on the path's own inputs,
+     timed as in 6, beside ``scaled_dot_product_attention`` (causal,
+     GQA; the llama layer) and ``torch.einsum`` (the CIN layer).
 
 Launch counts are zeroed just before each main path and read just after
-it; every kernel of the path must have launched and no step may have
-fallen back to the plain primitives. The line before the last is
+it; every kernel of the path must have launched and no step of the graph
+paths may have fallen back to the plain primitives. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -70,7 +93,10 @@ from repro_torch.core import backend as backend_module  # noqa: E402
 from repro_torch.graphs import (build_graph, kronecker, standin,  # noqa: E402
                                 star)
 from repro_torch.graphs.structure import pad_values  # noqa: E402
+from repro_torch.configs.archs import full_config  # noqa: E402
 from repro_torch.kernels import _build, tune  # noqa: E402
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
+from repro_torch.kernels.cin import cin_layer, cin_layer_plain  # noqa: E402
 from repro_torch.kernels.coo_push import (build_push_plan,  # noqa: E402
                                           coo_push, coo_push_mxu_plain,
                                           coo_push_plain)
@@ -78,6 +104,14 @@ from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
     default_pull_cap, ell_pull_frontier, ell_pull_frontier_plain,
     frontier_rows)
 from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    GLOBAL_WINDOW, flash_attention, flash_attention_plain_gqa)
+from repro_torch.models.common import tree_size_bytes  # noqa: E402
+from repro_torch.models.recsys import (  # noqa: E402
+    cin_apply, retrieval_score, xdeepfm_apply, xdeepfm_init)
+from repro_torch.models.transformer import (decode_step,  # noqa: E402
+                                            init_params, pad_kv_cache,
+                                            prefill)
 from repro_torch.service import QueryService  # noqa: E402
 from repro_torch.sparse.segment import reduce_identity  # noqa: E402
 
@@ -90,6 +124,10 @@ KERNEL_INFO = {
                  "src/repro/kernels/coo_push.py:312"),
     "coo_push_mxu": ("src/repro_torch/kernels/csrc/coo_push_mxu.cu",
                      "src/repro/kernels/coo_push.py:241"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:65"),
+    "cin": ("src/repro_torch/kernels/csrc/cin.cu",
+            "src/repro/kernels/cin.py:39"),
 }
 # the push kernels, by the name of their device functions
 PUSH_KERNELS = ("coo_push", "coo_push_mxu")
@@ -105,6 +143,7 @@ SMALL_CASES = ("ragged", "empty_rows", "self_loops", "duplicate_edges",
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 
 # batch width of the serving path per graph
 BATCH = {"rca": 16, "kron16": 32}
@@ -483,17 +522,20 @@ def batch_kwargs(alg: str, delta: float) -> dict:
     return {"sssp_delta": {"delta": delta}}.get(alg, {})
 
 
-class PushTimer:
-    """CUDA events around every push kernel call the backend makes: the
-    push kernels' device time of a run (the span holds the wrapper's
-    launch and no other device work)."""
+class CallTimer:
+    """CUDA events around every call of ``module.<name>`` (a kernel
+    wrapper: the span holds its launch and no other device work), and
+    the arguments of the calls made while ``keep`` is set."""
 
-    def __init__(self):
-        self.events = []
-        self._real = backend_module.coo_push
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.events, self.kept, self.keep = [], [], False
+        self._real = getattr(module, name)
 
     def __enter__(self):
         def timed(*args, **kw):
+            if self.keep:
+                self.kept.append((args, kw))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -501,15 +543,21 @@ class PushTimer:
             end.record()
             self.events.append((start, end))
             return out
-        backend_module.coo_push = timed
+        setattr(self.module, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        backend_module.coo_push = self._real
+        setattr(self.module, self.name, self._real)
+
+    def take_ms(self) -> list:
+        """Each call's device ms since the last take, in call order."""
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in self.events]
+        self.events = []
+        return ms
 
     def device_ms(self) -> float:
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events)
+        return sum(self.take_ms())
 
 
 def same_states(got: dict, want: dict, float_sum: bool, what: str) -> None:
@@ -536,7 +584,7 @@ def solve_batch_phase(graphs: dict, ways: dict) -> None:
             for way, be in ways.items():
                 stats0 = dict(be.stats)
                 before = _build.launch_counts()
-                with PushTimer() as timer:
+                with CallTimer(backend_module, "coo_push") as timer:
                     t0 = time.perf_counter()
                     br = api.solve_batch(g, alg, sources=sources,
                                          policy="push", backend=be, **kw)
@@ -708,9 +756,12 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          rate: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """The card's least time for the work: bytes over the memory rate
+    or operations over ``rate`` (their type's peak), the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -825,6 +876,414 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     return out
 
 
+# -- slice 3: model serving ------------------------------------------------
+FLASH_DIMS = (64, 128, 256)
+FLASH_TS = (1, 63, 130, 4096)
+FLASH_GROUPS = (1, 2, 4)
+FLASH_WINDOWS = (GLOBAL_WINDOW, 17, 4096)
+FLASH_CAPS = (0.0, 50.0)
+MODEL_DTYPES = (torch.bfloat16, torch.float32)
+CIN_BATCHES = (1, 37, 512)
+CIN_SHAPES = ((39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6))
+# kernel against plain: flash 3e-4 (f32) / 2e-2 (bf16, P enters P·V in
+# bf16); CIN 2e-4 (f32 sums in other orders) / 2e-2 (bf16 output)
+FLASH_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+CIN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# bf16 models, relative to the largest value: kernel path against plain
+# path and decode against prefill. Activations round at 2^-8 in bf16
+# and the kernel's bf16 P adds ~2^-9 per layer, over up to 16 layers.
+LM_TOL = 5e-2
+# xDeepFM (f32), kernel CIN against plain CIN: rtol, atol
+XDEEPFM_TOL = (1e-4, 1e-6)
+# the serving runs: prompt batch and length, decode steps, layers kept
+LM_RUNS = {
+    "llama3.2-1b": {"B": 2, "T": 4096, "steps": 32, "layers": None,
+                    "reduced": {"batch": "2, not prefill_32k's 32",
+                                "seq_len": "4,096, not 32,768",
+                                "decode": "32 steps against a 4,128-slot "
+                                          "cache, not decode_32k's 128 "
+                                          "rows at 32,768",
+                                "why": "the smoke's time limit"}},
+    "gemma2-9b": {"B": 1, "T": 8192, "steps": 16, "layers": 2,
+                  "reduced": {"layers": "2 (one local, one global), not 42",
+                              "batch": "1, not prefill_32k's 32",
+                              "seq_len": "8,192, not 32,768 (the 4,096 "
+                                         "window binds and the ring is "
+                                         "built)",
+                              "decode": "16 steps",
+                              "why": "the smoke's time limit"}},
+}
+XDEEPFM_SERVE = {"serve_p99": 512, "serve_bulk": 262144}
+RETRIEVAL_CANDIDATES = 1_000_000
+
+
+def close_to(got: torch.Tensor, want: torch.Tensor, tol: float,
+             what: str) -> float:
+    """allclose(rtol = atol = tol) in f32; returns the largest gap."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{what}: {got.dtype}{tuple(got.shape)} vs plain "
+             f"{want.dtype}{tuple(want.shape)}")
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol, msg=lambda m: f"{what}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in f32."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def normal(shape, gen, dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def model_kernel_grid(device) -> dict:
+    """Each model kernel against its plain version: flash over head dim ×
+    T (ragged against the 64-row tiles) × GQA group × window × softcap ×
+    dtype; CIN over ragged B × the layer shapes × dtype."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    errs = {"flash_attention": 0.0, "cin": 0.0}
+    cells = {"flash_attention": 0, "cin": 0}
+    for d in FLASH_DIMS:
+        for T in FLASH_TS:
+            B, Hk = (2, 2) if T < 4096 else (1, 2)
+            for group in FLASH_GROUPS:
+                for dt in MODEL_DTYPES:
+                    q = normal((B, T, Hk * group, d), gen, dt)
+                    k = normal((B, T, Hk, d), gen, dt)
+                    v = normal((B, T, Hk, d), gen, dt)
+                    for window in FLASH_WINDOWS:
+                        for cap in FLASH_CAPS:
+                            got = flash_attention(q, k, v, window, cap)
+                            want = flash_attention_plain_gqa(q, k, v, window,
+                                                             cap)
+                            errs["flash_attention"] = max(
+                                errs["flash_attention"], close_to(
+                                    got, want, FLASH_TOL[dt],
+                                    f"flash d{d} T{T} g{group} {dt} "
+                                    f"w{window} cap{cap}"))
+                            cells["flash_attention"] += 1
+    for B in CIN_BATCHES:
+        for Hp, F, H, D in CIN_SHAPES:
+            for dt in MODEL_DTYPES:
+                xk = normal((B, Hp, D), gen, dt)
+                x0 = normal((B, F, D), gen, dt)
+                w = (normal((H, Hp, F), gen) * (2.0 / (Hp * F)) ** 0.5
+                     ).to(dt)
+                errs["cin"] = max(errs["cin"], close_to(
+                    cin_layer(xk, x0, w), cin_layer_plain(xk, x0, w),
+                    CIN_TOL[dt], f"cin B{B} {(Hp, F, H, D)} {dt}"))
+                cells["cin"] += 1
+    torch.cuda.synchronize()
+    emit({"phase": "model_kernel_grid", "cells": cells,
+          "max_abs_err": errs})
+    return errs
+
+
+def synced_ms(fn):
+    """(result, host ms) of ``fn`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_profile(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its host wall, the
+    device time of its kernels (one stream, so their sum is the busy
+    time) and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "busy_share": busy / wall_ms,
+            "launches": sum(n for _, _, n in kernels),
+            "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                    for k, ms, n in kernels[:top]]}
+
+
+def lm_serve(arch: str, device, flash: CallTimer) -> dict:
+    """Prefill a seeded prompt through ``prefill`` (bf16 cache), then
+    ``decode_step`` token by token on the grown cache."""
+    run = LM_RUNS[arch]
+    cfg = full_config(arch)
+    if run["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    B, T, steps = run["B"], run["T"], run["steps"]
+    params, init_ms = synced_ms(lambda: init_params(cfg, seed=0,
+                                                    device=device))
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, T + steps), generator=gen,
+                         device=device)
+    flash.keep = True
+    _, cold_ms = synced_ms(lambda: prefill(params, cfg, toks[:, :T], "bf16"))
+    flash.keep = False
+    kept = flash.kept[-cfg.n_layers:]
+    flash.take_ms()
+    # the second prefill is the steady state (the first pays the GEMM
+    # heuristics and the allocator's growth)
+    (logits, cache), prefill_ms = synced_ms(
+        lambda: prefill(params, cfg, toks[:, :T], "bf16"))
+    layer_ms = flash.take_ms()
+    windows = cfg.window_array(T)
+    emit({"phase": "lm_prefill", "arch": arch, "B": B, "T": T,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+          "param_gb": tree_size_bytes(params) / 1e9, "init_ms": init_ms,
+          "first_prefill_ms": cold_ms, "prefill_ms": prefill_ms,
+          "tokens_per_s": B * T / prefill_ms * 1e3,
+          "flash_ms_per_layer": layer_ms, "flash_ms_by_window": {
+              str(w): statistics.mean(ms for ms, lw in zip(layer_ms, windows)
+                                      if lw == w) for w in set(windows)},
+          "flash_share": sum(layer_ms) / prefill_ms,
+          "profile": device_profile(
+              lambda: prefill(params, cfg, toks[:, :T], "bf16")),
+          "reduced": run["reduced"]})
+    grown = pad_kv_cache(cache, T + steps)
+    step_ms, first = [], None
+    for i in range(steps):
+        (lg, grown), ms = synced_ms(lambda i=i: decode_step(
+            params, cfg, toks[:, T + i:T + i + 1], grown, T + i))
+        step_ms.append(ms)
+        if i == 0:
+            first = lg
+    if not (torch.isfinite(logits).all() and torch.isfinite(lg).all()):
+        fail(f"{arch}: non-finite logits")
+    emit({"phase": "lm_decode", "arch": arch, "B": B, "cache_len": T + steps,
+          "steps": steps, "ms_per_step_median": statistics.median(step_ms),
+          "ms_per_step": step_ms,
+          "profile": device_profile(lambda: decode_step(
+              params, cfg, toks[:, T:T + 1], pad_kv_cache(cache, T + 1), T)),
+          "tokens_per_s": B * steps / sum(step_ms) * 1e3,
+          "reduced": run["reduced"]})
+    return {"cfg": cfg, "params": params, "toks": toks, "logits": logits,
+            "cache": cache, "first_decode": first, "T": T,
+            "flash_args": kept}
+
+
+def lm_check(arch: str, st: dict) -> None:
+    """Kernel path against the plain path (``attn_impl="naive"``) on the
+    same weights, and the first decode step against a prefill one token
+    longer."""
+    cfg, params, toks, T = st["cfg"], st["params"], st["toks"], st["T"]
+    logits_n, cache_n = prefill(params, dataclasses.replace(
+        cfg, attn_impl="naive"), toks[:, :T], "bf16")
+    gaps = {"logits": rel_gap(st["logits"], logits_n)}
+    flat = (lambda c: c if "global" not in c else
+            {f"{p}.{k}": v for p in ("local", "global")
+             for k, v in c[p].items()})
+    for name, buf in flat(st["cache"]).items():
+        gaps["cache." + name] = rel_gap(buf, flat(cache_n)[name])
+    longer, _ = prefill(params, cfg, toks[:, :T + 1], "bf16")
+    gaps["decode_vs_prefill"] = rel_gap(st["first_decode"], longer)
+    bad = {k: v for k, v in gaps.items() if not v <= LM_TOL}
+    emit({"phase": "lm_check", "arch": arch, "relative_gap": gaps,
+          "tol": LM_TOL, "ok": not bad})
+    if bad:
+        fail(f"{arch}: {bad} above {LM_TOL} of the largest value")
+
+
+def xdeepfm_serve(device, cin: CallTimer) -> dict:
+    """serve_p99 and serve_bulk (``sigmoid(xdeepfm_apply)``) and
+    retrieval_cand (``retrieval_score``) on the full config."""
+    cfg = full_config("xdeepfm")
+    params, init_ms = synced_ms(lambda: xdeepfm_init(cfg, seed=0,
+                                                     device=device))
+    gen = torch.Generator(device=device).manual_seed(2)
+    ids = {name: torch.randint(0, cfg.vocab_per_field, (B, cfg.n_fields),
+                               generator=gen, device=device)
+           for name, B in XDEEPFM_SERVE.items()}
+    out = {}
+    for name, reps in (("serve_p99", 20), ("serve_bulk", 3)):
+        lat = []
+        for r in range(reps):
+            cin.keep = name == "serve_p99" and r == 0
+            out[name], ms = synced_ms(lambda name=name: torch.sigmoid(
+                xdeepfm_apply(params, cfg, ids[name])))
+            lat.append(ms)
+        cin.keep = False
+        layer_ms = cin.take_ms()
+        nl = len(cfg.cin_layers)
+        per_layer = [statistics.median(layer_ms[i::nl]) for i in range(nl)]
+        B = XDEEPFM_SERVE[name]
+        emit({"phase": "xdeepfm_" + name, "B": B, "reps": reps,
+              "init_ms": init_ms, "ms_median": statistics.median(lat),
+              "ms_max": max(lat), "rows_per_s": B / statistics.median(lat)
+              * 1e3, "cin_ms_per_layer": per_layer,
+              "cin_share": sum(per_layer) / statistics.median(lat),
+              "reduced": None})
+    fu = cfg.n_fields // 2
+    user = ids["serve_p99"][:1, :fu]
+    cand = torch.randint(0, cfg.vocab_per_field,
+                         (RETRIEVAL_CANDIDATES, cfg.n_fields - fu),
+                         generator=gen, device=device)
+    lat = []
+    for _ in range(3):
+        out["retrieval"], ms = synced_ms(
+            lambda: retrieval_score(params, cfg, user, cand))
+        lat.append(ms)
+    emit({"phase": "xdeepfm_retrieval_cand", "candidates": cand.shape[0],
+          "ms_median": statistics.median(lat),
+          "candidates_per_s": cand.shape[0] / statistics.median(lat) * 1e3,
+          "reduced": None})
+    for name, v in out.items():
+        if not torch.isfinite(v).all():
+            fail(f"xdeepfm {name}: non-finite scores")
+    return {"cfg": cfg, "params": params, "ids": ids, "out": out,
+            "user": user, "cand": cand, "cin_args": cin.kept}
+
+
+def xdeepfm_check(st: dict) -> None:
+    """The kernel path against the plain CIN (``cin_layer_plain`` in
+    place of the wrapper) at serve_p99 and on a 4,096-row slice of the
+    bulk batch; retrieval against a float64 recomputation on 4,096
+    candidates."""
+    cfg, params, ids = st["cfg"], st["params"], st["ids"]
+    rtol, atol = XDEEPFM_TOL
+    real = kernel_ops.cin_layer
+    kernel_ops.cin_layer = cin_layer_plain
+    try:
+        want = {"serve_p99": torch.sigmoid(xdeepfm_apply(
+                    params, cfg, ids["serve_p99"])),
+                "serve_bulk": torch.sigmoid(xdeepfm_apply(
+                    params, cfg, ids["serve_bulk"][:4096]))}
+        feats = cin_apply(params["cin"], params["tables"][
+            torch.arange(cfg.n_fields, device=ids["serve_p99"].device)[None],
+            ids["serve_p99"]])
+    finally:
+        kernel_ops.cin_layer = real
+    gaps = {}
+    for name, w in want.items():
+        got = st["out"][name][:w.shape[0]]
+        torch.testing.assert_close(got, w, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"xdeepfm {name}: {m}")
+        gaps[name] = float((got - w).abs().max())
+    got_feats = cin_apply(params["cin"], params["tables"][
+        torch.arange(cfg.n_fields, device=feats.device)[None],
+        ids["serve_p99"]])
+    gaps["cin_features_relative"] = rel_gap(got_feats, feats)
+    if not gaps["cin_features_relative"] <= rtol:
+        fail(f"xdeepfm CIN features: {gaps['cin_features_relative']}")
+    tab = params["tables"].double()
+    fu = st["user"].shape[1]
+    f_u = torch.arange(fu, device=tab.device)[None]
+    u = tab[f_u, st["user"]].mean(1)[0]
+    c = tab[fu + torch.arange(st["cand"].shape[1], device=tab.device)[None],
+            st["cand"][:4096]].mean(1)
+    torch.testing.assert_close(st["out"]["retrieval"][:4096].double(),
+                               c @ u, rtol=1e-5, atol=1e-9)
+    emit({"phase": "xdeepfm_check", "max_abs_gap": gaps,
+          "tol": {"rtol": rtol, "atol": atol}, "ok": True})
+
+
+def model_path(device) -> tuple[dict, dict, dict]:
+    """Slice 3's main path: llama3.2-1b and gemma2-9b serve (prefill,
+    decode), then xDeepFM serves, with the launch counts zeroed just
+    before and read just after; the checks run after the read."""
+    with CallTimer(kernel_ops, "flash_attention") as flash, \
+            CallTimer(kernel_ops, "cin_layer") as cin:
+        _build.reset_launch_counts()
+        lms = {arch: lm_serve(arch, device, flash) for arch in LM_RUNS}
+        rec = xdeepfm_serve(device, cin)
+        counts = _build.launch_counts()
+    emit({"phase": "model_path", "launches": counts})
+    for name in ("flash_attention", "cin"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the model path")
+    for arch, st in lms.items():
+        lm_check(arch, st)
+    xdeepfm_check(rec)
+    return lms, rec, counts
+
+
+def flash_pairs(T: int, window: int) -> int:
+    """(query, key) pairs the causal window keeps over T positions."""
+    w = min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def model_kernel_rows(lms: dict, rec: dict) -> list:
+    """Each model kernel at its path's shapes, on the path's own inputs:
+    held against its plain version, then timed with CUDA events (L2
+    flushed before each launch) beside the plain version, the bound of
+    the card and one PyTorch call computing the same function where
+    there is one (``scaled_dot_product_attention``, ``einsum``)."""
+    rows = []
+
+    def record(name, shape, args, kernel, plain, library, tol, nbytes, ops_,
+               rate, reps):
+        got, want = kernel(), plain()
+        b_ms, b_by = bound(nbytes, ops_, rate)
+        row = {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+               "replaces": KERNEL_INFO[name][1], "shape": shape,
+               "max_abs_err": close_to(got, want, tol, f"{name} {shape}"),
+               "ms": time_ms(kernel, reps),
+               "plain_ms": time_ms(plain, 3),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": (time_ms(library, reps) if library is not None
+                              else None), **args}
+        emit({"phase": "kernel_time", **row})
+        rows.append(row)
+
+    for arch, st in lms.items():
+        cfg = st["cfg"]
+        for li in (0, 1) if cfg.local_window else (0,):
+            (q, k, v), kw = st["flash_args"][li]
+            window, cap, scale = (kw["causal_window"], kw["softcap"],
+                                  kw["scale"])
+            B, T, H, d = q.shape
+            Hk = k.shape[2]
+            lib = None
+            if window >= T and cap == 0.0:
+                def lib(q=q, k=k, v=v, scale=scale):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=True, scale=scale,
+                        enable_gqa=True)
+            item = q.element_size()
+            record("flash_attention",
+                   f"{arch} layer {li}: q {q.dtype} [{B}, {T}, {H}, {d}], "
+                   f"kv [{B}, {T}, {Hk}, {d}], window {min(window, T)}, "
+                   f"softcap {cap}",
+                   {"arch": arch, "layer": li},
+                   lambda q=q, k=k, v=v, w=window, c=cap, s=scale:
+                   kernel_ops.flash_attention(q, k, v, w, c, scale=s),
+                   lambda q=q, k=k, v=v, w=window, c=cap:
+                   flash_attention_plain_gqa(q, k, v, w, c),
+                   lib, FLASH_TOL[q.dtype],
+                   nbytes=(2 * B * T * H * d + 2 * B * T * Hk * d) * item,
+                   ops_=4 * d * B * H * flash_pairs(T, window),
+                   rate=(BF16_OPS_PER_S if q.dtype == torch.bfloat16
+                         else F32_OPS_PER_S), reps=10)
+    for li, ((xk, x0, w), _) in enumerate(rec["cin_args"]):
+        B, Hp, D = xk.shape
+        F, H = x0.shape[1], w.shape[0]
+        record("cin", f"serve_p99 layer {li}: xk f32 [{B}, {Hp}, {D}], x0 "
+               f"[{B}, {F}, {D}], w [{H}, {Hp}, {F}]",
+               {"layer": li},
+               lambda xk=xk, x0=x0, w=w: kernel_ops.cin_layer(xk, x0, w),
+               lambda xk=xk, x0=x0, w=w: cin_layer_plain(xk, x0, w),
+               lambda xk=xk, x0=x0, w=w: torch.einsum("hij,bid,bjd->bhd", w,
+                                                      xk, x0),
+               CIN_TOL[xk.dtype],
+               nbytes=(B * Hp * D + B * F * D + H * Hp * F + B * H * D)
+               * xk.element_size(),
+               ops_=2 * B * H * Hp * F * D, rate=F32_OPS_PER_S, reps=20)
+    torch.cuda.synchronize()
+    return rows
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -871,6 +1330,14 @@ def main() -> int:
     rows = []
     for gname, (g, _) in graphs.items():
         rows += shaped_kernels(gname, g, device, ways)
+    del graphs, ways
+    torch.cuda.empty_cache()
+
+    errs.update(model_kernel_grid(device))
+    lms, rec, model_counts = model_path(device)
+    counts = {k: counts[k] + model_counts[k] for k in counts}
+    model_rows = model_kernel_rows(lms, rec)
+    del lms, rec
     kernels = []
     for row in rows:
         # one row per kernel: the road graph, at width 1 where the kernel
@@ -883,6 +1350,18 @@ def main() -> int:
                                   if r["name"] == name))
         kernels.append({k: v for k, v in row.items()
                         if k not in ("width", "onehot_floor_ms")}
+                       | {"launches": counts[name], "max_abs_err": worst})
+    for row in model_rows:
+        # one row per kernel: llama3.2-1b's prefill layer and the CIN
+        # layer of Hp = 200 at serve_p99
+        if row.get("arch", "llama3.2-1b") != "llama3.2-1b" or (
+                row["name"] == "cin" and row["layer"] != 1):
+            continue
+        name = row["name"]
+        worst = max(errs[name], *(r["max_abs_err"] for r in model_rows
+                                  if r["name"] == name))
+        kernels.append({k: v for k, v in row.items()
+                        if k not in ("arch", "layer")}
                        | {"launches": counts[name], "max_abs_err": worst})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

@@ -9,9 +9,10 @@ from .ell_pull_frontier import (default_pull_cap, ell_pull_frontier,
                                 ell_pull_frontier_full, frontier_rows)
 from .ell_spmv import ell_spmv
 from .layout import DualEllLayout, build_dual_ell, touched_out_mask
+from .ops import cin_layer, flash_attention
 
 __all__ = ["KERNELS", "build_all", "launch_counts", "reset_launch_counts",
            "PushBinPlan", "build_push_plan", "coo_push", "default_pull_cap",
            "ell_pull_frontier", "ell_pull_frontier_full", "frontier_rows",
            "ell_spmv", "DualEllLayout", "build_dual_ell",
-           "touched_out_mask"]
+           "touched_out_mask", "flash_attention", "cin_layer"]

@@ -27,13 +27,15 @@ __all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu")
+KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu",
+           "flash_attention", "cin")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # argument types of each library's entry point (pointers and the stream
 # as c_void_p, so ctypes never cuts a 64-bit address)
 _SIGNATURES = {
@@ -48,6 +50,11 @@ _SIGNATURES = {
     "coo_push_mxu": ("repro_coo_push_mxu",
                      [_P, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
                       _L, _I, _I, _P]),
+    "flash_attention": ("repro_flash_attention",
+                        [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _L, _F,
+                         _F, _P]),
+    "cin": ("repro_cin_layer", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                                _P]),
 }
 
 _LIBS: dict = {}

@@ -9,7 +9,11 @@ with the card and no JAX:
 
 Tolerances: integers, min and max bit for bit; float sums rtol = atol =
 1e-5 (the kernels sum floats in float64 in another order than the plain
-versions).
+versions). The model kernels, as ``tests/test_kernels.py`` holds the
+Pallas ones: flash attention rtol = atol = 3e-4 in f32 and 2e-2 in bf16
+(the kernel feeds P to P·V in bf16, the plain version keeps it f32);
+the CIN layer rtol = atol = 2e-4 in f32 (both sum in f32, in other
+orders) and 2e-2 in bf16 (the output rounds to bf16).
 """
 
 import pytest
@@ -28,6 +32,10 @@ from repro_torch.kernels.ell_pull_frontier import (ell_pull_frontier,
                                                    ell_pull_frontier_plain,
                                                    frontier_rows)
 from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_plain
+from repro_torch.kernels.cin import cin_layer, cin_layer_plain
+from repro_torch.kernels.flash_attention import (GLOBAL_WINDOW,
+                                                 flash_attention,
+                                                 flash_attention_plain_gqa)
 from repro_torch.core.primitives import mask_untouched
 
 pytestmark = pytest.mark.cuda
@@ -97,10 +105,14 @@ def test_each_wrapper_counts_its_launches(graphs, cuda):
     coo_push(x[:-1], active, g.coo_src, g.coo_dst, g.coo_w, g.n)
     coo_push(x[:-1], active, g.coo_src, g.coo_dst, g.coo_w, g.n,
              strategy="mxu")
+    q = torch.ones((1, 8, 2, 16), device=cuda)
+    flash_attention(q, q, q)
+    xk = torch.ones((3, 4, 5), device=cuda)
+    cin_layer(xk, xk, torch.ones((2, 4, 4), device=cuda))
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "ell_spmv": 1, "ell_pull_frontier": 1, "coo_push": 1,
-        "coo_push_mxu": 1}
+        "coo_push_mxu": 1, "flash_attention": 1, "cin": 1}
 
 
 def test_frontier_full_equals_masked_full_scan(cuda):
@@ -198,3 +210,56 @@ def test_batched_solve_equals_single_source_on_card(cuda, alg, kw, key,
                            f"{alg}/{strategy} source {s} {k}")
     assert be.stats["fallback_pull"] == be.stats["fallback_push"] == 0
     assert bool(br.done.all())
+
+
+def normal(shape, seed: int, device, dtype=torch.float32) -> torch.Tensor:
+    return cs.normal(shape, torch.Generator(device=device).manual_seed(seed),
+                     dtype)
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32), ids=str)
+@pytest.mark.parametrize("d", (16, 64, 128, 256))
+@pytest.mark.parametrize("T,group,window,softcap", [
+    (1, 1, GLOBAL_WINDOW, 0.0), (63, 2, GLOBAL_WINDOW, 50.0),
+    (130, 4, 17, 0.0), (200, 2, 64, 30.0)])
+def test_flash_attention_matches_plain(cuda, dtype, d, T, group, window,
+                                       softcap):
+    """Ragged T (1, 63, 130, 200 against 64-row tiles), GQA groups 1-4,
+    a window shorter than a tile and one equal to it, soft-capping, and
+    d = 256 (101 KB of shared memory per CTA in bf16)."""
+    B, Hk = 2, 2
+    q = normal((B, T, Hk * group, d), 1, cuda, dtype)
+    k = normal((B, T, Hk, d), 2, cuda, dtype)
+    v = normal((B, T, Hk, d), 3, cuda, dtype)
+    got = flash_attention(q, k, v, window, softcap)
+    want = flash_attention_plain_gqa(q, k, v, window, softcap)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_refuses_what_it_has_no_instance_for(cuda):
+    q = torch.ones((1, 8, 2, 24), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        flash_attention(q[..., :16].half(), q[..., :16].half(),
+                        q[..., :16].half())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("B", (1, 37, 300))
+@pytest.mark.parametrize("Hp,F,H,D", [(39, 39, 200, 10), (200, 39, 200, 10),
+                                      (5, 4, 7, 6)])
+def test_cin_layer_matches_plain(cuda, dtype, B, Hp, F, H, D):
+    """Ragged B against the 128-column tile (columns are b * D + d), the
+    first layer's shape (Hp = F), the later layers' (Hp = 200) and a
+    small odd one; H = 200 leaves a ragged 64-row tile."""
+    xk = normal((B, Hp, D), 4, cuda, dtype)
+    x0 = normal((B, F, D), 5, cuda, dtype)
+    w = (normal((H, Hp, F), 6, cuda) * (2.0 / (Hp * F)) ** 0.5).to(dtype)
+    got = cin_layer(xk, x0, w)
+    want = cin_layer_plain(xk, x0, w)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

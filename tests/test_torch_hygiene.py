@@ -37,11 +37,17 @@ def port_modules() -> list[str]:
 
 
 def test_modules_import_without_jax_or_repro():
-    # the serving slice's modules are among those checked
+    # the serving slices' modules are among those checked
     assert {"repro_torch.service.scheduler", "repro_torch.service.batch",
             "repro_torch.service.cache", "repro_torch.service.programs",
             "repro_torch.resilience.errors", "repro_torch.kernels.tune",
-            "repro_torch.core.algorithms.ppr"} <= set(port_modules())
+            "repro_torch.core.algorithms.ppr",
+            "repro_torch.kernels.flash_attention", "repro_torch.kernels.cin",
+            "repro_torch.kernels.ops", "repro_torch.models.common",
+            "repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.models.recsys", "repro_torch.sparse.embedding",
+            "repro_torch.configs.shapes",
+            "repro_torch.configs.archs"} <= set(port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for name in {port_modules() + ['chip_smoke']!r}:\n"
@@ -78,7 +84,8 @@ def test_cuda_sources_have_a_plain_c_interface():
     """The kernels build with nvcc alone: no PyTorch headers."""
     sources = sorted((PKG / "kernels" / "csrc").glob("*.cu*"))
     assert {p.stem for p in sources if p.suffix == ".cu"} == {
-        "ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu"}
+        "ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu",
+        "flash_attention", "cin"}
     for p in sources:
         assert "torch/" not in p.read_text() and "ATen" not in p.read_text()
 
