@@ -12,10 +12,14 @@ non-zero:
      under the git-ignored ``build/``, so every run probes the same way.
   2. Kernel grid: each kernel against its plain PyTorch version on the
      card, over combine {sum, min, max} × dtype {f32, f64, i32, i64} ×
-     msg {copy, mul, add} × payload [n] / [n, 3], on small ragged graphs
-     (a hub, empty rows, self loops, duplicate edges, m = 0); then
+     msg {copy, mul, add} × payload [n] / [n, 3] (and [n, 33] for
+     ``ell_spmv`` and the scan ``coo_push``), on small ragged graphs (a
+     hub, empty rows, self loops, duplicate edges, m = 0, and a hub of
+     12,293 in-edges that splits the pull's rows and the push's bins);
+     ``ell_spmv`` over whole rows and over ``row_len = in_deg``; then
      ``"mxu_grid"``, the one-hot push against ``coo_push_mxu_plain`` over
-     the same cells at B ∈ {1, 8, 32} on those graphs plus a star.
+     the same cells at B ∈ {1, 8, 32} on those graphs (but the 12,293
+     hub) plus a star.
      Integers, min and max must agree bit for bit, float sums to
      rtol = atol = 1e-5.
   3. ``"tune"``: the tuner probes every push and full-scan pull key the
@@ -41,7 +45,9 @@ non-zero:
      then timed with CUDA events (L2 flushed before each launch) beside
      the plain version, the bound of the card and, where one PyTorch
      call computes the same function, ``torch.sparse.mm`` on the CSR of
-     the same graph (a yardstick the port never calls).
+     the same graph (a yardstick the port never calls). ``ell_spmv``
+     runs as the main path calls it (``row_len = in_deg``, the backend's
+     row plan) at width 1 and at the serving width.
   7. ``"model_kernel_grid"``: flash attention against its plain version
      over head dim {64, 128, 256} × T {1, 63, 130, 4096} × GQA group
      {1, 2, 4} × window {global, 17, 4096} × softcap {0, 50} × {bf16,
@@ -137,7 +143,13 @@ MSGS = ("copy", "mul", "add")
 WIDTHS = (None, 3)
 SMALL_N = 24
 SMALL_CASES = ("ragged", "empty_rows", "self_loops", "duplicate_edges",
-               "edgeless")
+               "edgeless", "hub")
+# in-edges of the hub case's hub: split into pieces of the full-scan
+# pull at every width (8,192 slots at width 1) and into scan-push units
+HUB_DEG = 3 * 4096 + 5
+# a payload of two column tiles (33 columns), which the kernel grid also
+# gives the full-scan pull and the scan push
+WIDE = 33
 
 # H100 SXM data-sheet peaks (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -166,7 +178,8 @@ def fail(msg: str) -> None:
 def small_case_edges(case: str, seed: int = 0, n: int = SMALL_N):
     """Edge lists of the adversarial cases (the shapes of the test
     suite's ``graph_strategies``): a hub taking half the edges, rows with
-    no in-edges, self loops, duplicate edges, and no edges at all."""
+    no in-edges, self loops, duplicate edges, no edges at all, and a hub
+    of ``HUB_DEG`` in-edges (duplicate sources) over sparse other rows."""
     rng = np.random.RandomState(1009 * seed + 131 * SMALL_CASES.index(case))
     if case == "edgeless":
         src = dst = np.zeros(0, dtype=np.int64)
@@ -190,6 +203,11 @@ def small_case_edges(case: str, seed: int = 0, n: int = SMALL_N):
         dup = rng.choice(m, size=m // 2, replace=True)
         src = np.concatenate([src, src[dup], src[dup]])
         dst = np.concatenate([dst, dst[dup], dst[dup]])
+    elif case == "hub":
+        m = 2 * n
+        src = rng.randint(0, n, size=HUB_DEG + m)
+        dst = np.concatenate([np.full(HUB_DEG, n // 3),
+                              rng.randint(0, n, size=m)])
     else:
         raise ValueError(case)
     w = rng.uniform(0.5, 2.0, size=src.shape[0]).astype(np.float32)
@@ -237,7 +255,9 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor, combine: str,
 
 def kernel_grid(device) -> dict:
     """Phase 2: every (combine, dtype, msg, width) cell of every kernel
-    against its plain version on the small graphs."""
+    against its plain version on the small graphs; the full-scan pull
+    both over whole rows and over ``row_len = in_deg`` (the main path's
+    call), and at width 33 the two redesigned kernels only."""
     errs = {k: 0.0 for k in ("ell_spmv", "ell_pull_frontier", "coo_push")}
     cells = 0
     gen = torch.Generator(device=device).manual_seed(0)
@@ -251,24 +271,30 @@ def kernel_grid(device) -> dict:
         for c in COMBINES:
             for dt in DTYPES:
                 for msg in MSGS:
-                    for width in WIDTHS:
+                    for width in WIDTHS + (WIDE,):
                         shape = (g.n + 1,) + (() if width is None
                                               else (width,))
                         x = payload(shape, dt, cells, device)
                         x[-1] = 0
                         tag = f"{case}/{c}/{dt}/{msg}/w{width}"
-                        got = ell_spmv(x, g.ell_idx, g.ell_w, c, msg)
-                        want = ell_spmv_plain(x, g.ell_idx, g.ell_w, c, msg)
-                        errs["ell_spmv"] = max(errs["ell_spmv"], max_abs_err(
-                            got, want, c, "ell_spmv " + tag))
-                        got = ell_pull_frontier(x, g.ell_idx, g.ell_w, rows,
-                                                c, msg)
-                        want = ell_pull_frontier_plain(x, g.ell_idx, g.ell_w,
-                                                       rows, c, msg)
-                        errs["ell_pull_frontier"] = max(
-                            errs["ell_pull_frontier"],
-                            max_abs_err(got, want, c,
-                                        "ell_pull_frontier " + tag))
+                        for row_len in (None, g.in_deg):
+                            got = ell_spmv(x, g.ell_idx, g.ell_w, c, msg,
+                                           row_len=row_len)
+                            want = ell_spmv_plain(x, g.ell_idx, g.ell_w, c,
+                                                  msg, row_len=row_len)
+                            errs["ell_spmv"] = max(
+                                errs["ell_spmv"], max_abs_err(
+                                    got, want, c, f"ell_spmv {tag} row_len "
+                                    f"{row_len is not None}"))
+                        if width != WIDE:
+                            got = ell_pull_frontier(x, g.ell_idx, g.ell_w,
+                                                    rows, c, msg)
+                            want = ell_pull_frontier_plain(
+                                x, g.ell_idx, g.ell_w, rows, c, msg)
+                            errs["ell_pull_frontier"] = max(
+                                errs["ell_pull_frontier"],
+                                max_abs_err(got, want, c,
+                                            "ell_pull_frontier " + tag))
                         for plan in plans:
                             got = coo_push(x[:-1], active, g.coo_src,
                                            g.coo_dst, g.coo_w, g.n, c, msg,
@@ -285,6 +311,7 @@ def kernel_grid(device) -> dict:
                         cells += 1
     torch.cuda.synchronize()
     emit({"phase": "kernel_grid", "cases": list(SMALL_CASES),
+          "widths": [w for w in WIDTHS + (WIDE,)],
           "cells_per_case": cells // len(SMALL_CASES),
           "max_abs_err": errs})
     return errs
@@ -297,9 +324,12 @@ def mxu_grid(device) -> float:
     of 64 and 1,024 slots. Returns the largest gap. The plain version
     sums float32 in float32, and two float32 sums of the hub's ~2,000
     terms agree to 1e-5 only when they do not cancel, so the star's float
-    payloads are non-negative."""
+    payloads are non-negative. The ``hub`` case (12,293 terms, whose two
+    float32 orders may differ by more) is left to the scan kernel's
+    grid."""
     err, cells = 0.0, 0
     graphs = {**small_graphs(device), "star": star(3000, device=device)}
+    del graphs["hub"]
     gen = torch.Generator(device=device).manual_seed(5)
     for case, g in graphs.items():
         if not g.m:
@@ -349,8 +379,9 @@ def serve_width(gname: str) -> int:
 
 def tune_phase(graphs: dict, backends: list) -> None:
     """Probe every push and full-scan pull key of the two main paths
-    (widths 1 and the batch widths), then build the bin plans those
-    choices need in every backend the paths use: set-up, not the path."""
+    (widths 1 and the batch widths), then build the row and bin plans
+    those choices need in every backend the paths use: set-up, not the
+    path."""
     tune.clear_stats()
     t0 = time.perf_counter()
     for gname, (g, _) in graphs.items():
@@ -360,6 +391,7 @@ def tune_phase(graphs: dict, backends: list) -> None:
                 x = torch.zeros(shape, dtype=dtype, device=g.device)
                 for be in backends:
                     be._pull_block_n(g, x, combine, mode)
+                    be.pull_plan(g, width)
                     be.push_plan(g, be.push_blocks(g, x, combine, mode)[1])
     torch.cuda.synchronize()
     probe_lines("tune")
@@ -792,21 +824,36 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     n, m, d = g.n, g.m, g.d_ell
     reps = 20 if n * d < 1e8 else 8
 
-    # ell_spmv: the PageRank pull (f32 contributions, sum, copy); the
-    # yardstick is the unweighted CSR of the same graph times x
-    x = pad_values(torch.rand(n, generator=gen, device=device))
+    # ell_spmv: the PageRank pull (f32 contributions, sum, copy) at
+    # width 1 and the batched pull at the serving width, over the real
+    # slots with the backend's row plan; the yardstick is the unweighted
+    # CSR of the same graph times x. The bound counts what the call must
+    # move: m int32 indices (a copy reads no weight), row_len, the
+    # payload and the output.
     a = torch.sparse_csr_tensor(g.in_ptr, g.coo_src,
                                 torch.ones(m, device=device), (n, n))
     auto = ways["auto"]
-    bn = auto._pull_block_n(g, x[:n], "sum", "copy")
-    record("ell_spmv", f"x f32[{n + 1}] idx[{n},{d}] block_n {bn} sum/copy",
-           ell_spmv(x, g.ell_idx, g.ell_w, "sum", "copy", block_n=bn),
-           ell_spmv_plain(x, g.ell_idx, g.ell_w, "sum", "copy"), "sum",
-           lambda: ell_spmv(x, g.ell_idx, g.ell_w, "sum", "copy",
-                            block_n=bn),
-           lambda: ell_spmv_plain(x, g.ell_idx, g.ell_w, "sum", "copy"),
-           lambda: torch.sparse.mm(a, x[:n, None]),
-           nbytes=n * d * 4 + (n + 1) * 4 + n * 4, ops=m, reps=reps)
+    for width in (1, BATCH[gname]):
+        xp = pad_values(torch.rand((n, width) if width > 1 else (n,),
+                                   generator=gen, device=device))
+        bn = auto._pull_block_n(g, xp[:n], "sum", "copy")
+        plan = auto.pull_plan(g, width)
+        kw = dict(block_n=bn, row_len=g.in_deg, plan=plan)
+        record("ell_spmv",
+               f"x f32[{n + 1}, {width}] idx[{n},{d}] row_len in_deg "
+               f"block_n {bn} classes {list(plan.class_off)} hub pieces "
+               f"{plan.pieces} sum/copy",
+               ell_spmv(xp, g.ell_idx, g.ell_w, "sum", "copy", **kw),
+               ell_spmv_plain(xp, g.ell_idx, g.ell_w, "sum", "copy",
+                              row_len=g.in_deg), "sum",
+               lambda xp=xp, kw=kw: ell_spmv(xp, g.ell_idx, g.ell_w, "sum",
+                                             "copy", **kw),
+               lambda xp=xp: ell_spmv_plain(xp, g.ell_idx, g.ell_w, "sum",
+                                            "copy", row_len=g.in_deg),
+               lambda xp=xp: torch.sparse.mm(
+                   a, xp[:n] if xp.ndim == 2 else xp[:n, None]),
+               nbytes=m * 4 + n * 4 + (2 * n + 1) * width * 4, ops=m * width,
+               reps=reps, extra={"width": width})
 
     # ell_pull_frontier: a BFS pull on the largest touched set that fits
     cap = default_pull_cap(n, m, d)
@@ -1342,8 +1389,8 @@ def main() -> int:
     for row in rows:
         # one row per kernel: the road graph, at width 1 where the kernel
         # runs there (slice 1), else at the serving path's width
-        if row["graph"] != "rca" or (row["name"] == "coo_push"
-                                     and row["width"] != 1):
+        if row["graph"] != "rca" or row.get("width", 1) != 1 and \
+                row["name"] in ("coo_push", "ell_spmv"):
             continue
         name = row["name"]
         worst = max(errs[name], *(r["max_abs_err"] for r in rows

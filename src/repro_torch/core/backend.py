@@ -33,7 +33,7 @@ from ..kernels.coo_push import (DEFAULT_BIN_N, MXU_MAX_BIN, build_push_plan,
 from ..kernels.ell_pull_frontier import (default_pull_cap,
                                          ell_pull_frontier_full,
                                          frontier_rows)
-from ..kernels.ell_spmv import _out_dtype, ell_spmv
+from ..kernels.ell_spmv import _out_dtype, col_lanes, ell_row_plan, ell_spmv
 from ..kernels.layout import build_dual_ell
 from .cost_model import COUNTER, Cost, counter
 from .direction import Direction
@@ -184,7 +184,9 @@ _KERNEL_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
 class CudaBackend(EllBackend):
     """The ELL backend's semantics executed by the CUDA kernels.
 
-    ``pull`` with no touched set runs the full-scan ``ell_spmv``. With a
+    ``pull`` with no touched set runs the full-scan ``ell_spmv`` over the
+    real slots of each row (``row_len=g.in_deg``, with a row plan built
+    once per graph and column-lane count). With a
     touched set it counts the set: an empty set returns the identity
     with no launch; a set that fits (at most ``default_pull_cap`` rows
     and fewer than ``m / d_ell``) runs ``ell_pull_frontier`` on the row
@@ -255,6 +257,14 @@ class CudaBackend(EllBackend):
         destinations, built once."""
         return self._cached(self._plans, g, bin_n, lambda: build_push_plan(
             g.coo_src, g.coo_dst, g.coo_w, g.n, bin_n))
+
+    def pull_plan(self, g: Graph, width: int = 1):
+        """The full-scan pull's row plan of ``g`` (rows sorted by
+        in-degree class) for payloads of ``width`` columns, built once
+        per column-lane count."""
+        return self._cached(self._plans, g, ("rows", col_lanes(width)),
+                            lambda: ell_row_plan(g.in_deg, g.n, g.d_ell,
+                                                 width))
 
     def dual_layout(self, g: Graph):
         return self._cached(self._layouts, g, "dual",
@@ -341,7 +351,8 @@ class CudaBackend(EllBackend):
             out = ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
                            combine=combine, msg=mode,
                            block_n=self._pull_block_n(g, values, combine,
-                                                      mode))
+                                                      mode),
+                           row_len=g.in_deg, plan=self.pull_plan(g, width))
             return out, cost.charge(reads=counter(g.m, g.device) * width,
                                     writes=counter(g.n, g.device) * width)
         edges, verts, cnt, fits = self._pull_scan_stats(g, touched)
@@ -366,7 +377,8 @@ class CudaBackend(EllBackend):
                 ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
                          combine=combine, msg=mode,
                          block_n=self._pull_block_n(g, values, combine,
-                                                    mode)),
+                                                    mode),
+                         row_len=g.in_deg, plan=self.pull_plan(g, width)),
                 touched, combine)
         return out, cost.charge(reads=counter(edges * width, g.device),
                                 writes=counter(verts * width, g.device))

@@ -40,13 +40,14 @@ _F = ctypes.c_float
 # as c_void_p, so ctypes never cuts a 64-bit address)
 _SIGNATURES = {
     "ell_spmv": ("repro_ell_spmv",
-                 [_P, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P]),
+                 [_P, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P, _P,
+                  _L, _L, _L, _L, _L, _L, _P, _P, _P, _P, _P]),
     "ell_pull_frontier": ("repro_ell_pull_frontier",
                           [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L,
                            _I, _I, _P]),
     "coo_push": ("repro_coo_push",
-                 [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I,
-                  _I, _P]),
+                 [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _L,
+                  _P, _P, _P, _L, _P, _P, _P, _P, _P]),
     "coo_push_mxu": ("repro_coo_push_mxu",
                      [_P, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
                       _L, _I, _I, _P]),

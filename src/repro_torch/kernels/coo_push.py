@@ -16,9 +16,14 @@ weight 0 beyond the bin's edges) beside a within-bin CSR pointer
 combines ``msg(x[src], w)`` over its in-edges whose source is active,
 by one of two strategies (``PUSH_STRATEGIES``, the tuner's choice):
 
-  * ``"scan"`` — ``csrc/coo_push.cu``: one CTA per bin, one thread per
-    destination walking its run; float sums accumulate in float64 and
-    round once. Plain version: :func:`coo_push_plain`.
+  * ``"scan"`` — ``csrc/coo_push.cu``: edge-parallel. Each bin's real
+    edges are cut into units of ``block_e`` edges (:func:`push_units`),
+    one CTA each; each warp walks a contiguous slice 32 edges a step and
+    combines each destination's run by a segmented shuffle scan, and
+    runs cut by a warp or unit boundary are combined in a fixed order
+    (no atomics on results).
+    Float sums accumulate in float64 and round once. Plain version:
+    :func:`coo_push_plain`.
   * ``"mxu"`` — ``csrc/coo_push_mxu.cu``: float32 sums as the one-hot
     product ``onehot[bin_n, block_e] @ msgs[block_e, B]`` on the tensor
     cores, accumulated in float32; min, max, integer and float64 sums as
@@ -32,9 +37,11 @@ CPU tensor it runs the plain version. Destinations with no active
 in-edge hold the identity. The output dtype is the message promotion,
 with no int widening.
 
-``block_e`` is the edge chunk a kernel stages in shared memory (clamped
-to 4,096 slots for the scan, 256 for the one-hot kernel's tensor-core
-path and 1,024 for its window reduce). The plan's capacity stays aligned to 128 whatever ``block_e``
+``block_e`` is the edge chunk a work unit walks or stages (for the
+scan, the edges of a CTA at width 1: clamped to 256–32,768 and divided by
+the column lanes of wider payloads, :func:`scan_unit_edges`; 256 slots
+for the one-hot kernel's tensor-core path and 1,024 for its window
+reduce). The plan's capacity stays aligned to 128 whatever ``block_e``
 is; the kernels mask the ragged last chunk. (The JAX package aligns the
 capacity to ``block_e``, which for the tuner's whole-edge-list rung
 would make a ``[nb, m]`` plan.)
@@ -52,11 +59,12 @@ from ..graphs.structure import resolve_device
 from ..sparse.segment import reduce_identity
 from ._build import check_status, load
 from .ell_spmv import (_PLAIN_CHUNK, COMBINE_CODES, DTYPE_CODES, MSG_CODES,
-                       _msg_dtype, _stream, apply_msg)
+                       _msg_dtype, _stream, apply_msg, col_lanes)
 
-__all__ = ["PushBinPlan", "build_push_plan", "default_bin_cap",
+__all__ = ["PushBinPlan", "PushUnits", "build_push_plan", "push_units",
+           "scan_unit_edges", "default_bin_cap",
            "coo_push", "coo_push_plain", "coo_push_mxu_plain",
-           "DEFAULT_BIN_N", "DEFAULT_BLOCK_E", "MXU_MAX_BIN",
+           "DEFAULT_BIN_N", "DEFAULT_BLOCK_E", "MXU_MAX_BIN", "SCAN_THREADS",
            "PUSH_STRATEGIES"]
 
 PUSH_STRATEGIES = ("scan", "mxu")
@@ -66,6 +74,10 @@ DEFAULT_BIN_N = 256
 DEFAULT_BLOCK_E = 512
 # widest bin the one-hot kernel takes (4 warps x 4 tiles of 16 rows)
 MXU_MAX_BIN = 256
+# edges of one work unit (a CTA) of the scan kernel: block_e, clamped;
+# the CTA's threads, whose warps each walk one slice of the unit
+SCAN_UNIT_MIN, SCAN_UNIT_MAX = 256, 32768
+SCAN_THREADS = 256
 
 
 def _round_up(x: int, q: int) -> int:
@@ -78,7 +90,9 @@ class PushBinPlan:
     bin ``b``'s dst-sorted edges, then padding); ``ptr`` is int32
     ``[nb, bin_n+1]`` (destination ``b·bin_n + j`` owns slots
     ``ptr[b, j]:ptr[b, j+1]`` of row ``b``). ``max_run`` is the longest
-    single-destination run."""
+    single-destination run. ``empty`` lists the destinations with no
+    in-edge and ``bin_edges`` (host) each bin's edge count; ``units``
+    caches the scan kernel's :func:`push_units` by unit size."""
     src: torch.Tensor
     dst: torch.Tensor
     w: torch.Tensor
@@ -87,6 +101,9 @@ class PushBinPlan:
     cap: int
     nb: int
     max_run: int
+    empty: torch.Tensor
+    bin_edges: np.ndarray = dataclasses.field(repr=False)
+    units: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
 def _host(a) -> np.ndarray:
@@ -131,7 +148,71 @@ def build_push_plan(src, dst, w, n: int, bin_n: int = DEFAULT_BIN_N,
                        dst=dev_(take(dst, n).astype(np.int32)),
                        w=dev_(take(w, 0).astype(np.float32)),
                        ptr=dev_(ptr), bin_n=int(bin_n), cap=int(cap),
-                       nb=int(nb), max_run=max(max_run, 1))
+                       nb=int(nb), max_run=max(max_run, 1),
+                       empty=dev_(np.flatnonzero(np.diff(in_ptr) == 0)
+                                  .astype(np.int32)),
+                       bin_edges=counts)
+
+
+def scan_unit_edges(block_e: int, width: int = 1) -> int:
+    """Edges one CTA of the scan kernel walks for ``block_e`` and
+    payloads of ``width`` columns: ``block_e`` clamped to 256–32,768 at
+    width 1; C column lanes (:func:`col_lanes`) load C values per edge,
+    so a CTA takes 1/C of that, but never fewer than 256 edges."""
+    e = min(max(int(block_e), SCAN_UNIT_MIN), SCAN_UNIT_MAX)
+    return int(max(SCAN_UNIT_MIN, e // col_lanes(width)))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PushUnits:
+    """The scan kernel's work units over a plan: unit ``u`` walks edges
+    ``lo : lo + edges`` (cut at the bin's end) of its bin, where
+    ``table[u] = (bin, lo, the bin's edge count, the bin's unit count)``
+    (int32, one 16-byte load); bin ``b`` owns units
+    ``bin_first[b]:bin_first[b+1]`` (none when it has no edge).
+    ``counters`` (one per bin, zero between launches) let the last unit
+    of a bin find itself; ``split`` says whether any bin has more than
+    one unit."""
+    edges: int
+    table: torch.Tensor
+    bin_first: torch.Tensor
+    counters: torch.Tensor
+    split: bool
+
+    @property
+    def count(self) -> int:
+        return int(self.table.shape[0])
+
+
+def push_units(plan: PushBinPlan, block_e: int,
+               width: int = 1) -> PushUnits:
+    """The units of ``scan_unit_edges(block_e, width)`` edges over
+    ``plan``, built on the host once per unit size and cached on the
+    plan."""
+    e = scan_unit_edges(block_e, width)
+    hit = plan.units.get(e)
+    if hit is not None:
+        return hit
+    edges = plan.bin_edges.astype(np.int64)
+    per_bin = -(-edges // e)
+    first = np.zeros(plan.nb + 1, dtype=np.int64)
+    np.cumsum(per_bin, out=first[1:])
+    unit_bin = np.repeat(np.arange(plan.nb, dtype=np.int64), per_bin)
+    table = np.stack([unit_bin,
+                      (np.arange(first[-1], dtype=np.int64)
+                       - first[unit_bin]) * e,
+                      edges[unit_bin], per_bin[unit_bin]], axis=1)
+    dev = plan.ptr.device
+
+    def dev_(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    units = PushUnits(edges=e, table=dev_(table), bin_first=dev_(first),
+                      counters=torch.zeros(plan.nb, dtype=torch.int32,
+                                           device=dev),
+                      split=bool((per_bin > 1).any()))
+    plan.units[e] = units
+    return units
 
 
 def default_bin_cap(n: int, m: int, d_ell: int, bin_n: int,
@@ -245,7 +326,8 @@ def coo_push(x: torch.Tensor, active: torch.Tensor, src: torch.Tensor,
     ``plan`` is the cached phase-1 layout (built here with ``bin_n``
     destinations per bin when absent; a given plan's own bin width
     rules). ``strategy`` picks the reduce ("scan" | "mxu") and
-    ``block_e`` the staged edge chunk.
+    ``block_e`` the edges of a work unit (scan) or the staged chunk
+    (mxu).
     """
     if strategy not in PUSH_STRATEGIES:
         raise ValueError(f"strategy={strategy!r} not in {PUSH_STRATEGIES}")
@@ -290,10 +372,19 @@ def coo_push(x: torch.Tensor, active: torch.Tensor, src: torch.Tensor,
                 MSG_CODES[msg], _stream())
         check_status(rc, "coo_push_mxu")
         return out
+    units = push_units(plan, block_e, width)
+    rec = units.count if units.split else 0
+    rec_flags = torch.empty((2, rec), dtype=torch.int32, device=x.device)
+    rec_vals = torch.empty((2, rec * width), dtype=torch.float64,
+                           device=x.device)
     fn = load("coo_push")
     rc = fn(x.data_ptr(), DTYPE_CODES[x.dtype], active.data_ptr(),
-            plan.src.data_ptr(), plan.w.data_ptr(), plan.ptr.data_ptr(),
-            out.data_ptr(), n, plan.nb, plan.bin_n, plan.cap, width,
-            int(block_e), COMBINE_CODES[combine], MSG_CODES[msg], _stream())
+            plan.src.data_ptr(), plan.dst.data_ptr(), plan.w.data_ptr(),
+            out.data_ptr(), n, plan.cap, width, COMBINE_CODES[combine],
+            MSG_CODES[msg], units.count, units.edges,
+            units.table.data_ptr(), units.counters.data_ptr(),
+            plan.empty.data_ptr(), int(plan.empty.shape[0]),
+            rec_flags[0].data_ptr(), rec_flags[1].data_ptr(),
+            rec_vals[0].data_ptr(), rec_vals[1].data_ptr(), _stream())
     check_status(rc, "coo_push")
     return out

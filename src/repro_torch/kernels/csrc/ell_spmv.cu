@@ -1,33 +1,346 @@
-// Full-scan ELL pull: out[v] = combine_j msg(x[idx[v, j]], w[v, j]) for
-// every row v of the [n, d_ell] ELL-in layout.
+// Full-scan ELL pull: out[v] = combine_{j < len(v)} msg(x[idx[v, j]], w[v, j])
+// for every row v of the [n, d_ell] ELL-in layout, where len(v) is
+// row_len[v] (the row's real slots; the graph's in-degree) or d_ell.
 //
 // Replaces: src/repro/kernels/ell_spmv.py, ell_spmv_pallas (the Pallas
 // TPU kernel whose grid tiles [block_n, d_ell] VMEM blocks).
 //
-// What bounds it on the H100: device-memory bytes. Every call streams
-// the whole ELL view, 8 bytes per slot (int32 index + f32 weight), plus
-// one random payload read per real edge. On the road stand-in (n=1.96M,
-// d_ell=8) that is ~125 MB (~40 us at 3.35 TB/s); on Kronecker scale 16
-// (d_ell ~9.8k, ~350 slots per real edge) it is ~5.15 GB (~1.5 ms), of
-// which almost all is sentinel padding.
+// What bounds it on the H100: device-memory bytes over the real slots
+// only: 4 B of index (and 4 B of weight unless the message is a copy)
+// per real edge, row_len, one payload row per edge (random, mostly L2
+// hits) and the output. On Kronecker scale 16 that is ~8 MB (~2.4 us at
+// 3.35 TB/s) against the 5.15 GB the padded layout holds; on the road
+// stand-in ~56 MB.
 //
-// Design: one warp per row (a CTA walks block_n consecutive rows), lanes
-// striding over the row so each step
-// reads 32 consecutive slots (128 B of indices, 128 B of weights,
-// coalesced); register accumulators and a shuffle reduce, so nothing is
-// staged in shared memory and every row is written once. The kernel
-// reads the padded layout as it is; skipping the padding needs another
-// layout (a later redesign), not a better loop.
+// Design: a row plan (ell_row_plan in kernels/ell_spmv.py, built once
+// per graph) sorts the rows by length into classes, and one launch runs
+// one section of CTAs per class, the longest rows first:
+//   * short rows (len <= 8, <= 16, <= 32): groups of 2, 4 or 8 lanes
+//     per row, several rows per warp;
+//   * medium rows: one warp per row;
+//   * hub rows: one CTA per piece of at most `piece` slots. A hub of
+//     one piece is written by its CTA; the pieces of a longer hub store
+//     partials, and the last of its CTAs to arrive (a counter per hub,
+//     reset by that CTA) combines them in piece order.
+// A lane loads its row's slots in chunks of 4 (16 bytes of indices in
+// one load where the layout is aligned), the first chunk together with
+// the row length and the next chunk while the current one's payload
+// loads are in flight. A group never reads past len(v) but to finish
+// its first chunk, so the padding costs (almost) nothing. For
+// [n+1, B] payloads the group's lanes are C column lanes (C = the power
+// of two >= B, at most 32) times slot lanes: each slot's index is read
+// once per tile of C columns, and row s of x is read as C contiguous
+// values. The plan is built for one C: its class bounds and piece size
+// keep the serial steps of a lane about the same whatever C is. Float
+// sums accumulate in f64, integer sums in 64-bit, and every combine runs
+// in an order fixed by the plan, so the result is deterministic. The
+// kernel is latency-bound (a pass is rows -> row length and indices ->
+// payload), so it is held to 40 registers for six CTAs per SM, which
+// timed faster on the H100 than 48 registers at five (PERF.md).
 #include "ell_rows.cuh"
 
-extern "C" int repro_ell_spmv(const void* x, int dtype, const void* idx,
-                              const void* w, void* out, long long n,
-                              long long d_ell, long long num_sources,
-                              long long B, long long block_n, int combine,
-                              int msg, void* stream) {
-  rk::EllArgs a{x, static_cast<const int32_t*>(idx),
-                static_cast<const float*>(w), nullptr, out, n, d_ell,
-                num_sources, n, B, block_n, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(rk::dispatch<rk::EllLauncher>(dtype, combine, msg,
-                                                         a));
+namespace rk {
+
+constexpr int kPullThreads = 256;
+constexpr int kPullClasses = 4;      // 2, 4, 8 lanes and a warp per row
+
+struct PullSections {
+  long long row_off[kPullClasses + 1];   // class k: rows[off[k]:off[k+1]]
+  long long block_off[kPullClasses];     // class k's first block; hub
+                                         // pieces come first, then the
+                                         // classes from the widest down
+  long long rpb[kPullClasses];           // rows per CTA of class k
+  int group[kPullClasses];               // lanes per row of class k
+};
+
+struct PullArgs {
+  const void* x;
+  const int32_t* idx;
+  const float* w;
+  const int32_t* row_len;    // [n], or null: every row has d_ell slots
+  const int32_t* rows;       // [n] row ids sorted by class
+  void* out;
+  long long n, d_ell, num_sources, B, block_n;
+  long long class_off[kPullClasses + 1];  // class k: rows[off[k]:off[k+1]];
+                                          // hubs from off[kPullClasses]
+  long long pieces, piece;   // hub CTAs, slots per piece
+  const int32_t* piece_hub;  // [pieces] hub index (into the hub rows)
+  const int32_t* hub_first;  // [hubs + 1] first piece of each hub
+  int32_t* counters;         // [hubs] arrivals, zero between launches
+  void* partial;             // [pieces, B] accumulators of split hubs
+  cudaStream_t stream;
+};
+
+template <typename M, int C> using A_of = typename AccType<M, C>::type;
+
+__device__ __forceinline__ long long row_length(const int32_t* row_len,
+                                                long long v, long long d) {
+  if (!row_len) return d;
+  const long long l = row_len[v];
+  return l < 0 ? 0 : (l > d ? d : l);
+}
+
+constexpr int kChunk = 4;   // slots a lane loads at once (16 B of indices)
+
+// indices and weights of slots [j, j + kChunk) of one row, -1 / 0 at and
+// past `cap`; one 16-byte load each where `vec` says the row is aligned
+template <int MSG>
+__device__ __forceinline__ void load_chunk(const int32_t* __restrict__ ri,
+                                           const float* __restrict__ rw,
+                                           long long j, long long cap,
+                                           bool vec, int32_t (&s)[kChunk],
+                                           float (&wv)[kChunk]) {
+  if (vec && j + kChunk <= cap) {
+    const int4 v = *reinterpret_cast<const int4*>(ri + j);
+    s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
+    if (MSG != COPY) {
+      const float4 f = *reinterpret_cast<const float4*>(rw + j);
+      wv[0] = f.x; wv[1] = f.y; wv[2] = f.z; wv[3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      s[k] = j + k < cap ? ri[j + k] : -1;
+      if (MSG != COPY) wv[k] = j + k < cap ? rw[j + k] : 0.f;
+    }
+  }
+  if (MSG == COPY) {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) wv[k] = 0.f;
+  }
+}
+
+// combine of one row's slots [lo, hi) for column c by one lane, which
+// takes the chunks of kChunk slots at lo + kChunk * (first + k * step),
+// k = 0, 1, ... The first chunk is loaded before the row length is
+// known (any slot below d_ell may be read), and each chunk's payload
+// loads are issued together.
+template <typename T, typename M, typename A, int C, int MSG>
+__device__ __forceinline__ A walk_chunks(const T* __restrict__ x,
+                                         const int32_t* __restrict__ ri,
+                                         const float* __restrict__ rw,
+                                         long long lo, long long hi,
+                                         long long first, long long step,
+                                         long long d_ell, bool vec,
+                                         long long c, long long B,
+                                         long long num_sources) {
+  A acc = identity<A, C>();
+  long long j = lo + kChunk * first;
+  int32_t s[kChunk];
+  float wv[kChunk];
+  load_chunk<MSG>(ri, rw, j, d_ell, vec, s, wv);
+  while (j < hi) {
+    const long long jn = j + kChunk * step;
+    int32_t sn[kChunk] = {-1, -1, -1, -1};
+    float wn[kChunk] = {0.f, 0.f, 0.f, 0.f};
+    if (jn < hi) load_chunk<MSG>(ri, rw, jn, d_ell, vec, sn, wn);
+    T xv[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const bool ok = j + k < hi && s[k] >= 0 && s[k] < num_sources;
+      s[k] = ok ? s[k] : -1;
+      xv[k] = ok ? x[static_cast<long long>(s[k]) * B + c] : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      if (s[k] >= 0)
+        acc = combine<A, C>(acc, to_acc<A, M>(message<T, M, MSG>(xv[k],
+                                                                 wv[k])));
+    j = jn;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      s[k] = sn[k];
+      wv[k] = wn[k];
+    }
+  }
+  return acc;
+}
+
+template <typename T, typename M, typename O, int C, int MSG>
+__global__ void __launch_bounds__(kPullThreads, 6)
+ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
+                const float* __restrict__ w,
+                const int32_t* __restrict__ row_len,
+                const int32_t* __restrict__ rows, O* __restrict__ out,
+                long long d_ell, long long num_sources, long long B,
+                bool vec, int col_lanes, PullSections sec, long long hubs_at,
+                long long pieces, long long piece,
+                const int32_t* __restrict__ piece_hub,
+                const int32_t* __restrict__ hub_first,
+                int32_t* __restrict__ counters, A_of<M, C>* partial) {
+  using A = A_of<M, C>;
+  const long long blk = blockIdx.x;
+  const int t = threadIdx.x;
+  const int cl = t % col_lanes;
+  if (blk >= pieces) {
+    // ---- a class of short or medium rows: G lanes per row. The
+    // unrolled select keeps the section table in parameter space.
+    int G = 0;
+    long long r_lo = 0, r_end = 0, rpb = 1;
+#pragma unroll
+    for (int q = 0; q < kPullClasses; ++q) {
+      const long long b_end = q == 0 ? ~0ull >> 1 : sec.block_off[q - 1];
+      if (blk >= sec.block_off[q] && blk < b_end) {
+        G = sec.group[q];
+        rpb = sec.rpb[q];
+        r_lo = sec.row_off[q] + (blk - sec.block_off[q]) * rpb;
+        r_end = sec.row_off[q + 1];
+      }
+    }
+    const int S = G / col_lanes;                 // slot lanes per row
+    const int gl = t % G;
+    const int sl = gl / col_lanes;
+    const int groups = kPullThreads / G;
+    const long long r_hi = r_lo + rpb < r_end ? r_lo + rpb : r_end;
+    // the trip counts are uniform across the warp, so every lane meets
+    // the shuffles
+    for (long long base = r_lo; base < r_hi; base += groups) {
+      const long long i = base + t / G;
+      const bool live = i < r_hi;
+      const long long v = live ? rows[i] : 0;
+      const long long len = live ? row_length(row_len, v, d_ell) : 0;
+      const int32_t* ri = idx + v * d_ell;
+      const float* rw = w + v * d_ell;
+      for (long long c0 = 0; c0 < B; c0 += col_lanes) {
+        const long long c = c0 + cl;
+        A acc = c < B ? walk_chunks<T, M, A, C, MSG>(
+                            x, ri, rw, 0, len, sl, S, d_ell, vec, c, B,
+                            num_sources)
+                      : identity<A, C>();
+        for (int off = G / 2; off >= col_lanes; off >>= 1)
+          acc = combine<A, C>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+        if (live && sl == 0 && c < B) out[v * B + c] = from_acc<O, A>(acc);
+      }
+    }
+    return;
+  }
+  // ---- one piece of a hub row: the whole CTA, (256 / C) slot lanes
+  __shared__ A red[kPullThreads / 32][32];
+  __shared__ bool last;
+  const long long p = blk;
+  const long long h = piece_hub[p];
+  const long long v = rows[hubs_at + h];
+  const long long first = hub_first[h], count = hub_first[h + 1] - first;
+  const long long len = row_length(row_len, v, d_ell);
+  const long long lo = (p - first) * piece;
+  const long long hi = lo + piece < len ? lo + piece : len;
+  const int S = kPullThreads / col_lanes;
+  const int sl = t / col_lanes;
+  const int warp = t / 32, lane = t % 32;
+  const int32_t* ri = idx + v * d_ell;
+  const float* rw = w + v * d_ell;
+  for (long long c0 = 0; c0 < B; c0 += col_lanes) {
+    const long long c = c0 + cl;
+    A acc = c < B ? walk_chunks<T, M, A, C, MSG>(x, ri, rw, lo, hi, sl, S,
+                                                 d_ell, vec, c, B,
+                                                 num_sources)
+                  : identity<A, C>();
+    for (int off = 16; off >= col_lanes; off >>= 1)
+      acc = combine<A, C>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if (lane < col_lanes) red[warp][lane] = acc;
+    __syncthreads();
+    if (t < col_lanes && c < B) {
+      A r = red[0][t];
+      for (int q = 1; q < kPullThreads / 32; ++q)
+        r = combine<A, C>(r, red[q][t]);
+      if (count == 1) out[v * B + c] = from_acc<O, A>(r);
+      else partial[p * B + c] = r;
+    }
+    __syncthreads();
+  }
+  if (count == 1) return;
+  // the last piece of this hub to arrive combines the partials in order
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(counters + h, 1) == count - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (long long c = t; c < B; c += kPullThreads) {
+    A r = identity<A, C>();
+    for (long long q = first; q < first + count; ++q)
+      r = combine<A, C>(  // past L1: other CTAs wrote it
+          r, *reinterpret_cast<const volatile A*>(partial + q * B + c));
+    out[v * B + c] = from_acc<O, A>(r);
+  }
+  if (t == 0) counters[h] = 0;     // ready for the next launch
+}
+
+struct PullLauncher {
+  using Args = PullArgs;
+  template <typename T, int C, int MSG>
+  static cudaError_t run(const Args& a) {
+    using M = typename MsgType<T, MSG>::type;
+    using O = typename PullOut<M, C>::type;
+    int col_lanes = 1;
+    while (col_lanes < a.B && col_lanes < 32) col_lanes *= 2;
+    static const int kLanes[kPullClasses] = {2, 4, 8, 32};
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (sms < 1) sms = 1;
+    }
+    // block_n / 128 passes per CTA (a pass gives every group one row):
+    // block_n rows per CTA in the 2-lane class at width 1. A class that
+    // would then fill fewer than four CTAs per SM takes fewer passes.
+    const long long passes = a.block_n / 128 > 1 ? a.block_n / 128 : 1;
+    const long long min_blocks = 4LL * sms;
+    PullSections sec;
+    long long next = a.pieces;
+    for (int k = 0; k < kPullClasses + 1; ++k) sec.row_off[k] = a.class_off[k];
+    for (int k = kPullClasses - 1; k >= 0; --k) {
+      const int g = kLanes[k] * col_lanes;
+      sec.group[k] = g < 32 ? g : 32;
+      const long long per_pass = kPullThreads / sec.group[k];
+      const long long rows_k = a.class_off[k + 1] - a.class_off[k];
+      long long p_k = passes;
+      const long long want = (rows_k + min_blocks - 1) / min_blocks;
+      const long long fit = (want + per_pass - 1) / per_pass;  // passes
+      if (fit < p_k) p_k = fit > 1 ? fit : 1;
+      sec.rpb[k] = p_k * per_pass;
+      sec.block_off[k] = next;
+      next += (rows_k + sec.rpb[k] - 1) / sec.rpb[k];
+    }
+    const long long blocks = next;
+    // 16-byte chunk loads need every row (and so every chunk) aligned
+    const bool vec = a.d_ell % kChunk == 0 &&
+                     reinterpret_cast<uintptr_t>(a.idx) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+    if (blocks == 0) return cudaSuccess;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    ell_spmv_kernel<T, M, O, C, MSG>
+        <<<static_cast<unsigned>(blocks), kPullThreads, 0, a.stream>>>(
+            static_cast<const T*>(a.x), a.idx, a.w, a.row_len, a.rows,
+            static_cast<O*>(a.out), a.d_ell, a.num_sources, a.B, vec, col_lanes,
+            sec, a.class_off[kPullClasses], a.pieces, a.piece, a.piece_hub,
+            a.hub_first,
+            a.counters, static_cast<A_of<M, C>*>(a.partial));
+    return cudaGetLastError();
+  }
+};
+
+}  // namespace rk
+
+extern "C" int repro_ell_spmv(
+    const void* x, int dtype, const void* idx, const void* w, void* out,
+    long long n, long long d_ell, long long num_sources, long long B,
+    long long block_n, int combine, int msg, const void* row_len,
+    const void* rows, long long o1, long long o2, long long o3,
+    long long hubs_at, long long pieces, long long piece,
+    const void* piece_hub,
+    const void* hub_first, void* counters, void* partial, void* stream) {
+  rk::PullArgs a{x, static_cast<const int32_t*>(idx),
+                 static_cast<const float*>(w),
+                 static_cast<const int32_t*>(row_len),
+                 static_cast<const int32_t*>(rows), out, n, d_ell,
+                 num_sources, B, block_n, {0, o1, o2, o3, hubs_at}, pieces,
+                 piece,
+                 static_cast<const int32_t*>(piece_hub),
+                 static_cast<const int32_t*>(hub_first),
+                 static_cast<int32_t*>(counters), partial,
+                 static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(rk::dispatch<rk::PullLauncher>(dtype, combine, msg,
+                                                          a));
 }

@@ -3,10 +3,19 @@
     out[v] = combine_{j < d_ell} msg(x[ell_idx[v, j]], ell_w[v, j])
 
 Port of ``repro.kernels.ell_spmv.ell_spmv_pallas``. On a CUDA tensor
-:func:`ell_spmv` launches the hand-written kernel in ``csrc/ell_spmv.cu``
-(one warp per row, ``block_n`` rows per CTA); on a CPU tensor it runs
-:func:`ell_spmv_plain`, the plain PyTorch version of the same function,
-which is also what the kernel is checked against on the card.
+:func:`ell_spmv` launches the hand-written kernel in ``csrc/ell_spmv.cu``;
+on a CPU tensor it runs :func:`ell_spmv_plain`, the plain PyTorch version
+of the same function, which is also what the kernel is checked against
+on the card.
+
+``row_len`` (int32 [n], optional; the graph's ``in_deg``) bounds each
+row's real slots: slots ``j >= row_len[v]`` are not read. An ELL row
+holds its real slots first and sentinels after, so with the in-degree
+the result is the same and the padding costs nothing. The kernel runs
+over a row plan (:func:`ell_row_plan`, built once per graph and payload
+width) that sorts rows into length classes: short rows get 2, 4 or 8
+lanes, medium rows a warp, and hub rows are split across CTAs whose
+partials are combined in piece order.
 
 Surface: combine ∈ {sum, max, min}; payloads [n+1] or [n+1, B] (sentinel
 row at index n); float32/float64/int32/int64; msg ∈ {copy, mul, add};
@@ -18,6 +27,7 @@ accumulate in float64 and round once.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -25,7 +35,8 @@ import torch
 from ..sparse.segment import reduce_identity
 from ._build import check_status, load
 
-__all__ = ["ell_spmv", "ell_spmv_plain", "DTYPE_CODES", "COMBINE_CODES",
+__all__ = ["ell_spmv", "ell_spmv_plain", "ell_row_plan", "EllRowPlan",
+           "row_class_bounds", "col_lanes", "DTYPE_CODES", "COMBINE_CODES",
            "MSG_CODES", "DEFAULT_BLOCK_ROWS"]
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
@@ -34,8 +45,22 @@ COMBINE_CODES = {"sum": 0, "min": 1, "max": 2}
 MSG_CODES = {"copy": 0, "mul": 1, "add": 2}
 
 # rows one CTA of the ELL kernels walks unless the caller (the tuner)
-# says otherwise: one per warp
+# says otherwise: one per warp in the frontier kernel, one pass in the
+# full scan
 DEFAULT_BLOCK_ROWS = 8
+
+# the row classes of the full-scan kernel: the longest row each short
+# class holds, and the lanes (before column lanes) such a row gets; a
+# lane loads CHUNK slots at a time
+SHORT_MAX = (8, 16, 32)
+SHORT_LANES = (2, 4, 8)
+CHUNK = 4
+# the longest medium row (a warp) and the slots of a hub piece (a CTA of
+# PULL_THREADS) at one column lane; with C column lanes a warp has 32 / C
+# slot lanes, so both shrink by C
+WARP_SLOTS = 1024
+HUB_SLOTS = 8192
+PULL_THREADS = 256
 
 # bound on gathered slots per chunk of the plain version (memory, not speed)
 _PLAIN_CHUNK = 1 << 25
@@ -83,10 +108,12 @@ def reduce_rows(msgs: torch.Tensor, valid: torch.Tensor, combine: str,
 
 
 def gather_rows_plain(x_padded, ell_idx, ell_w, rows, combine: str,
-                      msg: str, num_sources: int, row_limit: int):
-    """Plain version of the warp-per-row body both ELL kernels share:
-    one output row per entry of ``rows`` (int64 row ids; ids outside
-    ``[0, row_limit)`` give the identity row)."""
+                      msg: str, num_sources: int, row_limit: int,
+                      row_len=None):
+    """Plain version of the row body of the ELL kernels: one output row
+    per entry of ``rows`` (int64 row ids; ids outside ``[0, row_limit)``
+    give the identity row). With ``row_len``, slots ``j >= row_len[v]``
+    of row v are not read."""
     d_ell = ell_idx.shape[1]
     mdt = _msg_dtype(x_padded.dtype, ell_w.dtype, msg)
     odt = _out_dtype(x_padded.dtype, ell_w.dtype, msg, combine)
@@ -94,16 +121,102 @@ def gather_rows_plain(x_padded, ell_idx, ell_w, rows, combine: str,
                       dtype=odt, device=x_padded.device)
     width = 1 if x_padded.ndim == 1 else x_padded.shape[1]
     step = max(1, _PLAIN_CHUNK // max(1, d_ell * width))
+    slot = torch.arange(d_ell, device=ell_idx.device)
     for lo in range(0, rows.shape[0], step):
         r = rows[lo:lo + step]
         live = (r >= 0) & (r < row_limit)
         safe = torch.where(live, r, 0)
         idx = ell_idx[safe]
         valid = live[:, None] & (idx >= 0) & (idx < num_sources)
+        if row_len is not None:
+            valid &= slot[None, :] < row_len[safe][:, None]
         gathered = x_padded[torch.where(valid, idx, 0).to(torch.int64)]
         msgs = apply_msg(gathered, ell_w[safe], msg, mdt)
         out[lo:lo + step] = reduce_rows(msgs, valid, combine, odt)
     return out
+
+
+def col_lanes(width: int) -> int:
+    """Column lanes of a row group for ``width`` payload columns: the
+    power of two ≥ width, at most a warp."""
+    c = 1
+    while c < width and c < 32:
+        c *= 2
+    return c
+
+
+def row_class_bounds(width: int = 1) -> tuple[tuple[int, ...], int]:
+    """``(bounds, piece)`` of the row plan for ``width`` payload columns:
+    a row of length ``len`` is in class k, the first with ``len <=
+    bounds[k]`` (short rows of 2, 4 and 8 lanes, then a warp), else a
+    hub cut into pieces of ``piece`` slots, one CTA each."""
+    c = col_lanes(width)
+    warp_max = max(SHORT_MAX[-1], WARP_SLOTS // c)
+    return SHORT_MAX + (warp_max,), HUB_SLOTS // c
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EllRowPlan:
+    """Rows of one ELL layout sorted into length classes for one payload
+    width (:func:`ell_row_plan`). ``rows[class_off[k]:class_off[k+1]]``
+    holds class k (ascending row ids), k = 0..3 the short and medium
+    classes and k = 4 the hubs; hub h (the h-th row of class 4) is cut
+    into pieces ``hub_first[h]:hub_first[h+1]`` of ``piece`` slots, and
+    ``piece_hub`` names each piece's hub. ``counters`` (one per hub,
+    zero between launches) let the last piece of a hub find itself."""
+    rows: torch.Tensor
+    class_off: tuple
+    piece: int
+    piece_hub: torch.Tensor
+    hub_first: torch.Tensor
+    counters: torch.Tensor
+    row_len: Optional[torch.Tensor]
+    n: int
+    d_ell: int
+    col_lanes: int
+
+    @property
+    def pieces(self) -> int:
+        return int(self.piece_hub.shape[0])
+
+
+def ell_row_plan(row_len: Optional[torch.Tensor], n: int, d_ell: int,
+                 width: int = 1, device=None) -> EllRowPlan:
+    """The row plan of an [n, d_ell] ELL layout whose row v holds
+    ``row_len[v]`` real slots (None: all d_ell), for payloads of
+    ``width`` columns. Built with tensor operations on ``row_len``'s
+    device (or ``device``); reads two counts back to the host."""
+    dev = row_len.device if row_len is not None else torch.device(
+        device or "cpu")
+    if row_len is None:
+        lens = torch.full((n,), d_ell, dtype=torch.int64, device=dev)
+    else:
+        if row_len.shape != (n,):
+            raise ValueError(f"row_len must be [{n}], not "
+                             f"{tuple(row_len.shape)}")
+        lens = row_len.to(torch.int64).clamp(0, d_ell)
+    bounds, piece = row_class_bounds(width)
+    cls = torch.bucketize(lens, torch.tensor(bounds, device=dev))
+    order = torch.argsort(cls, stable=True)
+    counts = torch.bincount(cls, minlength=len(bounds) + 1)
+    hub_len = lens[order[n - int(counts[-1]):]] if n else lens
+    per_hub = (hub_len + piece - 1) // piece
+    hub_first = torch.zeros(per_hub.shape[0] + 1, dtype=torch.int64,
+                            device=dev)
+    torch.cumsum(per_hub, 0, out=hub_first[1:])
+    piece_hub = torch.repeat_interleave(
+        torch.arange(per_hub.shape[0], device=dev), per_hub)
+    off = [0]
+    for c in counts.tolist():
+        off.append(off[-1] + c)
+    return EllRowPlan(rows=order.to(torch.int32), class_off=tuple(off),
+                      piece=int(piece),
+                      piece_hub=piece_hub.to(torch.int32),
+                      hub_first=hub_first.to(torch.int32),
+                      counters=torch.zeros(per_hub.shape[0],
+                                           dtype=torch.int32, device=dev),
+                      row_len=row_len, n=int(n), d_ell=int(d_ell),
+                      col_lanes=col_lanes(width))
 
 
 def _check(x_padded, ell_idx, ell_w, combine, msg, num_sources):
@@ -130,33 +243,57 @@ def _stream() -> int:
 
 def ell_spmv_plain(x_padded: torch.Tensor, ell_idx: torch.Tensor,
                    ell_w: torch.Tensor, combine: str = "sum",
-                   msg: str = "mul",
-                   num_sources: Optional[int] = None) -> torch.Tensor:
+                   msg: str = "mul", num_sources: Optional[int] = None,
+                   row_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`ell_spmv`."""
     n = ell_idx.shape[0]
     ns = n if num_sources is None else num_sources
     rows = torch.arange(n, device=ell_idx.device)
     return gather_rows_plain(x_padded, ell_idx, ell_w, rows, combine, msg,
-                             ns, n)
+                             ns, n, row_len)
 
 
 def ell_spmv(x_padded: torch.Tensor, ell_idx: torch.Tensor,
              ell_w: torch.Tensor, combine: str = "sum", msg: str = "mul",
              num_sources: Optional[int] = None,
-             block_n: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+             block_n: int = DEFAULT_BLOCK_ROWS,
+             row_len: Optional[torch.Tensor] = None,
+             plan: Optional[EllRowPlan] = None) -> torch.Tensor:
     """Pull k-relaxation over the ELL layout.
 
     x_padded: [n+1] or [n+1, B] payloads (sentinel row at index n);
     ell_idx: int32 [n, d_ell]; ell_w: float32 [n, d_ell]. Returns [n] or
     [n, B]; empty rows hold the combine identity. ``num_sources`` is the
-    index validity bound (default n). ``block_n`` is the number of rows
-    one CTA walks (the tuner's tile; no effect on the result).
+    index validity bound (default n). ``row_len`` (int32 [n]) bounds each
+    row's slots read. ``plan`` is the cached :func:`ell_row_plan` of this
+    layout and width (built here when absent; it carries its own
+    ``row_len``, which a given ``row_len`` must be). ``block_n`` is the
+    tuner's tile, rows per CTA of the 2-lane class at width 1: each CTA
+    of a short or medium class makes ``block_n // 128`` passes (at least
+    one, and fewer where the class would fill fewer than four CTAs per
+    SM), each giving every lane group a row. No effect on the result.
     """
     n, d_ell = ell_idx.shape
     ns = n if num_sources is None else int(num_sources)
     _check(x_padded, ell_idx, ell_w, combine, msg, ns)
+    width = 1 if x_padded.ndim == 1 else x_padded.shape[1]
+    if plan is not None:
+        if row_len is not None and row_len is not plan.row_len:
+            raise ValueError("ell_spmv: plan was built for another row_len")
+        if (plan.n, plan.d_ell, plan.col_lanes) != (n, d_ell,
+                                                    col_lanes(width)):
+            raise ValueError(
+                f"ell_spmv: plan for [{plan.n}, {plan.d_ell}] with "
+                f"{plan.col_lanes} column lanes, called on [{n}, {d_ell}] "
+                f"with {col_lanes(width)}")
+        row_len = plan.row_len
+    if row_len is not None and (row_len.dtype != torch.int32
+                                or row_len.shape != (n,)
+                                or row_len.device != ell_idx.device):
+        raise ValueError(f"row_len must be int32 [{n}] on {ell_idx.device}")
     if x_padded.device.type == "cpu":
-        return ell_spmv_plain(x_padded, ell_idx, ell_w, combine, msg, ns)
+        return ell_spmv_plain(x_padded, ell_idx, ell_w, combine, msg, ns,
+                              row_len)
     if x_padded.device.type != "cuda":
         raise ValueError(f"ell_spmv runs on cuda or cpu, not "
                          f"{x_padded.device}")
@@ -167,11 +304,21 @@ def ell_spmv(x_padded: torch.Tensor, ell_idx: torch.Tensor,
                       device=x_padded.device)
     if n == 0:
         return out
-    width = 1 if x_padded.ndim == 1 else x_padded.shape[1]
+    if plan is None:
+        plan = ell_row_plan(row_len, n, d_ell, width, x_padded.device)
+    # partial accumulators (8 bytes each) of hubs cut into several pieces
+    split = plan.pieces > plan.counters.shape[0]
+    partial = torch.empty((plan.pieces * width if split else 0,),
+                          dtype=torch.float64, device=x_padded.device)
+    off = plan.class_off
     fn = load("ell_spmv")
     rc = fn(x_padded.data_ptr(), DTYPE_CODES[x_padded.dtype],
             ell_idx.data_ptr(), ell_w.data_ptr(), out.data_ptr(), n, d_ell,
             ns, width, int(block_n), COMBINE_CODES[combine], MSG_CODES[msg],
-            _stream())
+            row_len.data_ptr() if row_len is not None else None,
+            plan.rows.data_ptr(), off[1], off[2], off[3], off[4],
+            plan.pieces, plan.piece, plan.piece_hub.data_ptr(),
+            plan.hub_first.data_ptr(), plan.counters.data_ptr(),
+            partial.data_ptr(), _stream())
     check_status(rc, "ell_spmv")
     return out

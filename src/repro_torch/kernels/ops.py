@@ -26,7 +26,7 @@ def pull_spmv(g: Graph, x: torch.Tensor, combine: str = "sum"
               ) -> torch.Tensor:
     """Pull k-relaxation through the ELL kernel. x: f32 [n] -> f32 [n]."""
     return ell_spmv(pad_values(x.to(torch.float32)), g.ell_idx, g.ell_w,
-                    combine=combine)
+                    combine=combine, row_len=g.in_deg)
 
 
 def push_combine(g: Graph, x: torch.Tensor, active: torch.Tensor,

@@ -42,7 +42,7 @@ import torch
 from ._build import launch_counts
 from .coo_push import build_push_plan, coo_push
 from .ell_pull_frontier import ell_pull_frontier
-from .ell_spmv import ell_spmv
+from .ell_spmv import ell_row_plan, ell_spmv
 
 __all__ = ["pull_candidates", "pull_frontier_candidates",
            "push_candidates", "tune_pull", "tune_pull_frontier",
@@ -53,6 +53,10 @@ _PULL_LADDER = (128, 256, 512, 1024, 2048, 4096)
 _EDGE_LADDER = (1024, 4096, 16384)
 _BIN_LADDER = (128, 256, 1024)
 _PRUNE = 2.0
+# revision of each kernel's design, part of its cache key, so that a
+# winner timed on an earlier design is not reused: 2 is the full-scan
+# pull over real slots with a row plan and the edge-parallel scan push
+KERNEL_REVISIONS = {"pull": 2, "push": 2}
 
 
 def _round_up(x: int, q: int) -> int:
@@ -153,7 +157,9 @@ def _cache_key(kernel: str, device: torch.device, shape: tuple, width: int,
                dtype: torch.dtype, combine: str, msg: str) -> str:
     dims = "x".join(str(s) for s in shape)
     dname = str(dtype).removeprefix("torch.")
-    return (f"{_platform(device)}|{kernel}|{dims}|w{width}|{dname}|"
+    rev = KERNEL_REVISIONS.get(kernel)
+    name = kernel if rev is None else f"{kernel}.r{rev}"
+    return (f"{_platform(device)}|{name}|{dims}|w{width}|{dname}|"
             f"{combine}|{msg}")
 
 
@@ -289,9 +295,10 @@ def tune_pull(n: int, d_ell: int, width: int, dtype, combine: str,
                         dtype=torch.int32, device=device)
     w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
     x = _ones(n + 1, width, dtype, device)
+    plan = ell_row_plan(None, n, d_ell, width, device)
     best = _ladder(key, cands, lambda b: _time(lambda: ell_spmv(
-        x, idx, w, combine=combine, msg=msg, block_n=b), device), t0,
-        launches0)
+        x, idx, w, combine=combine, msg=msg, block_n=b, plan=plan),
+        device), t0, launches0)
     _cache_put(key, best)
     return best
 

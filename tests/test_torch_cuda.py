@@ -7,6 +7,11 @@ with the card and no JAX:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+The ``hub`` case (12,293 in-edges on one destination) splits the
+full-scan pull's hub row across CTAs at every payload width and the
+scan push's bins across units; both must also give the same bits when
+called again (the last-arriving CTA resets its counter).
+
 Tolerances: integers, min and max bit for bit; float sums rtol = atol =
 1e-5 (the kernels sum floats in float64 in another order than the plain
 versions). The model kernels, as ``tests/test_kernels.py`` holds the
@@ -31,7 +36,8 @@ from repro_torch.kernels.ell_pull_frontier import (ell_pull_frontier,
                                                    ell_pull_frontier_full,
                                                    ell_pull_frontier_plain,
                                                    frontier_rows)
-from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_plain
+from repro_torch.kernels.ell_spmv import (ell_row_plan, ell_spmv,
+                                          ell_spmv_plain)
 from repro_torch.kernels.cin import cin_layer, cin_layer_plain
 from repro_torch.kernels.flash_attention import (GLOBAL_WINDOW,
                                                  flash_attention,
@@ -263,3 +269,56 @@ def test_cin_layer_matches_plain(cuda, dtype, B, Hp, F, H, D):
     assert got.dtype == want.dtype and got.shape == want.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("width", (None, 16, 32, 33), ids=lambda b: f"B{b}")
+def test_ell_spmv_hub_plan_matches_plain(graphs, cuda, width):
+    """The row plan at widths whose column lanes (1, 16, 32, 32 over two
+    tiles) give hub pieces of 8,192, 512 and 256 slots."""
+    g = graphs["hub"]
+    plan = ell_row_plan(g.in_deg, g.n, g.d_ell, width or 1)
+    assert plan.pieces > plan.counters.shape[0]          # a split hub
+    for i, (dtype, combine, msg) in enumerate(
+            (d, c, m) for d in cs.DTYPES for c in cs.COMBINES
+            for m in ("copy", "mul")):
+        shape = (g.n + 1,) + (() if width is None else (width,))
+        x = cs.payload(shape, dtype, i, cuda)
+        x[-1] = 0
+        want = ell_spmv_plain(x, g.ell_idx, g.ell_w, combine, msg,
+                              row_len=g.in_deg)
+        for block_n in (8, 128):
+            got = ell_spmv(x, g.ell_idx, g.ell_w, combine, msg,
+                           block_n=block_n, row_len=g.in_deg, plan=plan)
+            cs.max_abs_err(got, want, combine,
+                           f"ell_spmv hub B{width} {dtype} {combine} {msg} "
+                           f"block_n {block_n}")
+            again = ell_spmv(x, g.ell_idx, g.ell_w, combine, msg,
+                             block_n=block_n, row_len=g.in_deg, plan=plan)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("width", (None, 8, 33), ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("bin_n", (8, 24), ids=("bin8", "bin_n"))
+def test_scan_push_splits_match_plain(graphs, cuda, bin_n, width):
+    """block_e 256, 1,024 and 8,192 (the edges of a unit at width 1, a
+    C-th of that at C column lanes, at least 256) over bins of 8 and one
+    bin of all n: the hub's run crosses units and pieces."""
+    g = graphs["hub"]
+    plan = build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, bin_n)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    active = torch.rand(g.n, generator=gen, device=cuda) < 0.7
+    for i, (dtype, combine, msg) in enumerate(
+            (d, c, m) for d in cs.DTYPES for c in cs.COMBINES
+            for m in ("copy", "add")):
+        shape = (g.n,) + (() if width is None else (width,))
+        x = cs.payload(shape, dtype, i, cuda)
+        want = coo_push_plain(x, active, plan, g.n, combine, msg)
+        for block_e in (256, 1024, 8192):
+            got = coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w, g.n,
+                           combine, msg, plan=plan, block_e=block_e)
+            cs.max_abs_err(got, want, combine,
+                           f"coo_push hub bin {bin_n} B{width} {dtype} "
+                           f"{combine} {msg} block_e {block_e}")
+            again = coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w, g.n,
+                             combine, msg, plan=plan, block_e=block_e)
+            assert torch.equal(got, again)

@@ -9,6 +9,14 @@ each file stays well under a minute on one worker). The push
 output keeps the message dtype (no int32 widening, unlike pull). The
 port's bin plan must hold the same per-bin edges and pointers as the
 reference's ``build_push_plan``.
+
+The scan kernel's edge-parallel split (``push_units``: units of
+``block_e`` edges per CTA, pieces of a unit per column-lane group) must
+cover every real edge once, and a numpy emulation of the kernel — each
+piece walks its slice, runs cut by piece or unit boundaries are combined
+from their owners in the kernel's order — must equal the plain version
+and the Pallas kernel, on a graph with a hub of more than 3 × 4,096
+in-edges, with bins of 8 destinations and one bin of all n.
 """
 
 import jax.numpy as jnp
@@ -21,10 +29,15 @@ from repro.kernels.coo_push import build_push_plan as ref_build_push_plan
 from repro.kernels.coo_push import coo_push_pallas
 from repro.kernels.coo_push import default_bin_cap as ref_default_bin_cap
 from repro_torch.graphs import GRAPH_ARRAYS, graph_from_arrays
-from repro_torch.kernels.coo_push import (build_push_plan, coo_push,
-                                          default_bin_cap)
-from test_torch_kernels import GRID, GRID_IDS, assert_same, payload
-from test_torch_kernels import union_graph
+from repro_torch.kernels.coo_push import (SCAN_THREADS, build_push_plan,
+                                          coo_push, coo_push_plain,
+                                          default_bin_cap, push_units,
+                                          scan_unit_edges)
+from repro_torch.kernels.ell_spmv import col_lanes
+from test_torch_kernels import (GRID, GRID_IDS, SPLIT_CELLS, _acc_dtype,
+                                _combine_acc, _identity, _messages,
+                                assert_same, hub, msg_dtype,  # noqa: F401
+                                payload, union_graph)
 
 BIN_N = 8          # several bins on the 96-vertex union graph
 ALIGN = 128        # one plan capacity for every case
@@ -96,3 +109,171 @@ VEC_CELLS = [(cell, i) for cell, i in zip(GRID, GRID_IDS)
 def test_coo_push_matches_pallas(push_graphs, combine, dtype, msg, batch):
     check_push_cell(push_graphs, combine, dtype, msg, batch)
 
+
+
+def _graph(push_graphs, hub, case):  # noqa: F811
+    return hub if case == "hub" else push_graphs["union"][:2]
+
+
+@pytest.mark.parametrize("width", (1, 33))
+@pytest.mark.parametrize("block_e", (64, 1024, 1 << 20))
+@pytest.mark.parametrize("bins", ("8", "n"))
+@pytest.mark.parametrize("case", ("union", "hub"))
+def test_push_units_cover_every_edge_once(push_graphs, hub, case,  # noqa: F811
+                                          bins, block_e, width):
+    g, tg = _graph(push_graphs, hub, case)
+    bin_n = 8 if bins == "8" else tg.n
+    plan = build_push_plan(tg.coo_src, tg.coo_dst, tg.coo_w, tg.n, bin_n)
+    units = push_units(plan, block_e, width)
+    assert push_units(plan, block_e, width) is units   # cached per size
+    e = scan_unit_edges(block_e, width)
+    assert e == max(256, min(max(block_e, 256), 32768) // col_lanes(width))
+    table = units.table.numpy()
+    ub, lo = table[:, 0], table[:, 1]
+    first = units.bin_first.numpy()
+    seen = np.zeros(tg.m, np.int64)
+    starts = plan.ptr.numpy()[:, 0]
+    for b in range(plan.nb):
+        eb = int(plan.ptr[b, -1])
+        assert eb == plan.bin_edges[b]
+        for u in range(first[b], first[b + 1]):
+            assert ub[u] == b and lo[u] < eb
+            assert tuple(table[u, 2:]) == (eb, first[b + 1] - first[b])
+            hi = min(lo[u] + e, eb)
+            base = int(tg.in_ptr[min(b * bin_n, tg.n)]) + starts[b]
+            seen[base + lo[u]:base + hi] += 1
+        assert first[b + 1] - first[b] == -(-eb // e)
+    np.testing.assert_array_equal(seen, 1)
+    np.testing.assert_array_equal(
+        plan.empty.numpy(), np.flatnonzero(tg.in_deg.numpy() == 0))
+    assert units.split == bool((np.diff(first) > 1).any())
+    if case == "hub" and e < 4096:
+        assert units.split
+
+
+def emulate_scan_push(x, active, plan, n, combine, msg, block_e):
+    """The scan kernel in numpy: each unit's pieces (warps) walk their
+    slices, write runs they hold whole and keep head and tail partials of
+    cut runs; the CTA walks each cut run from its owner through the heads
+    in piece order, and the last unit of a bin walks the runs cut by
+    units in unit order. Inside a piece the emulation combines in edge
+    order, where the kernel's scan combines a sub-step's edges as a tree
+    (float sums: both in float64)."""
+    width = 1 if x.ndim == 1 else x.shape[1]
+    pieces = SCAN_THREADS // 32          # a piece is a warp
+    units = push_units(plan, block_e, width)
+    mdt = msg_dtype(x.dtype, msg)
+    adt = _acc_dtype(mdt, combine)
+    ident = np.full(width, _identity(combine, adt), adt)
+    src, dst = plan.src.numpy(), plan.dst.numpy()
+    w = plan.w.numpy()
+    x2 = x.reshape(n, width)
+    out = np.full((n, width), _identity(combine, mdt), mdt)
+
+    def val(b, e):
+        u = src[b, e]
+        if not (0 <= u < n and active[u]):
+            return ident
+        return _messages(x2[u:u + 1], w[b, e:e + 1], msg, mdt)[0].astype(adt)
+
+    def put(k, v):
+        out[k] = v.astype(mdt)
+
+    ub, ulo = units.table[:, 0].numpy(), units.table[:, 1].numpy()
+    first = units.bin_first.numpy()
+    recs = {}
+    for u in range(units.count):
+        b, lo = int(ub[u]), int(ulo[u])
+        eb = int(plan.bin_edges[b])
+        hi = min(lo + units.edges, eb)
+        per = -(-(-(-(hi - lo) // pieces)) // 32) * 32   # whole steps
+        live = -(-(hi - lo) // per)
+        rec = []                       # (h_open, mid, t_open, key, head, tail)
+        for p in range(live):
+            plo, phi = lo + p * per, min(lo + (p + 1) * per, hi)
+            hk = dst[b, plo]
+            h_open = plo > 0 and dst[b, plo - 1] == hk
+            ck, acc, head, tail = hk, ident, None, None
+            for e in range(plo, phi):
+                if dst[b, e] != ck:
+                    if h_open and ck == hk:
+                        head = acc
+                    else:
+                        put(ck, acc)
+                    ck, acc = dst[b, e], ident
+                acc = _combine_acc(combine, acc, val(b, e))
+            t_open = phi < eb and dst[b, phi] == ck
+            mid = False
+            if not t_open:
+                if h_open and ck == hk:
+                    head = acc
+                else:
+                    put(ck, acc)
+            elif h_open and ck == hk:
+                head, mid = acc, True
+            else:
+                tail = acc
+            rec.append((h_open, mid, t_open, ck, head, tail))
+        scope = [False, False, False, None, None, None]
+        for p, (h_open, mid, t_open, key, head, tail) in enumerate(rec):
+            if not t_open or mid:
+                continue
+            v, q = tail, p + 1
+            while q < live:
+                v = _combine_acc(combine, v, rec[q][4])
+                if not rec[q][1]:
+                    break
+                q += 1
+            if q < live:
+                put(key, v)
+            else:
+                scope[2], scope[3], scope[5] = True, key, v
+        if rec[0][0]:
+            v, q = rec[0][4], 0
+            while rec[q][1] and q + 1 < live:
+                q += 1
+                v = _combine_acc(combine, v, rec[q][4])
+            scope[0], scope[4] = True, v
+            if rec[q][1]:
+                scope[1] = scope[2] = True
+        recs[u] = scope
+    for b in range(plan.nb):
+        for u in range(first[b], first[b + 1]):
+            h_open, mid, t_open, key, head, tail = recs[u]
+            if not t_open or mid:
+                continue
+            v = tail
+            for q in range(u + 1, first[b + 1]):
+                v = _combine_acc(combine, v, recs[q][4])
+                if not recs[q][1]:
+                    break
+            put(key, v)
+    return out if x.ndim == 2 else out[:, 0]
+
+
+@pytest.mark.parametrize("width", (None, 3, 33), ids=lambda b: f"b{b}")
+@pytest.mark.parametrize("bins", ("8", "n"))
+@pytest.mark.parametrize("combine,dtype,msg", SPLIT_CELLS,
+                         ids=["-".join(c) for c in SPLIT_CELLS])
+def test_scan_split_emulation_matches_plain_and_pallas(
+        hub, combine, dtype, msg, bins, width):  # noqa: F811
+    """block_e 1,024: units of 1,024 edges at width 1 (the hub's run
+    crosses 12 units and 8 warp pieces of 128 edges in each) and of 256
+    at width 3 (C = 4) and width 33 (8 pieces of 32 edges)."""
+    g, tg = hub
+    bin_n = 8 if bins == "8" else tg.n
+    active = np.random.default_rng(2).random(tg.n) < 0.7
+    x = payload(tg.n, dtype, width, seed=4)
+    plan = build_push_plan(tg.coo_src, tg.coo_dst, tg.coo_w, tg.n, bin_n)
+    got = emulate_scan_push(x, active, plan, tg.n, combine, msg, 1024)
+    got = torch.from_numpy(np.ascontiguousarray(got))
+    plain = coo_push_plain(torch.from_numpy(x), torch.from_numpy(active),
+                           plan, tg.n, combine, msg)
+    assert_same(got, plain.numpy(), combine)
+    ref_plan = ref_build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n,
+                                   bin_n, align=ALIGN)
+    want = coo_push_pallas(jnp.asarray(x), jnp.asarray(active), g.coo_src,
+                           g.coo_dst, g.coo_w, g.n, combine=combine,
+                           msg=msg, block_e=ALIGN, block_n=bin_n,
+                           interpret=True, plan=ref_plan, strategy="scan")
+    assert_same(got, want, combine)
