@@ -17,11 +17,14 @@ non-zero:
      hub, empty rows, self loops, duplicate edges, m = 0, and a hub of
      12,293 in-edges that splits the pull's rows and the push's bins);
      ``ell_spmv`` over whole rows and over ``row_len = in_deg``; then
-     ``"mxu_grid"``, the one-hot push against ``coo_push_mxu_plain`` over
-     the same cells at B ∈ {1, 8, 32} on those graphs (but the 12,293
-     hub) plus a star.
+     ``"mxu_grid"``, the one-hot push against its plain versions over
+     the same cells at B ∈ {1, 3, 8, 16, 32, 33} on those graphs (but
+     the 12,293 hub) plus a star whose hub tile is cut across units.
      Integers, min and max must agree bit for bit, float sums to
-     rtol = atol = 1e-5.
+     rtol = atol = 1e-5 (the one-hot push's against the float64 plain
+     sum, and against its float32 plain version on absolute payloads;
+     its gap to the float32 plain version on the signed payloads is
+     printed, not held).
   3. ``"tune"``: the tuner probes every push and full-scan pull key the
      two main paths below run, on the full CA-road stand-in (n = 1.96 M)
      and Kronecker scale 16; one line per probe (candidates timed,
@@ -41,7 +44,13 @@ non-zero:
      requests per graph (16 each, sources highest out-degree first), two
      per algorithm checked against a single-source ``solve`` on the card
      and a host solver, and a repeated request must hit the cache.
-  6. Each kernel at its path's shapes: held against its plain version,
+     Then ``"push_choice"``: the main path's width-1 min solves (BFS
+     under gs, SSSP under push) through the backends pinned to the
+     scan and to the one-hot push and the autotuned one, walls and push
+     device ms side by side, answers equal.
+  6. Each kernel at its path's shapes (the one-hot push at width 1 and
+     at the serving width, and its window reduce on the BFS push,
+     timed beside the scan): held against its plain version,
      then timed with CUDA events (L2 flushed before each launch) beside
      the plain version, the bound of the card and, where one PyTorch
      call computes the same function, ``torch.sparse.mm`` on the CSR of
@@ -49,10 +58,11 @@ non-zero:
      runs as the main path calls it (``row_len = in_deg``, the backend's
      row plan) at width 1 and at the serving width.
   7. ``"model_kernel_grid"``: flash attention against its plain version
-     over head dim {64, 128, 256} × T {1, 63, 130, 4096} × GQA group
-     {1, 2, 4} × window {global, 17, 4096} × softcap {0, 50} × {bf16,
-     f32}; the CIN layer over B {1, 37, 512} × (Hp, F, H, D) {(39, 39,
-     200, 10), (200, 39, 200, 10), (5, 4, 7, 6)} × {f32, bf16}.
+     over head dim {16, 32, 64, 128, 256} × T {1, 63, 129, 130, 300,
+     4096} × GQA group {1, 2, 4, 8} × window {global, 17, 4096} ×
+     softcap {0, 50} × {bf16, f32}; the CIN layer over B {1, 37, 512} ×
+     (Hp, F, H, D) {(39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6)}
+     × {f32, bf16}.
   8. Main path of slice 3, model serving, weights from seeded
      generators on the card: llama3.2-1b (full config) prefills B = 2 ×
      T = 4,096 (twice: the first pays the GEMM heuristics and the
@@ -110,8 +120,11 @@ from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
     default_pull_cap, ell_pull_frontier, ell_pull_frontier_plain,
     frontier_rows)
 from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_plain  # noqa: E402
+from repro_torch.kernels.roofline import (  # noqa: E402
+    BF16_OPS_PER_S, F32_OPS_PER_S, bound, flash_work, onehot_floor_ms,
+    push_bytes, time_ms)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    GLOBAL_WINDOW, flash_attention, flash_attention_plain_gqa)
+    GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_plain_gqa)
 from repro_torch.models.common import tree_size_bytes  # noqa: E402
 from repro_torch.models.recsys import (  # noqa: E402
     cin_apply, retrieval_score, xdeepfm_apply, xdeepfm_init)
@@ -150,12 +163,9 @@ HUB_DEG = 3 * 4096 + 5
 # a payload of two column tiles (33 columns), which the kernel grid also
 # gives the full-scan pull and the scan push
 WIDE = 33
-
-# H100 SXM data-sheet peaks (dense, at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-TF32_OPS_PER_S = 495e12
-BF16_OPS_PER_S = 989e12
+# payload widths of the one-hot push's grid: one column, an odd few, one
+# and two column tiles of its tensor-core path, and 8 and 32
+MXU_WIDTHS = (None, 3, 8, 16, 32, 33)
 
 # batch width of the serving path per graph
 BATCH = {"rca": 16, "kron16": 32}
@@ -317,17 +327,49 @@ def kernel_grid(device) -> dict:
     return errs
 
 
+def mxu_err(x: torch.Tensor, active: torch.Tensor, g, plan, combine: str,
+            msg: str, block_e: int, what: str) -> dict:
+    """Hold the one-hot push against its plain versions; returns the
+    largest absolute gap of each comparison. Integers, min and max:
+    against ``coo_push_mxu_plain`` bit for bit (``"onehot_plain"``).
+    Float sums: the kernel sums to float32 rounding, the plain version
+    in float32 chunks (the reference's numerics), and two float32 sums
+    agree to 1e-5 only where the terms do not cancel; so float sums are
+    held to 1e-5 against the float64 ``coo_push_plain`` on the payload
+    as given (``"f64_plain_sum"``) and against ``coo_push_mxu_plain`` on
+    its absolute values (``"onehot_plain_abs"``). Their gap to
+    ``coo_push_mxu_plain`` on the payload as given
+    (``"onehot_plain_signed"``) is measured, not held."""
+    def run(xv):
+        return coo_push(xv, active, g.coo_src, g.coo_dst, g.coo_w, g.n,
+                        combine, msg, plan=plan, strategy="mxu",
+                        block_e=block_e)
+    got = run(x)
+    want = coo_push_mxu_plain(x, active, plan, g.n, combine, msg, block_e)
+    if not (combine == "sum" and got.dtype.is_floating_point):
+        return {"onehot_plain": max_abs_err(got, want, combine, what)}
+    xa = x.abs()
+    signed = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    return {"f64_plain_sum": max_abs_err(
+                got, coo_push_plain(x, active, plan, g.n, combine, msg),
+                combine, what + " (f64)"),
+            "onehot_plain_abs": max_abs_err(run(xa), coo_push_mxu_plain(
+                xa, active, plan, g.n, combine, msg, block_e), combine,
+                what + " (|x|)"),
+            "onehot_plain_signed": signed}
+
+
 def mxu_grid(device) -> float:
-    """The one-hot push against ``coo_push_mxu_plain`` over combine ×
-    dtype × msg × B ∈ {1, 8, 32} on the small graphs plus a star (one
-    hub taking every edge of its bin), with bins of 8 and 256 and chunks
-    of 64 and 1,024 slots. Returns the largest gap. The plain version
-    sums float32 in float32, and two float32 sums of the hub's ~2,000
-    terms agree to 1e-5 only when they do not cancel, so the star's float
-    payloads are non-negative. The ``hub`` case (12,293 terms, whose two
-    float32 orders may differ by more) is left to the scan kernel's
-    grid."""
-    err, cells = 0.0, 0
+    """The one-hot push against its plain versions (:func:`mxu_err`) over
+    combine × dtype × msg × B ∈ {1, 3, 8, 16, 32, 33} on the small graphs
+    plus a star (one hub taking every edge of its bin, cut into several
+    units at block_e 64), with bins of 8 and 256 and units of 64 (256
+    edges, the least) and 1,024 slots. Prints the largest gap of each
+    comparison and returns the largest one held. The ``hub``
+    case (12,293 terms) is left to the scan kernel's grid: its float32
+    plain sums, in other orders, may differ by more than 1e-5."""
+    gaps, cells, t0 = {}, 0, time.perf_counter()
     graphs = {**small_graphs(device), "star": star(3000, device=device)}
     del graphs["hub"]
     gen = torch.Generator(device=device).manual_seed(5)
@@ -337,31 +379,26 @@ def mxu_grid(device) -> float:
         plans = [build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, b,
                                  device=device) for b in (8, 256)]
         active = torch.rand(g.n, generator=gen, device=device) < 0.6
-        for width in (None, 8, 32):
+        for width in MXU_WIDTHS:
             for dt in DTYPES:
                 for c in COMBINES:
                     for msg in MSGS:
                         shape = (g.n,) + (() if width is None else (width,))
                         x = payload(shape, dt, cells, device)
-                        if case == "star" and dt.is_floating_point:
-                            x = x.abs()
                         for plan in plans:
                             for block_e in (64, 1024):
-                                got = coo_push(x, active, g.coo_src,
-                                               g.coo_dst, g.coo_w, g.n, c,
-                                               msg, plan=plan,
-                                               strategy="mxu",
-                                               block_e=block_e)
-                                want = coo_push_mxu_plain(
-                                    x, active, plan, g.n, c, msg, block_e)
-                                err = max(err, max_abs_err(
-                                    got, want, c,
-                                    f"coo_push_mxu {case}/{c}/{dt}/{msg}/"
-                                    f"w{width}/bin{plan.bin_n}/be{block_e}"))
+                                for k, v in mxu_err(
+                                        x, active, g, plan, c, msg, block_e,
+                                        f"coo_push_mxu {case}/{c}/{dt}/"
+                                        f"{msg}/w{width}/bin{plan.bin_n}/"
+                                        f"be{block_e}").items():
+                                    gaps[k] = max(gaps.get(k, 0.0), v)
                         cells += 1
     torch.cuda.synchronize()
+    err = max(v for k, v in gaps.items() if k != "onehot_plain_signed")
     emit({"phase": "mxu_grid", "cases": sorted(graphs), "cells": cells,
-          "max_abs_err": err})
+          "widths": list(MXU_WIDTHS), "max_abs_err": err,
+          "gaps": gaps, "seconds": time.perf_counter() - t0})
     return err
 
 
@@ -768,36 +805,48 @@ def serving_path(graphs: dict, ways: dict) -> dict:
     return counts
 
 
+def push_choice_phase(graphs: dict, ways: dict) -> None:
+    """The main path's width-1 min solves (BFS under gs, SSSP under push,
+    as in MAIN_RUNS) through the backends pinned to the scan and to the
+    one-hot push and through the autotuned one: what the tuner's choice
+    of push strategy costs in wall ms and push device ms. Each backend's
+    plan and units are built by one push before its timed solve; the
+    answers must be equal."""
+    for gname, (g, delta) in graphs.items():
+        for alg, policy in (("bfs", "gs"), ("sssp_delta", "push")):
+            dtype, combine, mode = RELAX_KINDS[alg]
+            x = torch.zeros(g.n, dtype=dtype, device=g.device)
+            active = torch.ones(g.n, dtype=torch.bool, device=g.device)
+            states = {}
+            for way in ("scan", "mxu", "auto"):
+                be = ways[way]
+                block_e, bin_n, strategy = be.push_blocks(g, x, combine,
+                                                          mode)
+                coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w, g.n,
+                         combine, mode, plan=be.push_plan(g, bin_n),
+                         strategy=strategy, block_e=block_e)
+                torch.cuda.synchronize()
+                with CallTimer(backend_module, "coo_push") as timer:
+                    t0 = time.perf_counter()
+                    r = api.solve(g, alg, policy=policy, backend=be,
+                                  **run_kwargs(alg, delta))
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                push_ms = timer.take_ms()
+                emit({"phase": "push_choice", "graph": gname, "alg": alg,
+                      "policy": policy, "way": way, "wall_ms": wall_ms,
+                      "push_calls": len(push_ms),
+                      "push_device_ms": sum(push_ms),
+                      "push_blocks": [block_e, bin_n, strategy],
+                      "steps": r.steps})
+                states[way] = (r.state if isinstance(r.state, dict)
+                               else {"state": r.state})
+            for way in ("mxu", "auto"):
+                same_states(states[way], states["scan"], False,
+                            f"push_choice {gname}/{alg} {way} vs scan")
+
+
 # -- kernels at the main path's shapes -------------------------------------
-def time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` launches, each after
-    a 256 MB write that evicts the 50 MB L2 cache."""
-    flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def bound(nbytes: float, ops: float,
-          rate: float = F32_OPS_PER_S) -> tuple[float, str]:
-    """The card's least time for the work: bytes over the memory rate
-    or operations over ``rate`` (their type's peak), the larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     """Phase 5 on one graph: each kernel at the shape the main path gives
     it, checked against its plain version and timed. The main path's
@@ -889,6 +938,7 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     active = torch.ones(n, dtype=torch.bool, device=device)
     for name, width, way in (("coo_push", 1, "scan"),
                              ("coo_push", BATCH[gname], "scan"),
+                             ("coo_push_mxu", 1, "mxu"),
                              ("coo_push_mxu", BATCH[gname], "mxu")):
         xs = torch.rand((n, width) if width > 1 else (n,), generator=gen,
                         device=device)
@@ -911,22 +961,56 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
                lambda args=args, kw=kw: coo_push(*args, **kw), plain,
                lambda xs=xs: torch.sparse.mm(
                    a, xs if xs.ndim == 2 else xs[:, None]),
-               nbytes=(m * 4 + plan.nb * (plan.bin_n + 1) * 4 + n
-                       + 2 * n * width * 4),
+               nbytes=push_bytes(m, n, width, plan.nb, plan.bin_n),
                ops=m * width, reps=reps,
-               # the one-hot design's own floor: two TF32 products over
-               # the whole one-hot matrix
                extra={"width": width, "onehot_floor_ms": (
-                   4 * plan.nb * plan.bin_n * plan.cap * width
-                   / TF32_OPS_PER_S * 1e3 if strategy == "mxu" else None)})
+                   onehot_floor_ms(m, width) if strategy == "mxu"
+                   else None)})
+
+    # coo_push_mxu's window reduce on the BFS push (i32, min, copy,
+    # width 1, every source active), which the tuner may give the one-hot
+    # strategy: at the autotuned backend's blocks when it picks "mxu",
+    # else at the one-hot backend's; held bit for bit against
+    # coo_push_mxu_plain and timed beside the scan on the same inputs at
+    # the blocks of the backend pinned to it
+    xb = torch.randint(0, n + 8, (n,), generator=gen, device=device,
+                       dtype=torch.int32)
+    pick = auto.push_blocks(g, xb, "min", "copy")
+    block_e, bin_n, _ = pick if pick[2] == "mxu" else \
+        ways["mxu"].push_blocks(g, xb, "min", "copy")
+    plan = ways["mxu"].push_plan(g, bin_n)
+    args = (xb, active, g.coo_src, g.coo_dst, g.coo_w, n, "min", "copy")
+    kw = dict(plan=plan, strategy="mxu", block_e=block_e)
+    s_e, s_bin, _ = ways["scan"].push_blocks(g, xb, "min", "copy")
+    s_kw = dict(plan=ways["scan"].push_plan(g, s_bin), strategy="scan",
+                block_e=s_e)
+    max_abs_err(coo_push(*args, **s_kw), coo_push_plain(
+        xb, active, s_kw["plan"], n, "min", "copy"), "min",
+        f"coo_push (scan) BFS push at {gname}")
+    record("coo_push_mxu",
+           f"x i32[{n}] plan[{plan.nb},{plan.cap}] bin_n {plan.bin_n} "
+           f"block_e {block_e} min/copy, all active (the BFS push)",
+           coo_push(*args, **kw),
+           coo_push_mxu_plain(xb, active, plan, n, "min", "copy", block_e),
+           "min", lambda: coo_push(*args, **kw),
+           lambda: coo_push_mxu_plain(xb, active, plan, n, "min", "copy",
+                                      block_e),
+           None, nbytes=push_bytes(m, n, 1, plan.nb, plan.bin_n),
+           ops=m, reps=reps,
+           extra={"width": 1, "payload": "int32 min/copy",
+                  "tuner_pick": list(pick),
+                  "scan_blocks": [s_e, s_bin],
+                  "scan_ms": time_ms(lambda: coo_push(*args, **s_kw),
+                                     reps)})
     torch.cuda.synchronize()
     return out
 
 
 # -- slice 3: model serving ------------------------------------------------
-FLASH_DIMS = (64, 128, 256)
-FLASH_TS = (1, 63, 130, 4096)
-FLASH_GROUPS = (1, 2, 4)
+FLASH_DIMS = HEAD_DIMS
+FLASH_TS = (1, 63, 129, 130, 300, 4096)
+# GQA groups: 2 is gemma2-9b's (16 query heads over 8), 4 llama3.2-1b's
+FLASH_GROUPS = (1, 2, 4, 8)
 FLASH_WINDOWS = (GLOBAL_WINDOW, 17, 4096)
 FLASH_CAPS = (0.0, 50.0)
 MODEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -990,6 +1074,7 @@ def model_kernel_grid(device) -> dict:
     T (ragged against the 64-row tiles) × GQA group × window × softcap ×
     dtype; CIN over ragged B × the layer shapes × dtype."""
     gen = torch.Generator(device=device).manual_seed(11)
+    t0 = time.perf_counter()
     errs = {"flash_attention": 0.0, "cin": 0.0}
     cells = {"flash_attention": 0, "cin": 0}
     for d in FLASH_DIMS:
@@ -1024,7 +1109,7 @@ def model_kernel_grid(device) -> dict:
                 cells["cin"] += 1
     torch.cuda.synchronize()
     emit({"phase": "model_kernel_grid", "cells": cells,
-          "max_abs_err": errs})
+          "max_abs_err": errs, "seconds": time.perf_counter() - t0})
     return errs
 
 
@@ -1254,12 +1339,6 @@ def model_path(device) -> tuple[dict, dict, dict]:
     return lms, rec, counts
 
 
-def flash_pairs(T: int, window: int) -> int:
-    """(query, key) pairs the causal window keeps over T positions."""
-    w = min(window, T)
-    return w * (w + 1) // 2 + (T - w) * w
-
-
 def model_kernel_rows(lms: dict, rec: dict) -> list:
     """Each model kernel at its path's shapes, on the path's own inputs:
     held against its plain version, then timed with CUDA events (L2
@@ -1298,7 +1377,8 @@ def model_kernel_rows(lms: dict, rec: dict) -> list:
                         q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), is_causal=True, scale=scale,
                         enable_gqa=True)
-            item = q.element_size()
+            nbytes, ops_ = flash_work(B, T, H, Hk, d, window,
+                                      q.element_size())
             record("flash_attention",
                    f"{arch} layer {li}: q {q.dtype} [{B}, {T}, {H}, {d}], "
                    f"kv [{B}, {T}, {Hk}, {d}], window {min(window, T)}, "
@@ -1309,8 +1389,7 @@ def model_kernel_rows(lms: dict, rec: dict) -> list:
                    lambda q=q, k=k, v=v, w=window, c=cap:
                    flash_attention_plain_gqa(q, k, v, w, c),
                    lib, FLASH_TOL[q.dtype],
-                   nbytes=(2 * B * T * H * d + 2 * B * T * Hk * d) * item,
-                   ops_=4 * d * B * H * flash_pairs(T, window),
+                   nbytes=nbytes, ops_=ops_,
                    rate=(BF16_OPS_PER_S if q.dtype == torch.bfloat16
                          else F32_OPS_PER_S), reps=10)
     for li, ((xk, x0, w), _) in enumerate(rec["cin_args"]):
@@ -1373,6 +1452,7 @@ def main() -> int:
     check_answers(graphs, results)
     serving = serving_path(graphs, ways)
     counts = {k: counts[k] + serving[k] for k in counts}
+    push_choice_phase(graphs, ways)
 
     rows = []
     for gname, (g, _) in graphs.items():
@@ -1389,8 +1469,10 @@ def main() -> int:
     for row in rows:
         # one row per kernel: the road graph, at width 1 where the kernel
         # runs there (slice 1), else at the serving path's width
-        if row["graph"] != "rca" or row.get("width", 1) != 1 and \
-                row["name"] in ("coo_push", "ell_spmv"):
+        slice1 = row["name"] in ("coo_push", "ell_spmv")
+        if row["graph"] != "rca" or \
+                slice1 != (row.get("width", 1) == 1) and \
+                row["name"] in ("coo_push", "ell_spmv", "coo_push_mxu"):
             continue
         name = row["name"]
         worst = max(errs[name], *(r["max_abs_err"] for r in rows

@@ -49,8 +49,8 @@ _SIGNATURES = {
                  [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _L,
                   _P, _P, _P, _L, _P, _P, _P, _P, _P]),
     "coo_push_mxu": ("repro_coo_push_mxu",
-                     [_P, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
-                      _L, _I, _I, _P]),
+                     [_P, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I,
+                      _I, _L, _P, _P, _P, _P]),
     "flash_attention": ("repro_flash_attention",
                         [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _L, _F,
                          _F, _P]),

@@ -24,27 +24,31 @@ by one of two strategies (``PUSH_STRATEGIES``, the tuner's choice):
     (no atomics on results).
     Float sums accumulate in float64 and round once. Plain version:
     :func:`coo_push_plain`.
-  * ``"mxu"`` — ``csrc/coo_push_mxu.cu``: float32 sums as the one-hot
-    product ``onehot[bin_n, block_e] @ msgs[block_e, B]`` on the tensor
-    cores, accumulated in float32; min, max, integer and float64 sums as
-    a masked window reduce. Plain version: :func:`coo_push_mxu_plain`,
-    which keeps the JAX package's numerics (each ``block_e`` chunk
-    reduced in the message dtype, then chunks combined). Bins are at
-    most 256 destinations wide on the card.
+  * ``"mxu"`` — ``csrc/coo_push_mxu.cu``: float32 sums as one-hot
+    products on the tensor cores (wgmma), each destination tile of 64
+    rows multiplying only its own edges; min, max, integer and float64
+    sums as a window reduce over the same tiles. Each tile's edge range
+    is cut into units of ``block_e`` edges (:func:`mxu_units`), one CTA
+    each, and a tile cut across units is combined in unit order by its
+    last CTA. Plain version: :func:`coo_push_mxu_plain`, which keeps the
+    JAX package's numerics (each ``block_e`` chunk reduced in the message
+    dtype, then chunks combined). Bins are at most 256 destinations
+    wide, and payloads at most 256 columns, on the card.
 
 On a CUDA tensor :func:`coo_push` launches the strategy's kernel; on a
 CPU tensor it runs the plain version. Destinations with no active
 in-edge hold the identity. The output dtype is the message promotion,
 with no int widening.
 
-``block_e`` is the edge chunk a work unit walks or stages (for the
-scan, the edges of a CTA at width 1: clamped to 256–32,768 and divided by
-the column lanes of wider payloads, :func:`scan_unit_edges`; 256 slots
-for the one-hot kernel's tensor-core path and 1,024 for its window
-reduce). The plan's capacity stays aligned to 128 whatever ``block_e``
-is; the kernels mask the ragged last chunk. (The JAX package aligns the
-capacity to ``block_e``, which for the tuner's whole-edge-list rung
-would make a ``[nb, m]`` plan.)
+``block_e`` is the edges of a work unit (for the scan, the edges of a
+CTA at width 1: clamped to 256–32,768 and divided by the column lanes
+of wider payloads, :func:`scan_unit_edges`; for the one-hot kernel the
+edges of a tile's unit, clamped to 256–1,024, :func:`mxu_unit_edges`,
+which it stages in chunks of at most 512 for the tensor cores and 1,024
+for the window reduce). The plan's capacity stays aligned to 128
+whatever ``block_e`` is; the kernels mask the ragged last chunk. (The
+JAX package aligns the capacity to ``block_e``, which for the tuner's
+whole-edge-list rung would make a ``[nb, m]`` plan.)
 """
 
 from __future__ import annotations
@@ -62,18 +66,24 @@ from .ell_spmv import (_PLAIN_CHUNK, COMBINE_CODES, DTYPE_CODES, MSG_CODES,
                        _msg_dtype, _stream, apply_msg, col_lanes)
 
 __all__ = ["PushBinPlan", "PushUnits", "build_push_plan", "push_units",
-           "scan_unit_edges", "default_bin_cap",
+           "scan_unit_edges", "MxuUnits", "mxu_units", "mxu_unit_edges",
+           "default_bin_cap",
            "coo_push", "coo_push_plain", "coo_push_mxu_plain",
-           "DEFAULT_BIN_N", "DEFAULT_BLOCK_E", "MXU_MAX_BIN", "SCAN_THREADS",
-           "PUSH_STRATEGIES"]
+           "DEFAULT_BIN_N", "DEFAULT_BLOCK_E", "MXU_MAX_BIN", "MXU_MAX_WIDTH",
+           "MXU_TILE", "SCAN_THREADS", "PUSH_STRATEGIES"]
 
 PUSH_STRATEGIES = ("scan", "mxu")
 # destinations per bin unless the caller (the tuner) says otherwise
 DEFAULT_BIN_N = 256
 # edge chunk per staging pass (the JAX package's default block_e)
 DEFAULT_BLOCK_E = 512
-# widest bin the one-hot kernel takes (4 warps x 4 tiles of 16 rows)
+# widest bin the one-hot kernel takes (the tuner's one-hot grid)
 MXU_MAX_BIN = 256
+# destinations of a one-hot tile (wgmma's 64 rows) and the widest
+# payload (the window reduce keeps a tile's 64 x B accumulators in
+# shared memory)
+MXU_TILE = 64
+MXU_MAX_WIDTH = 256
 # edges of one work unit (a CTA) of the scan kernel: block_e, clamped;
 # the CTA's threads, whose warps each walk one slice of the unit
 SCAN_UNIT_MIN, SCAN_UNIT_MAX = 256, 32768
@@ -92,7 +102,8 @@ class PushBinPlan:
     ``ptr[b, j]:ptr[b, j+1]`` of row ``b``). ``max_run`` is the longest
     single-destination run. ``empty`` lists the destinations with no
     in-edge and ``bin_edges`` (host) each bin's edge count; ``units``
-    caches the scan kernel's :func:`push_units` by unit size."""
+    caches the scan kernel's :func:`push_units` by unit size and the
+    one-hot kernel's :func:`mxu_units` by ``("mxu", unit size)``."""
     src: torch.Tensor
     dst: torch.Tensor
     w: torch.Tensor
@@ -215,6 +226,82 @@ def push_units(plan: PushBinPlan, block_e: int,
     return units
 
 
+# edges of a unit of the one-hot kernel: a tile's range is cut into
+# units of at most MXU_UNIT_MAX edges, so that a hub tile spreads over
+# many CTAs (longer units leave one CTA walking a hub alone)
+MXU_UNIT_MIN, MXU_UNIT_MAX = 256, 1024
+
+
+def mxu_unit_edges(block_e: int) -> int:
+    """Edges of a unit of the one-hot kernel: ``block_e`` clamped to
+    256–1,024."""
+    return int(min(max(int(block_e), MXU_UNIT_MIN), MXU_UNIT_MAX))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MxuUnits:
+    """The one-hot kernel's work units over a plan. Bin ``b``'s tile of
+    destinations ``r0 : r0 + rows`` (bin-relative, ``rows`` at most
+    :data:`MXU_TILE`, tiles past ``n`` left out) owns the plan slots
+    ``ptr[b, r0] : ptr[b, r0 + 64]`` (clipped to the bin), cut into units
+    of ``edges`` slots; a tile with no edge has one empty unit.
+    ``table[u] = (b, r0, rows, lo, hi, k, nu, rec0)`` (int32, two 16-byte
+    loads): unit ``u`` reduces slots ``lo : hi``, the ``k``-th of its
+    tile's ``nu`` units. A tile of ``nu > 1`` units writes its partials
+    to records ``rec0 : rec0 + nu`` and counts arrivals in
+    ``counters[rec0]`` (zero between launches); ``rec0 = -1`` otherwise.
+    ``records`` is the number of records."""
+    edges: int
+    table: torch.Tensor
+    counters: torch.Tensor
+    records: int
+
+    @property
+    def count(self) -> int:
+        return int(self.table.shape[0])
+
+
+def mxu_units(plan: PushBinPlan, n: int, block_e: int) -> MxuUnits:
+    """The units of ``mxu_unit_edges(block_e)`` edges over ``plan`` (of
+    ``n`` destinations), built on the host once per unit size and cached
+    on the plan."""
+    e = mxu_unit_edges(block_e)
+    key = ("mxu", e)
+    hit = plan.units.get(key)
+    if hit is not None:
+        return hit
+    ptr = plan.ptr.cpu().numpy().astype(np.int64)
+    tiles = -(-plan.bin_n // MXU_TILE)
+    b = np.repeat(np.arange(plan.nb, dtype=np.int64), tiles)
+    r0 = np.tile(np.arange(tiles, dtype=np.int64) * MXU_TILE, plan.nb)
+    r1 = np.minimum(r0 + MXU_TILE, plan.bin_n)
+    rows = np.minimum(r1, n - b * plan.bin_n) - r0
+    keep = rows > 0
+    b, r0, r1, rows = b[keep], r0[keep], r1[keep], rows[keep]
+    lo, hi = ptr[b, r0], ptr[b, r1]
+    nu = np.maximum(1, -(-(hi - lo) // e))
+    tile = np.repeat(np.arange(b.shape[0], dtype=np.int64), nu)
+    first = np.zeros(b.shape[0] + 1, dtype=np.int64)
+    np.cumsum(nu, out=first[1:])
+    k = np.arange(first[-1], dtype=np.int64) - first[tile]
+    ulo = lo[tile] + k * e
+    uhi = np.minimum(ulo + e, hi[tile])
+    split = nu > 1
+    rec0 = np.full(b.shape[0], -1, dtype=np.int64)
+    rec0[split] = np.concatenate([[0], np.cumsum(nu[split])[:-1]])
+    records = int(nu[split].sum())
+    table = np.stack([b[tile], r0[tile], rows[tile], ulo, uhi, k, nu[tile],
+                      rec0[tile]], axis=1)
+    dev = plan.ptr.device
+    units = MxuUnits(
+        edges=e,
+        table=torch.from_numpy(np.ascontiguousarray(table, np.int32)).to(dev),
+        counters=torch.zeros(max(records, 1), dtype=torch.int32, device=dev),
+        records=records)
+    plan.units[key] = units
+    return units
+
+
 def default_bin_cap(n: int, m: int, d_ell: int, bin_n: int,
                     align: int) -> int:
     """Static bin capacity of the JAX package's traced binning pass:
@@ -326,8 +413,7 @@ def coo_push(x: torch.Tensor, active: torch.Tensor, src: torch.Tensor,
     ``plan`` is the cached phase-1 layout (built here with ``bin_n``
     destinations per bin when absent; a given plan's own bin width
     rules). ``strategy`` picks the reduce ("scan" | "mxu") and
-    ``block_e`` the edges of a work unit (scan) or the staged chunk
-    (mxu).
+    ``block_e`` the edges of a work unit.
     """
     if strategy not in PUSH_STRATEGIES:
         raise ValueError(f"strategy={strategy!r} not in {PUSH_STRATEGIES}")
@@ -357,19 +443,28 @@ def coo_push(x: torch.Tensor, active: torch.Tensor, src: torch.Tensor,
     devs = {t.device for t in (x, active, plan.src, plan.w, plan.ptr)}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {devs}")
-    if strategy == "mxu" and plan.bin_n > MXU_MAX_BIN:
+    width = 1 if x.ndim == 1 else x.shape[1]
+    if strategy == "mxu" and (plan.bin_n > MXU_MAX_BIN
+                              or width > MXU_MAX_WIDTH):
         raise ValueError(f"the one-hot push kernel takes bins of at most "
-                         f"{MXU_MAX_BIN} destinations, not {plan.bin_n}")
+                         f"{MXU_MAX_BIN} destinations and payloads of at "
+                         f"most {MXU_MAX_WIDTH} columns, not {plan.bin_n} "
+                         f"and {width}")
     x, active = x.contiguous(), active.contiguous()
     out = torch.empty((n,) + tuple(x.shape[1:]), dtype=odt, device=x.device)
-    width = 1 if x.ndim == 1 else x.shape[1]
     if strategy == "mxu":
+        units = mxu_units(plan, n, block_e)
+        # records of split tiles: 8 bytes a value (the f64, u64 or
+        # message-typed partials)
+        rec = torch.empty(units.records * MXU_TILE * width,
+                          dtype=torch.float64, device=x.device)
         fn = load("coo_push_mxu")
         rc = fn(x.data_ptr(), DTYPE_CODES[x.dtype], active.data_ptr(),
                 plan.src.data_ptr(), plan.dst.data_ptr(), plan.w.data_ptr(),
-                plan.ptr.data_ptr(), out.data_ptr(), n, plan.nb, plan.bin_n,
-                plan.cap, width, int(block_e), COMBINE_CODES[combine],
-                MSG_CODES[msg], _stream())
+                plan.ptr.data_ptr(), out.data_ptr(), n, plan.bin_n,
+                plan.cap, width, COMBINE_CODES[combine], MSG_CODES[msg],
+                units.count, units.table.data_ptr(),
+                units.counters.data_ptr(), rec.data_ptr(), _stream())
         check_status(rc, "coo_push_mxu")
         return out
     units = push_units(plan, block_e, width)

@@ -22,30 +22,47 @@
 // (B = 2, T = 4,096, H = 32, D = 64, causal) is 1.4e11 FLOP, 0.14 ms at
 // the 989 TFLOP/s bf16 tensor-core rate, against ~0.02 ms for its bytes.
 //
-// Design: one CTA of 4 warps per (b, h, tile of 64 queries); tiles of
-// 64 keys are staged in shared memory and walked in order. A kv tile
-// that lies wholly above the diagonal, wholly outside the window or past
-// T is skipped, which changes no value and makes a local layer cost
-// O(T * window); only the tiles the mask cuts pay for masking. Query
-// tiles are launched longest first.
-//   * bf16: each warp owns 16 query rows. S = Q K^T and O += P V run on
-//     the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), with
-//     every fragment loaded by ldmatrix (.trans for V). P enters P V in
-//     bf16, as in blockwise_sdpa (the Pallas kernel keeps it f32); the
-//     row sum takes P in f32; exponentials are __expf. Tiles arrive by
-//     cp.async, the next K/V tile loading while this one is used when
-//     D <= 128. Rows are padded by 16 bytes, so the fragment loads hit
-//     distinct banks. Shared memory: (64 + 2 x stages x 64) x (D + 8) x
-//     2 B, 46 KB at D = 64, 87 KB at D = 128 and 101 KB at D = 256 (one
-//     stage), above the 48 KB default, so every template instance opts
-//     in to its own size before its first launch.
+// Design. A kv tile that lies wholly above the diagonal, wholly outside
+// the window or past T is skipped, which changes no value and makes a
+// local layer cost O(T * window); only the tiles the mask cuts pay for
+// masking. Query tiles are launched longest first.
+//   * bf16 (Hopper's wgmma and TMA): one CTA of three warpgroups per
+//     (b, h, tile of 128 queries). Warpgroup 0 is the producer: one
+//     thread copies Q once and then each K and V tile by TMA
+//     (cp.async.bulk.tensor over a 4-d map of [B, T, heads, D], so query
+//     head h reads KV head h / g in place) into a ring of stages (three
+//     of 128 keys for D <= 128, two of 64 keys at D = 256), each stage's
+//     K and V signalling their own mbarrier when full; every consumer
+//     thread arrives on the stage's "empty" barrier when done with it.
+//     Warpgroups 1 and 2 consume, 64 query rows each: S = Q K^T is a
+//     wgmma with Q and K in shared memory (K-major), O += P V a wgmma
+//     with P in registers (bf16, the A layout of the S accumulator) and
+//     V in shared memory read through a transposed (MN-major)
+//     descriptor. Tiles land swizzled (128-byte rows of 64 columns, D / 64
+//     boxes a row; 64- and 32-byte rows at D = 32 and 16), and the
+//     descriptors read the same swizzle. Per tile, S of the next tile and
+//     P V of the previous one are issued together and the softmax of S
+//     runs while P V is on the tensor cores; O is rescaled after it.
+//     The producer gives its registers to the consumers (setmaxnreg: 24
+//     and 240 a thread), so one CTA fills an SM: shared memory 113 KB at
+//     D = 64 (Q 16 KB, three stages of 32), 225 KB at D = 128 and 193 KB
+//     at D = 256. P enters P V in bf16, as in blockwise_sdpa (the Pallas
+//     kernel keeps it f32); the row sum takes P in f32. Exponentials
+//     are ex2 (on a whole tile without soft-cap, of one fma that folds
+//     the scale in; else __expf), the soft-cap's tanh is 1 - 2 / (e^2x +
+//     1) (absolute error ~1e-7). The tensor maps are encoded per call on
+//     the host.
 //   * f32: CUDA cores (a TF32 product would miss the 3e-4 tolerance).
 //     Each warp owns 4 query rows, 16 per CTA; tiles of 32 keys, one key
 //     per lane for the scores, D / 32 output columns per lane for P V.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -73,56 +90,60 @@ __device__ __forceinline__ void kv_range(long long q0, int bq, int bk,
   *hi = static_cast<int>(last / bk);  // inclusive
 }
 
+// the bf16 kernel's barriers, [q_full, k_full[S], v_full[S],
+// k_empty[S], v_empty[S]]: Q and each stage's K and V are full when their
+// bytes have landed (one arrival: the producer's); a stage's K (V) is
+// empty when every consumer thread has arrived, K after its S = Q K^T,
+// V after its P V, so K slots turn over a tile earlier than V's
+__device__ __forceinline__ void mbar_init_all(uint64_t* bars, int stages,
+                                              int consumers) {
+  hop::mbar_init(bars, 1);
+  for (int s = 0; s < 2 * stages; ++s) hop::mbar_init(bars + 1 + s, 1);
+  for (int s = 0; s < 2 * stages; ++s)
+    hop::mbar_init(bars + 1 + 2 * stages + s, consumers);
+  hop::mbar_init_fence();
+}
+
 // ---------------------------------------------------------------- bf16 --
-constexpr int kBq = 64;  // queries per CTA (4 warps x 16 rows)
-constexpr int kBk = 64;  // keys per staged tile
+// One CTA per (b, h, tile of 128 queries): warpgroup 0 produces (one
+// thread issues the TMA copies), warpgroups 1 and 2 consume, each owning
+// 64 query rows.
+constexpr int kBq = 128;                 // queries per CTA
+constexpr int kConsumers = 2;            // consumer warpgroups, 64 rows each
+constexpr int kBf16Threads = 128 * (1 + kConsumers);
+constexpr int kProducerRegs = 24;        // setmaxnreg budgets (x 128 threads
+constexpr int kConsumerRegs = 240;       // each, 24 + 2 x 240 <= 512)
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+template <int D> struct Bf16Cfg {
+  static constexpr int kBk = D == 256 ? 64 : 128;   // keys per tile
+  static constexpr int kStages = D == 256 ? 2 : D == 128 ? 3 : 4;  // ring
+  static constexpr int kCb = D < 64 ? D : 64;       // columns of a TMA box
+  static constexpr int kBlocks = D / kCb;           // boxes across a row
+  static constexpr int kRowBytes = kCb * 2;         // 32, 64 or 128: the
+  static constexpr hop::Swizzle kSw =               // swizzle of both
+      kRowBytes == 128 ? hop::kSwizzle128           // TMA and wgmma
+      : kRowBytes == 64 ? hop::kSwizzle64 : hop::kSwizzle32;
+  static constexpr int kAtom = 8 * kRowBytes;       // 8 rows: one atom
+  static constexpr int kQBytes = kBq * D * 2;
+  static constexpr int kTileBytes = kBk * D * 2;    // one K (or V) tile
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * kStages * kTileBytes +
+      (1 + 4 * kStages) * sizeof(uint64_t);
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 bytes global -> shared without the registers; zeros when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// tanh(x) = 1 - 2 / (e^2x + 1): two special-function ops, absolute error
+// ~1e-7 (tanhf takes some twenty instructions); +-1 where e^2x is 0 or
+// inf
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.f - __fdividef(2.f, fast_exp2(x * (2.f * kLog2e)) + 1.f);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -130,186 +151,272 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [r0, r0 + 64) of a [T, stride] head slice into s[64][D + 8], by
-// cp.async (the caller commits and waits); rows at or past T are zero
 template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* s,
-                                           const __nv_bfloat16* g,
-                                           long long r0, long long T,
-                                           long long stride) {
-  constexpr int kLd = D + 8;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool in = r0 + r < T;
-    cp_async16(s + r * kLd + col, g + (in ? r0 + r : 0) * stride + col, in);
-  }
-}
-
-// K/V tiles in flight: two (the next tile loads while this one is
-// used) where shared memory allows two CTAs per SM, else one
-template <int D>
-__host__ __device__ constexpr int kv_stages() { return D <= 128 ? 2 : 1; }
-
-template <int D>
-constexpr size_t bf16_smem() {
-  return static_cast<size_t>(kBq + 2 * kv_stages<D>() * kBk) * (D + 8) *
-         sizeof(__nv_bfloat16);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bf16(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bf16(const __grid_constant__ CUtensorMap qmap,
+           const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap,
            __nv_bfloat16* __restrict__ o, long long T, int H, int Hk,
            long long window, float cap, float scale) {
-  constexpr int kLd = D + 8;
-  constexpr int kStages = kv_stages<D>();
-  extern __shared__ __align__(16) unsigned char smem[];
+  using Cfg = Bf16Cfg<D>;
+  constexpr int kBk = Cfg::kBk, kStages = Cfg::kStages, kCb = Cfg::kCb;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms repeat every 1,024 bytes: align the base to them
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kBq * kLd;             // [kStages][64][kLd]
-  __nv_bfloat16* Vs = Ks + kStages * kBk * kLd;   // [kStages][64][kLd]
+  __nv_bfloat16* Ks = Qs + kBq * D;          // [stage][block][kBk][kCb]
+  __nv_bfloat16* Vs = Ks + kStages * kBk * D;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * kBk * D);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   const long long q0 =
       static_cast<long long>(gridDim.y - 1 - blockIdx.y) * kBq;
-  const long long qstride = static_cast<long long>(H) * D;
-  const long long kstride = static_cast<long long>(Hk) * D;
-  const __nv_bfloat16* qh = q + b * T * qstride + h * D;
-  const __nv_bfloat16* kh = k + b * T * kstride + hk * D;
-  const __nv_bfloat16* vh = v + b * T * kstride + hk * D;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, row = lane & 7;  // ldmatrix addressing
-  const int r0 = warp * 16;
-  const long long qpos0 = q0 + r0 + g, qpos1 = qpos0 + 8;
-
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
   int lo, hi;
   kv_range(q0, kBq, kBk, T, window, &lo, &hi);
-  stage_bf16<D>(Qs, qh, q0, T, qstride);
-  if (kStages == 2) {
-    stage_bf16<D>(Ks, kh, static_cast<long long>(lo) * kBk, T, kstride);
-    stage_bf16<D>(Vs, vh, static_cast<long long>(lo) * kBk, T, kstride);
-    cp_async_commit();
+  const int tiles = hi - lo + 1;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init_all(q_full, kStages, 128 * kConsumers);
   }
-  for (int kt = lo; kt <= hi; ++kt) {
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: Q once, then K and V tiles into the ring
+    hop::regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hop::mbar_expect_tx(q_full, Cfg::kQBytes);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int j = 0; j < Cfg::kBlocks; ++j)
+          hop::tma_load_4d(Qs + (c * Cfg::kBlocks + j) * 64 * kCb, &qmap,
+                           q_full, j * kCb, h, static_cast<int>(q0) + 64 * c,
+                           b);
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const int k0 = (lo + i) * kBk;
+        hop::mbar_wait(k_empty + s, ph ^ 1);   // the consumers released it
+        hop::mbar_expect_tx(k_full + s, Cfg::kTileBytes);
+        for (int j = 0; j < Cfg::kBlocks; ++j)
+          hop::tma_load_4d(Ks + (s * Cfg::kBlocks + j) * kBk * kCb, &kmap,
+                           k_full + s, j * kCb, hk, k0, b);
+        hop::mbar_wait(v_empty + s, ph ^ 1);
+        hop::mbar_expect_tx(v_full + s, Cfg::kTileBytes);
+        for (int j = 0; j < Cfg::kBlocks; ++j)
+          hop::tma_load_4d(Vs + (s * Cfg::kBlocks + j) * kBk * kCb, &vmap,
+                           v_full + s, j * kCb, hk, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  hop::regs_claim<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const long long row_lo = q0 + 64 * c;           // this warpgroup's rows
+  const long long qpos0 = row_lo + 16 * warp + g, qpos1 = qpos0 + 8;
+  const __nv_bfloat16* Qc = Qs + c * Cfg::kBlocks * 64 * kCb;
+
+  // S = Q K^T over D / 16 k-steps; the k-th reads 32 bytes into block
+  // k * 16 / kCb of the Q and K rows
+  auto qk = [&](hop::Acc<kBk>& s_acc, int stage) {
+    const __nv_bfloat16* Kb = Ks + stage * Cfg::kBlocks * kBk * kCb;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int blk = kk * 16 / kCb, off = kk * 16 % kCb;
+      const uint64_t da = hop::make_desc(Qc + blk * 64 * kCb + off, 16,
+                                         Cfg::kAtom, Cfg::kSw);
+      const uint64_t db = hop::make_desc(Kb + blk * kBk * kCb + off, 16,
+                                         Cfg::kAtom, Cfg::kSw);
+      hop::wgmma_bf16_ss(s_acc, da, db, kk > 0);
+    }
+  };
+  // O += P V over kBk / 16 k-steps of 16 keys (two 8-row atoms); V is
+  // the MN-major B: lbo steps over blocks of kCb columns
+  auto pv = [&](hop::Acc<D>& o_acc, const uint32_t (&p)[kBk / 4],
+                int stage) {
+    const __nv_bfloat16* Vb = Vs + stage * Cfg::kBlocks * kBk * kCb;
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      const uint64_t db = hop::make_desc(Vb + kk * 16 * kCb,
+                                         kBk * Cfg::kRowBytes, Cfg::kAtom,
+                                         Cfg::kSw);
+      hop::wgmma_bf16_rs_tb(
+          o_acc, *reinterpret_cast<const uint32_t(*)[4]>(p + 4 * kk), db,
+          1);
+    }
+  };
+
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float sacc[kBk / 2];
+  uint32_t p[kBk / 4];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  // scale, cap, mask (on a tile the mask cuts), then the online softmax:
+  // sacc becomes exp(s - m) in f32 and the row sums take it in f32;
+  // returns each row's correction exp(m_old - m_new) in *c0, *c1
+  auto softmax = [&](int kt, float* c0, float* c1) {
     const long long k0 = static_cast<long long>(kt) * kBk;
-    const int buf = kStages == 2 ? (kt - lo) & 1 : 0;
-    if (kStages == 2 && kt < hi) {  // prefetch the next tile
-      stage_bf16<D>(Ks + (buf ^ 1) * kBk * kLd, kh, k0 + kBk, T, kstride);
-      stage_bf16<D>(Vs + (buf ^ 1) * kBk * kLd, vh, k0 + kBk, T, kstride);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      if (kStages == 1) {
-        stage_bf16<D>(Ks, kh, k0, T, kstride);
-        stage_bf16<D>(Vs, vh, k0, T, kstride);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kb = Ks + buf * kBk * kLd;
-    const __nv_bfloat16* Vb = Vs + buf * kBk * kLd;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[8][4];
+    const bool whole = k0 + kBk - 1 <= row_lo &&
+                       k0 > row_lo + 63 - window && k0 + kBk <= T;
+    // a whole tile with no cap keeps its raw products: the scale folds
+    // into the exponent below (scale > 0, so the row max commutes). The
+    // branches are uniform and taken once a tile, outside the loops over
+    // the tile's scores
+    const bool raw = whole && !(cap > 0.f) && scale > 0.f;
+    if (!whole) {
+      // scale, cap and mask by position (the tiles the mask cuts)
+      const int dq = static_cast<int>(qpos0 - k0) - 2 * t;
+      const int lim = static_cast<int>(
+          (T - k0 < kBk ? T - k0 : kBk) - 2 * t);   // keys at or past T
+      const long long wq = window < (1LL << 30) ? window : (1LL << 30);
+      const int win = static_cast<int>(wq);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, Qs + (r0 + row + 8 * (mat & 1)) * kLd + kk +
-                         8 * (mat >> 1));
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, Kb + (j * 8 + row + 8 * (mat >> 1)) * kLd + kk +
-                            8 * (mat & 1));
-        mma_bf16(s[j], a[0], a[1], a[2], a[3], bk[0], bk[1]);
-        mma_bf16(s[j + 1], a[0], a[1], a[2], a[3], bk[2], bk[3]);
-      }
-    }
-
-    // scale, cap and (on a tile the mask cuts) mask; new row maxima
-    const bool whole = k0 + kBk - 1 <= q0 && k0 > q0 + kBq - 1 - window &&
-                       k0 + kBk <= T;
-    float mx0 = kNeg, mx1 = kNeg;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (whole) {
+      for (int j = 0; j < kBk / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[j][e] *= scale;
-          if (cap > 0.f) s[j][e] = cap * tanhf(s[j][e] / cap);
+          // key k0 + 8 j + 2 t + (e & 1) against query qpos0 (+ 8)
+          const int d = dq + 8 * (e >> 1) - 8 * j - (e & 1);  // q - k
+          const bool ok = d >= 0 && d < win && 8 * j + (e & 1) < lim;
+          float v = sacc[4 * j + e] * scale;
+          if (cap > 0.f) v = cap * fast_tanh(v / cap);
+          sacc[4 * j + e] = ok ? v : kNeg;
         }
-      } else {
-        const long long kp = k0 + j * 8 + 2 * t;
-        s[j][0] = score(s[j][0], scale, cap, qpos0, kp, window, T);
-        s[j][1] = score(s[j][1], scale, cap, qpos0, kp + 1, window, T);
-        s[j][2] = score(s[j][2], scale, cap, qpos1, kp, window, T);
-        s[j][3] = score(s[j][3], scale, cap, qpos1, kp + 1, window, T);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    } else if (cap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < kBk / 2; ++j)
+        sacc[j] = cap * fast_tanh(sacc[j] * scale / cap);
+    } else if (!raw) {
+#pragma unroll
+      for (int j = 0; j < kBk / 2; ++j) sacc[j] *= scale;
+    }
+    float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
+    if (raw) {
+      mx0 *= scale;
+      mx1 *= scale;
+    }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
+    *c0 = __expf(m0 - mn0);
+    *c1 = __expf(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
+    if (raw) {
+      // exp(s scale - m) = 2^(s (scale log2 e) - m log2 e): one fma and
+      // one ex2 a score (every score of a whole tile is a real one, so
+      // no -1e30 - (-1e30) arises here)
+      const float f = scale * kLog2e;
+      const float b0 = -mn0 * kLog2e, b1 = -mn1 * kLog2e;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = __expf(s[j][0] - mn0);
-      s[j][1] = __expf(s[j][1] - mn0);
-      s[j][2] = __expf(s[j][2] - mn1);
-      s[j][3] = __expf(s[j][3] - mn1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * c0 + sum0;  // this lane's columns; the quad adds at the end
-    l1 = l1 * c1 + sum1;
+      for (int j = 0; j < kBk / 8; ++j) {
+        sacc[4 * j] = fast_exp2(fmaf(sacc[4 * j], f, b0));
+        sacc[4 * j + 1] = fast_exp2(fmaf(sacc[4 * j + 1], f, b0));
+        sacc[4 * j + 2] = fast_exp2(fmaf(sacc[4 * j + 2], f, b1));
+        sacc[4 * j + 3] = fast_exp2(fmaf(sacc[4 * j + 3], f, b1));
+        sum0 += sacc[4 * j] + sacc[4 * j + 1];
+        sum1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      oacc[j][0] *= c0;
-      oacc[j][1] *= c0;
-      oacc[j][2] *= c1;
-      oacc[j][3] *= c1;
-    }
-
-    // O += P V: P's accumulator layout is the A fragment of the next mma
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t a0 = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      const uint32_t a1 = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      const uint32_t a2 = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(
-            bv, Vb + (ks * 16 + row + 8 * (mat & 1)) * kLd + jd * 16 +
-                    8 * (mat >> 1));
-        mma_bf16(oacc[2 * jd], a0, a1, a2, a3, bv[0], bv[1]);
-        mma_bf16(oacc[2 * jd + 1], a0, a1, a2, a3, bv[2], bv[3]);
+      for (int j = 0; j < kBk / 8; ++j) {
+        sacc[4 * j] = __expf(sacc[4 * j] - mn0);
+        sacc[4 * j + 1] = __expf(sacc[4 * j + 1] - mn0);
+        sacc[4 * j + 2] = __expf(sacc[4 * j + 2] - mn1);
+        sacc[4 * j + 3] = __expf(sacc[4 * j + 3] - mn1);
+        sum0 += sacc[4 * j] + sacc[4 * j + 1];
+        sum1 += sacc[4 * j + 2] + sacc[4 * j + 3];
       }
     }
-    __syncthreads();  // every warp is done with this buffer
+    l0 = l0 * *c0 + sum0;  // this lane's columns; the quad adds at the end
+    l1 = l1 * *c1 + sum1;
+  };
+  // P in bf16: the accumulator layout of S is the A layout of P V
+  auto to_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+      p[2 * j] = pack_bf16(sacc[4 * j], sacc[4 * j + 1]);
+      p[2 * j + 1] = pack_bf16(sacc[4 * j + 2], sacc[4 * j + 3]);
+    }
+  };
+  auto rescale = [&](float c0, float c1) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      oacc[4 * j] *= c0;
+      oacc[4 * j + 1] *= c0;
+      oacc[4 * j + 2] *= c1;
+      oacc[4 * j + 3] *= c1;
+    }
+  };
+
+  hop::mbar_wait(q_full, 0);
+  // the first tile: S, then its softmax
+  float c0, c1;
+  hop::mbar_wait(k_full, 0);
+  hop::reg_fence(sacc);
+  hop::wgmma_fence();
+  qk(sacc, 0);
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::reg_fence(sacc);
+  hop::mbar_arrive(k_empty);            // K of tile 0 is free
+  softmax(lo, &c0, &c1);
+  to_p();
+  // tile i: S_i = Q K_i^T is issued, then O += P_{i-1} V_{i-1}; the
+  // softmax of S_i runs while P V is on the tensor cores
+  for (int i = 1; i < tiles; ++i) {
+    const int s = i % kStages, sp = (i - 1) % kStages;
+    hop::mbar_wait(k_full + s, (i / kStages) & 1);
+    hop::reg_fence(sacc);
+    hop::reg_fence(oacc);
+    hop::wgmma_fence();
+    qk(sacc, s);
+    hop::wgmma_commit();
+    hop::mbar_wait(v_full + sp, ((i - 1) / kStages) & 1);
+    pv(oacc, p, sp);
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();                 // S_i is ready
+    hop::reg_fence(sacc);
+    hop::mbar_arrive(k_empty + s);        // K of tile i is free
+    softmax(lo + i, &c0, &c1);
+    hop::wgmma_wait<0>();                 // P_{i-1} V_{i-1} is done
+    hop::reg_fence(oacc);
+    hop::reg_fence(p);                    // P's registers held until here
+    rescale(c0, c1);
+    to_p();
+    hop::mbar_arrive(v_empty + sp);       // V of tile i - 1 is free
   }
+  const int sl = (tiles - 1) % kStages;
+  hop::mbar_wait(v_full + sl, ((tiles - 1) / kStages) & 1);
+  hop::reg_fence(oacc);
+  hop::wgmma_fence();
+  pv(oacc, p, sl);
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::reg_fence(oacc);
+  hop::reg_fence(p);
+  hop::mbar_arrive(v_empty + sl);
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -317,16 +424,18 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const long long qstride = static_cast<long long>(H) * D;
   __nv_bfloat16* oh = o + b * T * qstride + h * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + 2 * t;
     if (qpos0 < T)
       *reinterpret_cast<__nv_bfloat162*>(oh + qpos0 * qstride + col) =
-          __floats2bfloat162_rn(oacc[j][0] * inv0, oacc[j][1] * inv0);
+          __floats2bfloat162_rn(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
     if (qpos1 < T)
       *reinterpret_cast<__nv_bfloat162*>(oh + qpos1 * qstride + col) =
-          __floats2bfloat162_rn(oacc[j][2] * inv1, oacc[j][3] * inv1);
+          __floats2bfloat162_rn(oacc[4 * j + 2] * inv1,
+                                oacc[4 * j + 3] * inv1);
   }
 }
 
@@ -439,30 +548,82 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Each run_* opts its own template instance in to the dynamic shared
 // memory it needs, once (the attribute belongs to each instantiated
 // function, not to the function type that instances share).
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled is a driver API: fetched through the runtime,
+// so that the library links only the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 [B, T, heads, D] tensor as the 4-d map (D, heads, T, B), whose
+// box is kCb columns x `rows` positions of one head, swizzled as the
+// wgmma descriptors read it; rows at or past T arrive as zeros
+template <int D>
+cudaError_t head_map(CUtensorMap* map, const void* ptr, long long B,
+                     long long T, int heads, int rows) {
+  using Cfg = Bf16Cfg<D>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * T};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Cfg::kCb), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      Cfg::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : Cfg::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+          dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
 cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o,
                      long long B, long long T, int H, int Hk,
                      long long window, float cap, float scale,
                      cudaStream_t stream) {
+  using Cfg = Bf16Cfg<D>;
   static bool opted = false;
-  constexpr size_t smem = bf16_smem<D>();
   auto kernel = flash_bf16<D>;
-  if (smem > 48 * 1024 && !opted) {
+  if (!opted) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(Cfg::kSmem));
     if (err != cudaSuccess) return err;
     opted = true;
   }
   const long long tiles = (T + kBq - 1) / kBq;
-  if (tiles > 65535) return cudaErrorInvalidValue;
+  if (tiles > 65535 || T > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // the pointers change from call to call: the maps are encoded per call
+  // and passed by value (__grid_constant__)
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err = head_map<D>(&qmap, q, B, T, H, 64);
+  if (err == cudaSuccess) err = head_map<D>(&kmap, k, B, T, Hk, Cfg::kBk);
+  if (err == cudaSuccess) err = head_map<D>(&vmap, v, B, T, Hk, Cfg::kBk);
+  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>(tiles));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      T, H, Hk, window, cap, scale);
+  kernel<<<grid, kBf16Threads, Cfg::kSmem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), T, H, Hk, window,
+      cap, scale);
   return cudaGetLastError();
 }
 

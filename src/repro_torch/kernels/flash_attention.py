@@ -2,10 +2,11 @@
 
 Port of ``repro.kernels.flash_attention.flash_attention_pallas``. On a
 CUDA tensor :func:`flash_attention` launches the hand-written kernel in
-``csrc/flash_attention.cu`` (bf16 on the tensor cores, f32 on CUDA
-cores); on a CPU tensor it runs :func:`flash_attention_plain`, the port
-of the reference oracle ``repro.kernels.ref.flash_attention_ref``, which
-is also what the kernel is checked against on the card.
+``csrc/flash_attention.cu`` (bf16 on the tensor cores by wgmma, K and V
+by TMA; f32 on CUDA cores); on a CPU tensor it runs
+:func:`flash_attention_plain`, the port of the reference oracle
+``repro.kernels.ref.flash_attention_ref``, which is also what the kernel
+is checked against on the card.
 
 Semantics (both versions): scores ``q.k * scale`` in f32 (scale
 ``d ** -0.5`` unless given), then ``softcap * tanh(s / softcap)`` when

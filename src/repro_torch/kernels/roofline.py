@@ -1,0 +1,84 @@
+"""The H100's peak rates, the least time a kernel's work could take on
+it, and the CUDA-event timer that the kernel tables are measured with.
+
+``chip_smoke.py`` imports this module by name; ``profile_kernels.py``
+loads it by its path, so that the tree it times (``--src``, perhaps an
+earlier commit without this file) is held to the same bounds. It
+imports nothing of the package; :func:`time_ms` needs a CUDA device
+when it is called, nothing else does.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+# H100 SXM data-sheet peaks (dense, at the full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
+# destination rows of one tile of the one-hot push's products
+ONEHOT_TILE = 64
+
+
+def bound(nbytes: float, ops: float,
+          rate: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """The card's least time for the work, in ms: bytes over the memory
+    rate or operations over ``rate`` (their type's peak), the larger,
+    and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def push_bytes(m: int, n: int, width: int, nb: int, bin_n: int,
+               item: int = 4) -> int:
+    """Bytes a push of a copy message must move: the m int32 sources (a
+    copy reads no weight), the plan's per-bin pointers, the n active
+    flags, and the payload read and the output written once."""
+    return m * 4 + nb * (bin_n + 1) * 4 + n + 2 * n * width * item
+
+
+def onehot_floor_ms(m: int, width: int) -> float:
+    """The one-hot push design's own floor: each edge against its
+    64-row destination tile, in three TF32 products (hi, mid and lo),
+    two FLOP each."""
+    return 6 * m * ONEHOT_TILE * width / TF32_OPS_PER_S * 1e3
+
+
+def flash_pairs(T: int, window: int) -> int:
+    """(query, key) pairs the causal window keeps over T positions."""
+    w = min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def flash_work(B: int, T: int, H: int, Hk: int, d: int, window: int,
+               item: int) -> tuple[int, int]:
+    """(bytes, operations) of causal attention: q and the output once,
+    each KV head's K and V once; two products over the kept pairs."""
+    nbytes = (2 * B * T * H * d + 2 * B * T * Hk * d) * item
+    return nbytes, 4 * d * B * H * flash_pairs(T, window)
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` launches, each after
+    a 256 MB write that evicts the 50 MB L2 cache (``flush``, or a buffer
+    made for this call)."""
+    if flush is None:
+        flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)

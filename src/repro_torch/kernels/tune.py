@@ -54,9 +54,10 @@ _EDGE_LADDER = (1024, 4096, 16384)
 _BIN_LADDER = (128, 256, 1024)
 _PRUNE = 2.0
 # revision of each kernel's design, part of its cache key, so that a
-# winner timed on an earlier design is not reused: 2 is the full-scan
-# pull over real slots with a row plan and the edge-parallel scan push
-KERNEL_REVISIONS = {"pull": 2, "push": 2}
+# winner timed on an earlier design is not reused: pull 2 is the
+# full-scan pull over real slots with a row plan; push 2 the
+# edge-parallel scan push, 3 the one-hot push on wgmma over tiles
+KERNEL_REVISIONS = {"pull": 2, "push": 3}
 
 
 def _round_up(x: int, q: int) -> int:

@@ -1,0 +1,279 @@
+"""Time the one-hot push and flash attention kernels of one source tree
+of ``repro_torch``, and the walls that carry them: a before/after (A/B)
+comparison runs this once per tree, in turns, in one call on one card.
+
+    python3 src/repro_torch/profile_kernels.py --src SRC --tag NAME \\
+        [--out FILE] [--reps N] [--no-walls]
+
+``SRC`` is the ``src`` directory holding the ``repro_torch`` to time (a
+checkout of an earlier commit, or this one's); its kernels build into
+that checkout's own ``build/``, and its tuner caches under a fresh
+directory there. The first line is the card's ``nvidia-smi`` name and
+power limit; then one JSON line per measurement:
+
+  * ``"kernel"``, ``coo_push_mxu``: ``coo_push(strategy="mxu")`` on the
+    PageRank push (f32, sum, copy, every source active) over the full
+    CA-road stand-in (``rca``) at widths 1 and 16 and Kronecker scale 16
+    (``kron16``) at widths 1 and 32, the graphs of ``chip_smoke.py``,
+    with the blocks the tree's tuner picks for the one-hot strategy;
+    beside ``torch.sparse.mm`` on the CSR of the same graph, the bytes
+    bound and the one-hot design's own floor (three TF32 products of
+    each edge against its 64-row tile).
+  * ``"kernel"``, ``flash_attention``: bf16, the llama3.2-1b prefill
+    layer (q [2, 4,096, 32, 64], 8 KV heads, causal) beside
+    ``scaled_dot_product_attention``, and the gemma2-9b layers (q [1,
+    8,192, 16, 256], 8 KV heads, softcap 50) with the 4,096 window and
+    without; beside the operations bound.
+  * ``"wall"`` (unless ``--no-walls``): what the tuner picks for the
+    serving widths, the batched PPR run (B = 32) and a ``QueryService``
+    answering 48 requests on kron16 through the autotuned backend, and
+    llama3.2-1b's prefill of 2 x 4,096 tokens (full config, seeded
+    weights) with the flash kernel's device ms in it.
+
+Kernel times are median CUDA-event ms over launches each after a write
+that evicts the L2 cache; the timer, the card's peaks and the bounds are
+this tree's ``kernels/roofline.py`` (shared with ``chip_smoke.py``),
+loaded by its path whatever ``--src`` holds. Needs a CUDA device;
+imports nothing of the tree until ``main`` runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+BATCH = {"rca": 16, "kron16": 32}
+
+
+def load_roofline():
+    """This tree's ``kernels/roofline.py``, loaded by its path: the tree
+    under ``--src`` may be an earlier one without it, and its
+    ``repro_torch`` is the one that imports by name."""
+    path = Path(__file__).resolve().parent / "kernels" / "roofline.py"
+    spec = importlib.util.spec_from_file_location("_profile_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", required=True)
+    ap.add_argument("--tag", required=True)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--no-walls", action="store_true")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_kernels: needs a CUDA device", file=sys.stderr)
+        return 2
+    rl = load_roofline()
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    os.environ["REPRO_CACHE_DIR"] = str(
+        src.parent / "build" / f"tune-pk-{os.getpid()}-{time.time_ns()}")
+    from repro_torch import api
+    from repro_torch.core import backend as backend_module
+    from repro_torch.graphs import kronecker, standin
+    from repro_torch.kernels.coo_push import coo_push
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    lines = []
+
+    def emit(obj):
+        obj = {"tag": args.tag, **obj}
+        print(json.dumps(obj), flush=True)
+        lines.append(obj)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    emit({"card": card, "src": str(src)})
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+
+    def time_ms(fn, reps=args.reps):
+        return rl.time_ms(fn, reps, flush)
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # ---- the one-hot push
+    graphs = {
+        "rca": standin("rca", scale=1.0, weighted=True, device="cuda"),
+        "kron16": kronecker(16, edge_factor=16, seed=0, weighted=True,
+                            device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mxu = api.CudaBackend(push_strategy="mxu")
+    for gname, g in graphs.items():
+        n, m = g.n, g.m
+        a = torch.sparse_csr_tensor(g.in_ptr, g.coo_src,
+                                    torch.ones(m, device="cuda"), (n, n))
+        active = torch.ones(n, dtype=torch.bool, device="cuda")
+        for width in (1, BATCH[gname]):
+            xs = torch.rand((n, width) if width > 1 else (n,),
+                            generator=gen, device="cuda")
+            be, bin_n, strat = mxu.push_blocks(g, xs, "sum", "copy")
+            plan = mxu.push_plan(g, bin_n)
+            kw = dict(plan=plan, strategy=strat, block_e=be)
+
+            def run(xs=xs, kw=kw):
+                return coo_push(xs, active, g.coo_src, g.coo_dst, g.coo_w,
+                                n, "sum", "copy", **kw)
+
+            def lib(xs=xs):
+                return torch.sparse.mm(a, xs if xs.ndim == 2 else xs[:, None])
+            err = float((run().double() - lib().reshape(xs.shape).double())
+                        .abs().max())
+            b_ms, b_by = rl.bound(rl.push_bytes(m, n, width, plan.nb,
+                                                plan.bin_n), m * width)
+            emit({"kind": "kernel", "name": "coo_push_mxu", "graph": gname,
+                  "width": width, "block_e": be, "bin_n": bin_n,
+                  "ms": time_ms(run), "sparse_mm_ms": time_ms(lib),
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "tile_floor_ms": rl.onehot_floor_ms(m, width),
+                  "max_abs_err_vs_sparse_mm": err})
+
+    # ---- flash attention (bf16)
+    fgen = torch.Generator(device="cuda").manual_seed(2)
+
+    def normal(shape):
+        return torch.randn(shape, generator=fgen, device="cuda").to(
+            torch.bfloat16)
+
+    window_all = 1 << 30
+    for name, (B, T, H, Hk, d, window, cap) in {
+            "llama3.2-1b": (2, 4096, 32, 8, 64, window_all, 0.0),
+            "gemma2-9b local": (1, 8192, 16, 8, 256, 4096, 50.0),
+            "gemma2-9b global": (1, 8192, 16, 8, 256, window_all, 50.0)
+    }.items():
+        q, k, v = normal((B, T, H, d)), normal((B, T, Hk, d)), \
+            normal((B, T, Hk, d))
+        lib_ms = None
+        if window >= T and cap == 0.0:
+            lib_ms = time_ms(lambda q=q, k=k, v=v: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), is_causal=True,
+                                 enable_gqa=True))
+        b_ms, b_by = rl.bound(*rl.flash_work(B, T, H, Hk, d, window, 2),
+                              rl.BF16_OPS_PER_S)
+        emit({"kind": "kernel", "name": "flash_attention", "layer": name,
+              "shape": [B, T, H, Hk, d], "window": min(window, T),
+              "softcap": cap,
+              "ms": time_ms(lambda q=q, k=k, v=v, w=window, c=cap:
+                            flash_attention(q, k, v, w, c), reps=10),
+              "sdpa_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v
+    if args.no_walls:
+        return _write(args.out, lines)
+
+    # ---- walls: the tuner's picks, batched PPR and serving on kron16,
+    # llama prefill
+    g = graphs["kron16"]
+    del graphs["rca"]
+    auto = api.CudaBackend()
+    for gname, width in (("kron16", 32),):
+        x0 = torch.zeros((g.n, width), device="cuda")
+        emit({"kind": "wall", "graph": gname, "run": "tuner_pick",
+              "B": width, "push_blocks": list(auto.push_blocks(
+                  g, x0, "sum", "copy"))})
+    order = torch.argsort(-g.out_deg.cpu(), stable=True)
+    sources = [int(s) for s in order[:BATCH["kron16"]]]
+    events = []
+    real = backend_module.coo_push
+
+    def timed(*a_, **k_):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*a_, **k_)
+        e.record()
+        events.append((s, e))
+        return out
+    backend_module.coo_push = timed
+    try:
+        api.solve_batch(g, "ppr", sources=sources, policy="push",
+                        backend=auto)
+        torch.cuda.synchronize()
+        events.clear()
+        br, ms = wall_ms(lambda: api.solve_batch(
+            g, "ppr", sources=sources, policy="push", backend=auto))
+    finally:
+        backend_module.coo_push = real
+    emit({"kind": "wall", "graph": "kron16", "run": "ppr_batch_auto",
+          "B": len(sources), "wall_ms": ms,
+          "push_device_ms": sum(s.elapsed_time(e) for s, e in
+                                events[len(events) // 2:]),
+          "steps": br.steps})
+    from repro_torch.service import QueryService
+    reqs = [(alg, s) for alg in ("bfs", "sssp_delta", "ppr")
+            for s in sources[:16]]
+    for _ in range(2):       # the first service pays the tuner probes
+        svc = QueryService(g, backend=auto, slots=BATCH["kron16"])
+        t0 = time.perf_counter()
+        for alg, s in reqs:
+            svc.submit(alg, s, **({"delta": 2.0} if alg == "sssp_delta"
+                                  else {}))
+        while svc.pending():
+            svc.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit({"kind": "wall", "graph": "kron16", "run": "serve",
+          "requests": len(reqs), "wall_s": wall, "qps": len(reqs) / wall})
+    del graphs, g, svc
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs.archs import full_config
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.models.transformer import init_params, prefill
+    cfg = full_config("llama3.2-1b")
+    params = init_params(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 4096), generator=gen,
+                         device="cuda")
+    flash_events = []
+    real_flash = kernel_ops.flash_attention
+
+    def timed_flash(*a_, **k_):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real_flash(*a_, **k_)
+        e.record()
+        flash_events.append((s, e))
+        return out
+    kernel_ops.flash_attention = timed_flash
+    try:
+        _, ms = wall_ms(lambda: prefill(params, cfg, toks, "bf16"))
+    finally:
+        kernel_ops.flash_attention = real_flash
+    torch.cuda.synchronize()
+    half = flash_events[len(flash_events) // 2:]
+    emit({"kind": "wall", "run": "llama3.2-1b_prefill", "B": 2, "T": 4096,
+          "wall_ms": ms, "tokens_per_s": 2 * 4096 / ms * 1e3,
+          "flash_device_ms": sum(s.elapsed_time(e) for s, e in half)})
+    return _write(args.out, lines)
+
+
+def _write(out, lines) -> int:
+    if out:
+        with open(out, "a") as f:
+            for obj in lines:
+                f.write(json.dumps(obj) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

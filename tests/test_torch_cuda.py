@@ -30,7 +30,6 @@ from repro_torch.graphs import erdos_renyi, standin, star
 from repro_torch.graphs.structure import pad_values
 from repro_torch.kernels import _build, tune
 from repro_torch.kernels.coo_push import (build_push_plan, coo_push,
-                                          coo_push_mxu_plain,
                                           coo_push_plain)
 from repro_torch.kernels.ell_pull_frontier import (ell_pull_frontier,
                                                    ell_pull_frontier_full,
@@ -39,7 +38,7 @@ from repro_torch.kernels.ell_pull_frontier import (ell_pull_frontier,
 from repro_torch.kernels.ell_spmv import (ell_row_plan, ell_spmv,
                                           ell_spmv_plain)
 from repro_torch.kernels.cin import cin_layer, cin_layer_plain
-from repro_torch.kernels.flash_attention import (GLOBAL_WINDOW,
+from repro_torch.kernels.flash_attention import (GLOBAL_WINDOW, HEAD_DIMS,
                                                  flash_attention,
                                                  flash_attention_plain_gqa)
 from repro_torch.core.primitives import mask_untouched
@@ -154,18 +153,29 @@ def test_cuda_solve_matches_dense_on_card(cuda, alg, kw, policy):
     assert got.steps == want.steps and got.converged == want.converged
 
 
-@pytest.mark.parametrize("batch", (None, 8, 32), ids=lambda b: f"B{b}")
-@pytest.mark.parametrize("case", ("ragged", "duplicate_edges", "star"))
+@pytest.mark.parametrize("batch", (None, 3, 8, 16, 32, 33, 64, 130),
+                         ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("case", ("ragged", "duplicate_edges", "empty_rows",
+                                  "star", "dead"))
 def test_mxu_push_matches_plain(graphs, cuda, case, batch):
-    """The one-hot push against its plain version over combine × dtype ×
-    msg, with bins of 8, 100 and 256 and chunks of 64 and 4,096 slots;
-    ``star`` has one hub taking every edge of its bin. The plain version
-    sums float32 in float32 (the reference's numerics), and two float32
-    sums of the hub's ~2,000 terms agree to 1e-5 only when the terms do
-    not cancel, so the star's float payloads are non-negative."""
-    g = star(3000, device=cuda) if case == "star" else graphs[case]
+    """The one-hot push against its plain versions (``cs.mxu_err``: float
+    sums against the float64 plain sum and, on absolute payloads, the
+    float32 one-hot plain version; everything else bit for bit) over
+    combine × dtype × msg (float sums on the tensor cores; min, max,
+    integer and float64 sums through the window reduce), with bins of 8,
+    100 and 256 and units of 64 (256 edges, the least) and 4,096 slots;
+    payload widths from one column to 64 in one launch and 130 in three
+    slices. ``star`` has one hub taking every edge of its bin, so its
+    tile is cut across several units at block_e 64; ``empty_rows`` has
+    bins with no edge; ``dead`` is the ragged graph with no active
+    source, so no bin has a live edge. Calling again gives the same
+    bits."""
+    g = star(3000, device=cuda) if case == "star" else graphs[
+        "ragged" if case == "dead" else case]
     gen = torch.Generator(device=cuda).manual_seed(6)
     active = torch.rand(g.n, generator=gen, device=cuda) < 0.7
+    if case == "dead":
+        active[:] = False
     for bin_n in (8, 100, 256):
         plan = build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, bin_n)
         for i, (dtype, combine, msg) in enumerate(
@@ -173,17 +183,17 @@ def test_mxu_push_matches_plain(graphs, cuda, case, batch):
                 for m in cs.MSGS):
             shape = (g.n,) + (() if batch is None else (batch,))
             x = cs.payload(shape, dtype, i, cuda)
-            if case == "star" and dtype.is_floating_point:
-                x = x.abs()
             for block_e in (64, 4096):
+                cs.mxu_err(x, active, g, plan, combine, msg, block_e,
+                           f"mxu {case} bin {bin_n} {dtype} {combine} "
+                           f"{msg} be {block_e}")
                 got = coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w,
                                g.n, combine, msg, plan=plan,
                                strategy="mxu", block_e=block_e)
-                want = coo_push_mxu_plain(x, active, plan, g.n, combine,
-                                          msg, block_e)
-                cs.max_abs_err(got, want, combine,
-                               f"mxu {case} bin {bin_n} {dtype} {combine} "
-                               f"{msg} be {block_e}")
+                again = coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w,
+                                 g.n, combine, msg, plan=plan,
+                                 strategy="mxu", block_e=block_e)
+                assert torch.equal(got, again)
 
 
 def test_mxu_push_refuses_wide_bins(graphs, cuda):
@@ -224,15 +234,18 @@ def normal(shape, seed: int, device, dtype=torch.float32) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32), ids=str)
-@pytest.mark.parametrize("d", (16, 64, 128, 256))
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("T,group,window,softcap", [
     (1, 1, GLOBAL_WINDOW, 0.0), (63, 2, GLOBAL_WINDOW, 50.0),
-    (130, 4, 17, 0.0), (200, 2, 64, 30.0)])
+    (130, 4, 17, 0.0), (200, 2, 64, 30.0),
+    (63, 4, GLOBAL_WINDOW, 50.0), (129, 8, 17, 0.0), (300, 1, 128, 30.0),
+    (300, 4, GLOBAL_WINDOW, 0.0), (130, 8, 64, 50.0)])
 def test_flash_attention_matches_plain(cuda, dtype, d, T, group, window,
                                        softcap):
-    """Ragged T (1, 63, 130, 200 against 64-row tiles), GQA groups 1-4,
-    a window shorter than a tile and one equal to it, soft-capping, and
-    d = 256 (101 KB of shared memory per CTA in bf16)."""
+    """Every head dim; ragged T (1, 63, 129, 130, 200, 300 against the
+    bf16 kernel's 128-row query tiles and 64- or 128-key tiles); GQA
+    groups 1, 2 (gemma2-9b's), 4 (llama3.2-1b's) and 8; windows shorter
+    than a tile and equal to one; soft-capping."""
     B, Hk = 2, 2
     q = normal((B, T, Hk * group, d), 1, cuda, dtype)
     k = normal((B, T, Hk, d), 2, cuda, dtype)

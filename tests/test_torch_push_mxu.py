@@ -20,9 +20,11 @@ import torch
 
 from repro.kernels.coo_push import coo_push_pallas
 from repro_torch.kernels import _build
-from repro_torch.kernels.coo_push import (build_push_plan, coo_push,
-                                          coo_push_mxu_plain,
-                                          coo_push_plain)
+from repro_torch.graphs import star
+from repro_torch.kernels.coo_push import (MXU_TILE, build_push_plan,
+                                          coo_push, coo_push_mxu_plain,
+                                          coo_push_plain, mxu_unit_edges,
+                                          mxu_units)
 from test_torch_kernels import GRID, GRID_IDS, assert_same, payload
 from test_torch_push import push_graphs  # noqa: F401  (module fixture)
 
@@ -80,3 +82,59 @@ def test_strategy_and_device_checks(push_graphs):
                    msg="copy")
     torch.testing.assert_close(got, tg.in_deg.to(torch.float32))
     assert _build.launch_counts() == before
+
+
+def direct_mxu_units(plan, n: int, edges: int):
+    """The one-hot kernel's units built tile by tile from ``plan.ptr``."""
+    ptr = plan.ptr.numpy()
+    out, records = [], 0
+    for b in range(plan.nb):
+        for r0 in range(0, plan.bin_n, MXU_TILE):
+            r1 = min(r0 + MXU_TILE, plan.bin_n)
+            rows = min(r1, n - b * plan.bin_n) - r0
+            if rows <= 0:
+                continue
+            lo, hi = int(ptr[b, r0]), int(ptr[b, r1])
+            nu = max(1, -(-(hi - lo) // edges))
+            rec0 = records if nu > 1 else -1
+            records += nu if nu > 1 else 0
+            for k in range(nu):
+                out.append((b, r0, rows, lo + k * edges,
+                            min(lo + (k + 1) * edges, hi), k, nu, rec0))
+    return np.array(out, dtype=np.int64).reshape(-1, 8), records
+
+
+@pytest.mark.parametrize("block_e", (64, 300, 4096))
+@pytest.mark.parametrize("bin_n", (8, 100, 256))
+@pytest.mark.parametrize("case", ("union", "star"))
+def test_mxu_units_match_direct_construction(push_graphs, case, bin_n,
+                                             block_e):
+    """Tiles of 64 destinations per bin (a ragged last tile, none past
+    n), each tile's slots cut into units of ``mxu_unit_edges(block_e)``
+    (256 at least, so the star's hub tile is cut into several), records
+    only for split tiles; together the units cover every real slot of
+    every bin once, and each slot's destination lies in its tile."""
+    if case == "star":
+        tg = star(3000, device="cpu")
+    else:
+        tg = push_graphs["union"][1]
+    plan = build_push_plan(tg.coo_src, tg.coo_dst, tg.coo_w, tg.n, bin_n)
+    units = mxu_units(plan, tg.n, block_e)
+    e = mxu_unit_edges(block_e)
+    want, records = direct_mxu_units(plan, tg.n, e)
+    assert units.edges == e and units.records == records
+    np.testing.assert_array_equal(units.table.numpy(), want)
+    assert units.counters.shape == (max(records, 1),)
+    assert not units.counters.any()
+    assert mxu_units(plan, tg.n, block_e) is units          # cached
+    covered = np.zeros((plan.nb, plan.cap), dtype=np.int64)
+    dst = plan.dst.numpy()
+    for b, r0, rows, lo, hi, _, _, _ in want:
+        covered[b, lo:hi] += 1
+        v0 = b * bin_n + r0
+        assert ((dst[b, lo:hi] >= v0) & (dst[b, lo:hi] < v0 + rows)).all()
+    edges = plan.ptr[:, -1].numpy()
+    real = np.arange(plan.cap)[None, :] < edges[:, None]
+    np.testing.assert_array_equal(covered, real.astype(np.int64))
+    if case == "star" and e < plan.max_run:                 # a split hub
+        assert records > 0 and units.table[:, 6].max() > 1
