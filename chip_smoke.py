@@ -13,13 +13,16 @@ non-zero:
   2. Kernel grid: each kernel against its plain PyTorch version on the
      card, over combine {sum, min, max} × dtype {f32, f64, i32, i64} ×
      msg {copy, mul, add} × payload [n] / [n, 3] (and [n, 33] for
-     ``ell_spmv`` and the scan ``coo_push``), on small ragged graphs (a
+     the two pulls and the scan ``coo_push``), on small ragged graphs (a
      hub, empty rows, self loops, duplicate edges, m = 0, and a hub of
      12,293 in-edges that splits the pull's rows and the push's bins);
-     ``ell_spmv`` over whole rows and over ``row_len = in_deg``; then
+     ``ell_spmv`` over whole rows and over ``row_len = in_deg``, and
+     ``ell_pull_frontier`` the same way on a list of touched rows and on
+     a list of sentinels only, each called twice for the same bits; then
      ``"mxu_grid"``, the one-hot push against its plain versions over
-     the same cells at B ∈ {1, 3, 8, 16, 32, 33} on those graphs (but
-     the 12,293 hub) plus a star whose hub tile is cut across units.
+     the same cells at B ∈ {1, 3, 8, 16, 32, 33} on those graphs (the
+     12,293 hub among them) plus a star whose hub tile is cut across
+     units.
      Integers, min and max must agree bit for bit, float sums to
      rtol = atol = 1e-5 (the one-hot push's against the float64 plain
      sum, and against its float32 plain version on absolute payloads;
@@ -56,13 +59,17 @@ non-zero:
      call computes the same function, ``torch.sparse.mm`` on the CSR of
      the same graph (a yardstick the port never calls). ``ell_spmv``
      runs as the main path calls it (``row_len = in_deg``, the backend's
-     row plan) at width 1 and at the serving width.
+     row plan) at width 1 and at the serving width; the frontier pull
+     (``row_len = in_deg``) beside the full-scan pull of the same payload,
+     its yardstick, since it reads a subset of the full scan's bytes.
   7. ``"model_kernel_grid"``: flash attention against its plain version
      over head dim {16, 32, 64, 128, 256} × T {1, 63, 129, 130, 300,
      4096} × GQA group {1, 2, 4, 8} × window {global, 17, 4096} ×
      softcap {0, 50} × {bf16, f32}; the CIN layer over B {1, 37, 512} ×
-     (Hp, F, H, D) {(39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6)}
-     × {f32, bf16}.
+     (Hp, F, H, D) {(39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
+     (200, 39, 70, 10), (13, 9, 37, 3)} × {f32, bf16}: H = 200 on its
+     fitted product width, odd H on the general one, K split at B = 1
+     and 37.
   8. Main path of slice 3, model serving, weights from seeded
      generators on the card: llama3.2-1b (full config) prefills B = 2 ×
      T = 4,096 (twice: the first pays the GEMM heuristics and the
@@ -79,7 +86,8 @@ non-zero:
      bulk batch, retrieval against a float64 recomputation.
   9. Each model kernel at its path's shapes, on the path's own inputs,
      timed as in 6, beside ``scaled_dot_product_attention`` (causal,
-     GQA; the llama layer) and ``torch.einsum`` (the CIN layer).
+     GQA; the llama layer) and ``torch.einsum`` (the CIN layer, whose
+     row adds its 3xTF32 floor beside the f32 bound).
 
 Launch counts are zeroed just before each main path and read just after
 it; every kernel of the path must have launched and no step of the graph
@@ -118,11 +126,11 @@ from repro_torch.kernels.coo_push import (build_push_plan,  # noqa: E402
                                           coo_push_plain)
 from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
     default_pull_cap, ell_pull_frontier, ell_pull_frontier_plain,
-    frontier_rows)
+    frontier_plan, frontier_rows)
 from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_plain  # noqa: E402
 from repro_torch.kernels.roofline import (  # noqa: E402
-    BF16_OPS_PER_S, F32_OPS_PER_S, bound, flash_work, onehot_floor_ms,
-    push_bytes, time_ms)
+    BF16_OPS_PER_S, F32_OPS_PER_S, bound, cin_tf32_floor_ms, flash_work,
+    onehot_floor_ms, push_bytes, time_ms)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_plain_gqa)
 from repro_torch.models.common import tree_size_bytes  # noqa: E402
@@ -265,9 +273,10 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor, combine: str,
 
 def kernel_grid(device) -> dict:
     """Phase 2: every (combine, dtype, msg, width) cell of every kernel
-    against its plain version on the small graphs; the full-scan pull
-    both over whole rows and over ``row_len = in_deg`` (the main path's
-    call), and at width 33 the two redesigned kernels only."""
+    against its plain version on the small graphs; both pulls over whole
+    rows and over ``row_len = in_deg`` (the main path's call), the
+    frontier pull also on a list of sentinels only and twice (the same
+    bits); at width 33 the three redesigned graph kernels only."""
     errs = {k: 0.0 for k in ("ell_spmv", "ell_pull_frontier", "coo_push")}
     cells = 0
     gen = torch.Generator(device=device).manual_seed(0)
@@ -276,7 +285,8 @@ def kernel_grid(device) -> dict:
                                  device=device)
                  for b in (8, 256)] if g.m else [None]
         touched = torch.rand(g.n, generator=gen, device=device) < 0.3
-        rows = frontier_rows(touched, 16)
+        lists = (frontier_rows(touched, 16),
+                 frontier_rows(torch.zeros_like(touched), 5))
         active = torch.rand(g.n, generator=gen, device=device) < 0.5
         for c in COMBINES:
             for dt in DTYPES:
@@ -296,15 +306,22 @@ def kernel_grid(device) -> dict:
                                 errs["ell_spmv"], max_abs_err(
                                     got, want, c, f"ell_spmv {tag} row_len "
                                     f"{row_len is not None}"))
-                        if width != WIDE:
-                            got = ell_pull_frontier(x, g.ell_idx, g.ell_w,
-                                                    rows, c, msg)
-                            want = ell_pull_frontier_plain(
-                                x, g.ell_idx, g.ell_w, rows, c, msg)
-                            errs["ell_pull_frontier"] = max(
-                                errs["ell_pull_frontier"],
-                                max_abs_err(got, want, c,
-                                            "ell_pull_frontier " + tag))
+                        for rows in lists:
+                            for row_len in (None, g.in_deg):
+                                args = (x, g.ell_idx, g.ell_w, rows, c, msg)
+                                got = ell_pull_frontier(*args,
+                                                        row_len=row_len)
+                                what = (f"ell_pull_frontier {tag} rows "
+                                        f"{rows.shape[0]} row_len "
+                                        f"{row_len is not None}")
+                                errs["ell_pull_frontier"] = max(
+                                    errs["ell_pull_frontier"], max_abs_err(
+                                        got, ell_pull_frontier_plain(
+                                            *args, row_len=row_len), c,
+                                        what))
+                                if not torch.equal(got, ell_pull_frontier(
+                                        *args, row_len=row_len)):
+                                    fail(what + ": a second call differs")
                         for plan in plans:
                             got = coo_push(x[:-1], active, g.coo_src,
                                            g.coo_dst, g.coo_w, g.n, c, msg,
@@ -366,12 +383,9 @@ def mxu_grid(device) -> float:
     plus a star (one hub taking every edge of its bin, cut into several
     units at block_e 64), with bins of 8 and 256 and units of 64 (256
     edges, the least) and 1,024 slots. Prints the largest gap of each
-    comparison and returns the largest one held. The ``hub``
-    case (12,293 terms) is left to the scan kernel's grid: its float32
-    plain sums, in other orders, may differ by more than 1e-5."""
+    comparison and returns the largest one held."""
     gaps, cells, t0 = {}, 0, time.perf_counter()
     graphs = {**small_graphs(device), "star": star(3000, device=device)}
-    del graphs["hub"]
     gen = torch.Generator(device=device).manual_seed(5)
     for case, g in graphs.items():
         if not g.m:
@@ -904,7 +918,12 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
                nbytes=m * 4 + n * 4 + (2 * n + 1) * width * 4, ops=m * width,
                reps=reps, extra={"width": width})
 
-    # ell_pull_frontier: a BFS pull on the largest touched set that fits
+    # ell_pull_frontier: a BFS pull on the largest touched set that fits,
+    # over the real slots (row_len = in_deg) as the backend calls it; its
+    # yardstick is the full-scan pull of the same payload, which reads a
+    # superset of its bytes. The bound counts what the call must move: the
+    # listed rows' real slots (int32 indices; a copy reads no weight),
+    # their row_len, the list, the distinct payload rows and the output.
     cap = default_pull_cap(n, m, d)
     cnt = min(cap, max(1, (m - 1) // d))
     touched = torch.zeros(n, dtype=torch.bool, device=device)
@@ -914,22 +933,31 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     xi = pad_values(torch.randint(0, n + 8, (n,), generator=gen,
                                   device=device, dtype=torch.int32))
     live = rows[rows < n].long()
+    slots = int(g.in_deg[live].sum())
     srcs = g.ell_idx[live]
     distinct = int(torch.unique(srcs[srcs < n]).numel())
     br = auto._pull_frontier_block(g, rows_n, xi[:n], "min", "copy")
+    fkw = dict(block_r=br, row_len=g.in_deg)
+    plan = frontier_plan(d, 1)
+    full_kw = dict(block_n=auto._pull_block_n(g, xi[:n], "min", "copy"),
+                   row_len=g.in_deg, plan=auto.pull_plan(g, 1))
     record("ell_pull_frontier",
-           f"x i32[{n + 1}] rows[{rows_n}] ({cnt} live) idx[{n},{d}] "
-           f"block_r {br} min/copy",
+           f"x i32[{n + 1}] rows[{rows_n}] ({cnt} live, {slots} real "
+           f"slots) idx[{n},{d}] row_len in_deg block_r {br} lanes "
+           f"{plan.group} pieces {plan.pieces} of {plan.piece} min/copy",
            ell_pull_frontier(xi, g.ell_idx, g.ell_w, rows, "min", "copy",
-                             block_r=br),
+                             **fkw),
            ell_pull_frontier_plain(xi, g.ell_idx, g.ell_w, rows, "min",
-                                   "copy"), "min",
+                                   "copy", row_len=g.in_deg), "min",
            lambda: ell_pull_frontier(xi, g.ell_idx, g.ell_w, rows, "min",
-                                     "copy", block_r=br),
+                                     "copy", **fkw),
            lambda: ell_pull_frontier_plain(xi, g.ell_idx, g.ell_w, rows,
-                                           "min", "copy"),
-           None, nbytes=cnt * d * 4 + rows_n * 4 + distinct * 4 + rows_n * 4,
-           ops=int(g.in_deg[live].sum()), reps=reps)
+                                           "min", "copy", row_len=g.in_deg),
+           None, nbytes=slots * 4 + cnt * 4 + rows_n * 4 + distinct * 4
+           + rows_n * 4, ops=slots, reps=reps,
+           extra={"full_scan_ms": time_ms(
+               lambda: ell_spmv(xi, g.ell_idx, g.ell_w, "min", "copy",
+                                **full_kw), reps)})
 
     # coo_push and coo_push_mxu: the (Personalized) PageRank push (f32,
     # sum, copy, every source active) at width 1 (slice 1) and at the
@@ -1015,7 +1043,8 @@ FLASH_WINDOWS = (GLOBAL_WINDOW, 17, 4096)
 FLASH_CAPS = (0.0, 50.0)
 MODEL_DTYPES = (torch.bfloat16, torch.float32)
 CIN_BATCHES = (1, 37, 512)
-CIN_SHAPES = ((39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6))
+CIN_SHAPES = ((39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
+              (200, 39, 70, 10), (13, 9, 37, 3))
 # kernel against plain: flash 3e-4 (f32) / 2e-2 (bf16, P enters P·V in
 # bf16); CIN 2e-4 (f32 sums in other orders) / 2e-2 (bf16 output)
 FLASH_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
@@ -1397,7 +1426,8 @@ def model_kernel_rows(lms: dict, rec: dict) -> list:
         F, H = x0.shape[1], w.shape[0]
         record("cin", f"serve_p99 layer {li}: xk f32 [{B}, {Hp}, {D}], x0 "
                f"[{B}, {F}, {D}], w [{H}, {Hp}, {F}]",
-               {"layer": li},
+               {"layer": li,
+                "tf32_floor_ms": cin_tf32_floor_ms(B, H, Hp, F, D)},
                lambda xk=xk, x0=x0, w=w: kernel_ops.cin_layer(xk, x0, w),
                lambda xk=xk, x0=x0, w=w: cin_layer_plain(xk, x0, w),
                lambda xk=xk, x0=x0, w=w: torch.einsum("hij,bid,bjd->bhd", w,
@@ -1490,7 +1520,7 @@ def main() -> int:
         worst = max(errs[name], *(r["max_abs_err"] for r in model_rows
                                   if r["name"] == name))
         kernels.append({k: v for k, v in row.items()
-                        if k not in ("arch", "layer")}
+                        if k not in ("arch", "layer", "tf32_floor_ms")}
                        | {"launches": counts[name], "max_abs_err": worst})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

@@ -188,11 +188,13 @@ class CudaBackend(EllBackend):
     real slots of each row (``row_len=g.in_deg``, with a row plan built
     once per graph and column-lane count). With a
     touched set it counts the set: an empty set returns the identity
-    with no launch; a set that fits (at most ``default_pull_cap`` rows
-    and fewer than ``m / d_ell``) runs ``ell_pull_frontier`` on the row
-    list compacted to the next power of two ≥ 8; anything else runs the
-    full scan and masks. ``push`` runs ``coo_push`` over a bin plan built
-    once per (graph, bin width). Charges equal ``predict_pull_scan``
+    with no launch; a set that fits (at most ``pull_frontier_cap`` rows,
+    ``default_pull_cap`` unless pinned, and fewer than ``m / d_ell``)
+    runs ``ell_pull_frontier`` over the rows' real slots (``row_len =
+    g.in_deg``) on the row list compacted to the next power of two ≥ 8,
+    at most the cap; anything else runs the full scan and masks.
+    ``push`` runs ``coo_push`` over a bin plan built once per (graph,
+    bin width). Charges equal ``predict_pull_scan``
     (pull) and ``m`` reads + ``m`` writes of binning plus ``k·width``
     (push).
 
@@ -204,8 +206,11 @@ class CudaBackend(EllBackend):
     ``push_block_n`` (push bin width) and ``push_strategy`` ("scan" |
     "mxu"). A partial pin overrides only its own part (a pinned "mxu"
     over a tuned bin wider than 256 takes 256, the widest bin its kernel
-    takes). With ``autotune=False`` each unpinned part takes its
-    ladder's first rung.
+    takes). Where the tuner picks "mxu" for a float sum, the backend
+    takes the tuner's best "scan" candidate instead: the one-hot push's
+    float sums are not held to 1e-5 against its reference numerics
+    (PERF.md), so only a pinned ``push_strategy="mxu"`` runs them. With
+    ``autotune=False`` each unpinned part takes its ladder's first rung.
 
     Cells outside the kernels' coverage — a msg_fn other than copy, mul
     or add, a combine outside sum/min/max, rank > 2, a dtype outside
@@ -219,6 +224,7 @@ class CudaBackend(EllBackend):
     block_e: Optional[int] = None        # push edge chunk
     push_block_n: Optional[int] = None   # push destination-bin width
     push_strategy: Optional[str] = None  # push reduce ("scan" | "mxu")
+    pull_frontier_cap: Optional[int] = None  # frontier-pull row capacity
     autotune: bool = True
     stats: dict = dataclasses.field(
         default_factory=lambda: {"kernel_pull": 0, "kernel_push": 0,
@@ -285,13 +291,19 @@ class CudaBackend(EllBackend):
                                    values.device),
             lambda: tune.pull_candidates(g.n)[0])
 
+    def _pull_cap(self, g: Graph) -> int:
+        if self.pull_frontier_cap is not None:
+            return self.pull_frontier_cap
+        return default_pull_cap(g.n, g.m, g.d_ell)
+
     def _pull_frontier_block(self, g: Graph, rows: int, values, combine,
                              mode) -> int:
         width, dt = _width(values), values.dtype
         return self._tune(
             ("pullf", g.n, g.d_ell, rows, width, dt, combine, mode),
-            lambda: tune.tune_pull_frontier(g.n, g.d_ell, rows, width, dt,
-                                            combine, mode, values.device),
+            lambda: tune.tune_pull_frontier(
+                g.n, g.d_ell, rows, width, dt, combine, mode, values.device,
+                layout=(g.ell_idx, g.ell_w, g.in_deg)),
             lambda: tune.pull_frontier_candidates(g.n, rows)[0])
 
     def push_blocks(self, g: Graph, values, combine,
@@ -307,6 +319,16 @@ class CudaBackend(EllBackend):
             lambda: tune.tune_push(g.n, g.m, width, dt, combine, mode,
                                    values.device),
             lambda: tune.push_candidates(g.n, g.m)[0])
+        # a tuned "mxu" float sum runs the best scan candidate instead:
+        # the one-hot push's float sums are not held to 1e-5 against the
+        # reference's one-hot numerics (PERF.md)
+        if (strat == "mxu" and self.push_strategy is None
+                and combine == "sum" and dt.is_floating_point):
+            be, bn, strat = self._tune(
+                ("push_scan", g.n, g.m, width, dt, combine, mode),
+                lambda: tune.tune_push(g.n, g.m, width, dt, combine, mode,
+                                       values.device, scan_only=True),
+                lambda: tune.push_candidates(g.n, g.m)[0])
         # partial pins override only their own component; a pinned "mxu"
         # over a tuned bin takes at most the widest bin its kernel takes
         strat = self.push_strategy or strat
@@ -322,8 +344,7 @@ class CudaBackend(EllBackend):
         the charge. The restriction pays only when the rows fit the cap
         and their gather (count × d_ell) undercuts the m-edge scan."""
         cnt = int(touched.sum())
-        fits = 0 < cnt <= default_pull_cap(g.n, g.m, g.d_ell) \
-            and cnt * g.d_ell < g.m
+        fits = 0 < cnt <= self._pull_cap(g) and cnt * g.d_ell < g.m
         if cnt == 0:
             edges, verts = 0, 0
         elif fits:
@@ -365,12 +386,14 @@ class CudaBackend(EllBackend):
         elif fits:
             self.stats["kernel_pull_frontier"] += 1
             layout = self.dual_layout(g)
-            rows_n = max(8, 1 << (cnt - 1).bit_length())
+            rows_n = min(max(8, 1 << (cnt - 1).bit_length()),
+                         self._pull_cap(g))
             out = ell_pull_frontier_full(
                 pad_values(values), layout.in_idx, layout.in_w,
                 frontier_rows(touched, rows_n), combine=combine, msg=mode,
                 block_r=self._pull_frontier_block(g, rows_n, values,
-                                                  combine, mode))
+                                                  combine, mode),
+                row_len=g.in_deg)
         else:
             self.stats["kernel_pull"] += 1
             out = mask_untouched(

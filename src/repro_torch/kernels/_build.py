@@ -21,9 +21,11 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 __all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
            "count_launch", "launch_counts", "reset_launch_counts",
-           "check_status", "lib_path"]
+           "check_status", "lib_path", "zeroed_counters"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,8 +45,8 @@ _SIGNATURES = {
                  [_P, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P, _P,
                   _L, _L, _L, _L, _L, _L, _P, _P, _P, _P, _P]),
     "ell_pull_frontier": ("repro_ell_pull_frontier",
-                          [_P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L,
-                           _I, _I, _P]),
+                          [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
+                           _L, _I, _I, _I, _I, _L, _L, _P, _P, _P]),
     "coo_push": ("repro_coo_push",
                  [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _L,
                   _P, _P, _P, _L, _P, _P, _P, _P, _P]),
@@ -55,11 +57,25 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _L, _F,
                          _F, _P]),
     "cin": ("repro_cin_layer", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
-                                _P]),
+                                _I, _I, _P, _P, _P]),
 }
 
 _LIBS: dict = {}
 _LAUNCHES = {name: 0 for name in KERNELS}
+# per (kernel, device): arrival counters of work split across CTAs, zero
+# between launches (the last CTA of each split unit resets its own)
+_COUNTERS: dict = {}
+
+
+def zeroed_counters(name: str, device, count: int):
+    """Kernel ``name``'s int32 arrival counters on ``device``, at least
+    ``count`` of them, all zero (made once, grown when a launch needs
+    more; the kernel leaves them zero)."""
+    buf = _COUNTERS.get((name, device))
+    if buf is None or buf.shape[0] < count:
+        buf = _COUNTERS[(name, device)] = torch.zeros(
+            max(count, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def count_launch(name: str) -> None:

@@ -4,23 +4,38 @@
 
 Port of ``repro.kernels.cin.cin_layer_pallas``. On a CUDA tensor
 :func:`cin_layer` launches the hand-written kernel in ``csrc/cin.cu``
-(f32 sums on CUDA cores; the [B, Hp, F, D] outer product never reaches
-device memory); on a CPU tensor it runs :func:`cin_layer_plain`, the
-port of the reference oracle ``repro.kernels.ref.cin_layer_ref``, which
-is also what the kernel is checked against on the card.
+(one GEMM on TF32 tensor cores in three products, hi·hi + hi·lo + lo·hi,
+summed in f32; the [B, Hp, F, D] outer product never reaches device
+memory); on a CPU tensor it runs :func:`cin_layer_plain`, the port of
+the reference oracle ``repro.kernels.ref.cin_layer_ref``, which is also
+what the kernel is checked against on the card.
+
+The kernel reads w as :func:`kernel_weights` packs it (split into TF32
+hi and lo parts, laid out as its tensor cores read it), packed once per
+weight tensor and version by :func:`packed_weights`.
 """
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
-from ._build import check_status, load
+from ._build import check_status, load, zeroed_counters
 
-__all__ = ["cin_layer", "cin_layer_plain", "DTYPE_CODES"]
+__all__ = ["cin_layer", "cin_layer_plain", "kernel_weights",
+           "packed_weights", "cin_tile", "cin_splits", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# rows h of the kernel's tile (csrc/cin.cu): its weight layout pads H to it
-TILE_H = 64
+# the kernel's product widths N (csrc/cin.cu): a width of the configs is
+# one tile that fits H (H = 200 -> N = 200, csrc/cin.cu instantiates it),
+# any other H runs tiles of the general width
+FITTED_WIDTHS = (200,)
+GENERAL_WIDTH = 64
+K_TILE = 32           # K (= i * Fp + j) per pipeline stage
+TILE_COLS = 128       # columns c = b * D + d per CTA
+# a K split leaves each CTA at least this many K tiles
+MIN_SPLIT_TILES = 8
 
 # bound on outer-product entries per chunk of the plain version (memory)
 _PLAIN_CHUNK = 1 << 27
@@ -42,15 +57,72 @@ def cin_layer_plain(xk: torch.Tensor, x0: torch.Tensor,
     return out
 
 
+def _round_up(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+def cin_tile(H: int) -> int:
+    """The kernel's product width N for H output rows: round_up(H, 8)
+    where the kernel has that width, else the general width (H in tiles
+    of it)."""
+    n = _round_up(H, 8)
+    return n if n in FITTED_WIDTHS else GENERAL_WIDTH
+
+
+def cin_splits(cols: int, h_tiles: int, k_tiles: int, sms: int) -> int:
+    """Ranges K is split into, so that a batch of few columns still
+    gives the card's ``sms`` SMs a CTA each: as many as fit in one wave
+    beside the column and h tiles, each of at least MIN_SPLIT_TILES K
+    tiles."""
+    tiles = -(-cols // TILE_COLS) * h_tiles
+    return max(1, min(sms // max(tiles, 1), k_tiles // MIN_SPLIT_TILES))
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as hi + lo: hi rounded to TF32 (nearest, ties away from
+    zero: the low 13 mantissa bits clear), lo = x - hi, exact."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x - hi
+
+
 def kernel_weights(w: torch.Tensor) -> torch.Tensor:
-    """w [H, Hp, F] as the kernel reads it: [Hp, F, Hpad] in f32, h
-    innermost and zero past H (Hpad = H rounded up to ``TILE_H``), so a
-    CTA's slice of one i is F contiguous runs."""
+    """w [H, Hp, F] as the kernel's tensor cores read it: in f32, F
+    padded with zero weights to Fp (a multiple of 8, so a k-step of 8
+    holds one i), K = i * Fp + j padded to K_TILE, H padded to the
+    product width N (:func:`cin_tile`), and each (h tile, K tile) block
+    one contiguous stage of [hi, lo][N / 8][K_TILE / 4][8 h][4 k] (8 x 4
+    core matrices, K-major). Shape [h tiles, K tiles, 2, N / 8,
+    K_TILE / 4, 8, 4]."""
     H, Hp, F = w.shape
-    wt = torch.zeros((Hp, F, -(-H // TILE_H) * TILE_H), dtype=torch.float32,
+    nb, fp = cin_tile(H), _round_up(F, 8)
+    ht, kt = -(-H // nb), -(-Hp * fp // K_TILE)
+    wf = torch.zeros((H, Hp, fp), dtype=torch.float32, device=w.device)
+    wf[..., :F] = w
+    wp = torch.zeros((ht * nb, kt * K_TILE), dtype=torch.float32,
                      device=w.device)
-    wt[..., :H] = w.permute(1, 2, 0)
-    return wt
+    wp[:H, :Hp * fp] = wf.view(H, Hp * fp)
+    blocks = wp.view(ht, nb // 8, 8, kt, K_TILE // 4, 4).permute(
+        0, 3, 1, 4, 2, 5)
+    return torch.stack(tf32_split(blocks.contiguous()), dim=2)
+
+
+# id(w) -> (weakref to w, w's version, its packing)
+_PACKED: dict = {}
+
+
+def packed_weights(w: torch.Tensor) -> torch.Tensor:
+    """:func:`kernel_weights` of ``w``, packed once per tensor and
+    repacked after an in-place update (``w._version`` moves)."""
+    hit = _PACKED.get(id(w))
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    wp = kernel_weights(w)
+    key = id(w)
+    _PACKED[key] = (weakref.ref(w, lambda _, key=key: _PACKED.pop(key,
+                                                                  None)),
+                    w._version, wp)
+    return wp
 
 
 def _check(xk, x0, w):
@@ -87,9 +159,20 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor,
     out = torch.empty((B, H, D), dtype=xk.dtype, device=xk.device)
     if out.numel() == 0:
         return out
-    wt = kernel_weights(w)
-    rc = load("cin")(xk.data_ptr(), x0.data_ptr(), wt.data_ptr(),
-                     out.data_ptr(), DTYPE_CODES[xk.dtype], B, Hp, F, H,
-                     wt.shape[2], D, torch.cuda.current_stream().cuda_stream)
+    wp = packed_weights(w)
+    ht, kt = wp.shape[0], wp.shape[1]
+    nb = cin_tile(H)
+    cols = B * D
+    sms = torch.cuda.get_device_properties(xk.device).multi_processor_count
+    splits = cin_splits(cols, ht, kt, sms)
+    tiles = -(-cols // TILE_COLS) * ht
+    # the split CTAs' partial accumulators and their arrival counters
+    partial = torch.empty((tiles * splits * TILE_COLS * nb if splits > 1
+                           else 0,), dtype=torch.float32, device=xk.device)
+    rc = load("cin")(xk.data_ptr(), x0.data_ptr(), wp.data_ptr(),
+                     out.data_ptr(), DTYPE_CODES[xk.dtype], B, Hp, F, H, nb,
+                     D, kt, splits, partial.data_ptr(),
+                     zeroed_counters("cin", xk.device, tiles).data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
     check_status(rc, "cin")
     return out

@@ -350,8 +350,12 @@ def coo_push_mxu_plain(x: torch.Tensor, active: torch.Tensor,
     package's numerics: each ``block_e`` chunk of a bin is reduced in the
     message dtype — ``onehot[bin_n, block_e] @ msgs`` for float sums, a
     masked window reduce for min, max and integer sums — and the chunks
-    are combined in order. Inactive and padded slots carry the
-    identity."""
+    are combined in order. A float32 chunk's product is formed exactly
+    (in float64) and rounded once: how a float32 product rounds inside a
+    chunk is the device's choice (on a 12,293-term hub the card's float32
+    matmul left 1e-5 of the kernel's sums, which held 1e-5 of the
+    float64 sum), and the exactly rounded chunk is the one the float32
+    sum defines. Inactive and padded slots carry the identity."""
     mdt = _msg_dtype(x.dtype, plan.w.dtype, msg)
     nb, cap, bin_n = plan.nb, plan.cap, plan.bin_n
     ident = reduce_identity(combine, mdt)
@@ -380,7 +384,8 @@ def coo_push_mxu_plain(x: torch.Tensor, active: torch.Tensor,
             sel = rel[b0:b0 + group, None, e0:e0 + be] == rows
             m = msgs[b0:b0 + group, e0:e0 + be]       # [g, be, B]
             if float_sum:
-                local = torch.matmul(sel.to(mdt), m)
+                local = torch.matmul(sel.to(torch.float64),
+                                     m.to(torch.float64)).to(mdt)
             else:
                 expanded = torch.where(sel[..., None], m[:, None], ident)
                 if combine == "sum":

@@ -1,85 +1,158 @@
-// The gather-combine body both ELL pull kernels share: one warp per
-// output row. Lanes stride over the row's d_ell slots, each keeps a
-// register accumulator, and a shuffle reduce combines the 32 partials.
-// A CTA of 8 warps walks rows_per_block consecutive output rows (the
-// tuner's block_n / block_r), each warp taking every 8th of them.
+// What the two ELL pull kernels (ell_spmv.cu, the full scan;
+// ell_pull_frontier.cu, the listed rows) share: a lane's walk over one
+// row's real slots in chunks, the reduce of a lane group's partials and
+// the combine of a split row's pieces in piece order.
 //
-//   out[r] = combine_{j < d_ell} msg(x[idx[v, j]], w[v, j])
-//   v = rows ? rows[r] : r
+//   out[v] = combine_{j < len(v)} msg(x[idx[v, j]], w[v, j])
 //
-// An index outside [0, num_sources) is the identity wherever it sits in
-// the row (not only in the padded tail); a row id outside
-// [0, row_limit) yields the identity row.
+// len(v) is row_len[v] (the row's real slots: the graph's in-degree) or
+// d_ell. An index outside [0, num_sources) is the identity wherever it
+// sits in the row. A lane group of G lanes serves one row (or one piece
+// of it): C column lanes (C = the power of two >= the payload width, at
+// most 32) times G / C slot lanes; each slot's index is read once per
+// tile of C columns, and row s of x is read as C contiguous values.
 #pragma once
 
 #include "common.cuh"
 
 namespace rk {
 
-constexpr int kRowsPerBlock = 8;  // 8 warps = 256 threads
-
-struct EllArgs {
-  const void* x;        // [num_sources + 1 (, B)] payload, sentinel row last
-  const int32_t* idx;   // [n, d_ell]
-  const float* w;       // [n, d_ell]
-  const int32_t* rows;  // [R] row ids, or null for rows 0..R-1
-  void* out;            // [R (, B)]
-  long long R, d_ell, num_sources, row_limit, B, rows_per_block;
-  cudaStream_t stream;
-};
-
-template <typename T, typename M, typename O, int C, int MSG>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
-ell_rows_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
-                const float* __restrict__ w,
-                const int32_t* __restrict__ rows, O* __restrict__ out,
-                long long R, long long d_ell, long long num_sources,
-                long long row_limit, long long B, long long rows_per_block) {
-  using A = typename AccType<M, C>::type;
-  const long long r_lo = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r_hi = r_lo + rows_per_block < R ? r_lo + rows_per_block : R;
-  const int lane = threadIdx.x & 31;
-  // r is uniform across the warp
-  for (long long r = r_lo + threadIdx.x / 32; r < r_hi; r += kRowsPerBlock) {
-    const long long v = rows ? static_cast<long long>(rows[r]) : r;
-    const bool live = v >= 0 && v < row_limit;
-    const int32_t* ri = idx + (live ? v : 0) * d_ell;
-    const float* rw = w + (live ? v : 0) * d_ell;
-    for (long long c = 0; c < B; ++c) {
-      A acc = identity<A, C>();
-      if (live) {
-        for (long long j = lane; j < d_ell; j += 32) {
-          const int32_t s = ri[j];
-          if (s >= 0 && s < num_sources)
-            acc = combine<A, C>(
-                acc, to_acc<A, M>(message<T, M, MSG>(x[s * B + c], rw[j])));
-        }
-      }
-      acc = warp_reduce<A, C>(acc);
-      if (lane == 0) out[r * B + c] = from_acc<O, A>(acc);
-    }
-  }
-}
-
 // output type of a pull: M, except that an int32 sum widens to int64
 template <typename M, int C> struct PullOut { using type = M; };
 template <> struct PullOut<int32_t, SUM> { using type = int64_t; };
 
-struct EllLauncher {
-  using Args = EllArgs;
-  template <typename T, int C, int MSG>
-  static cudaError_t run(const Args& a) {
-    using M = typename MsgType<T, MSG>::type;
-    using O = typename PullOut<M, C>::type;
-    const long long rpb = a.rows_per_block < 1 ? 1 : a.rows_per_block;
-    const long long blocks = (a.R + rpb - 1) / rpb;
-    ell_rows_kernel<T, M, O, C, MSG>
-        <<<static_cast<unsigned>(blocks), kRowsPerBlock * 32, 0, a.stream>>>(
-            static_cast<const T*>(a.x), a.idx, a.w, a.rows,
-            static_cast<O*>(a.out), a.R, a.d_ell, a.num_sources, a.row_limit,
-            a.B, rpb);
-    return cudaGetLastError();
+template <typename M, int C> using A_of = typename AccType<M, C>::type;
+
+__device__ __forceinline__ long long row_length(const int32_t* row_len,
+                                                long long v, long long d) {
+  if (!row_len) return d;
+  const long long l = row_len[v];
+  return l < 0 ? 0 : (l > d ? d : l);
+}
+
+constexpr int kChunk = 4;   // slots a lane loads at once (16 B of indices)
+
+// indices and weights of slots [j, j + kChunk) of one row, -1 / 0 at and
+// past `cap`; one 16-byte load each where `vec` says the row is aligned
+template <int MSG>
+__device__ __forceinline__ void load_chunk(const int32_t* __restrict__ ri,
+                                           const float* __restrict__ rw,
+                                           long long j, long long cap,
+                                           bool vec, int32_t (&s)[kChunk],
+                                           float (&wv)[kChunk]) {
+  if (vec && j + kChunk <= cap) {
+    const int4 v = *reinterpret_cast<const int4*>(ri + j);
+    s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
+    if (MSG != COPY) {
+      const float4 f = *reinterpret_cast<const float4*>(rw + j);
+      wv[0] = f.x; wv[1] = f.y; wv[2] = f.z; wv[3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      s[k] = j + k < cap ? ri[j + k] : -1;
+      if (MSG != COPY) wv[k] = j + k < cap ? rw[j + k] : 0.f;
+    }
   }
-};
+  if (MSG == COPY) {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) wv[k] = 0.f;
+  }
+}
+
+// combine of one row's slots [lo, hi) for column c by one lane, which
+// takes the chunks of kChunk slots at lo + kChunk * (first + k * step),
+// k = 0, 1, ... The first chunk is loaded before the row length is
+// known (any slot below d_ell may be read), and each chunk's payload
+// loads are issued together.
+template <typename T, typename M, typename A, int C, int MSG>
+__device__ __forceinline__ A walk_chunks(const T* __restrict__ x,
+                                         const int32_t* __restrict__ ri,
+                                         const float* __restrict__ rw,
+                                         long long lo, long long hi,
+                                         long long first, long long step,
+                                         long long d_ell, bool vec,
+                                         long long c, long long B,
+                                         long long num_sources) {
+  A acc = identity<A, C>();
+  long long j = lo + kChunk * first;
+  int32_t s[kChunk];
+  float wv[kChunk];
+  load_chunk<MSG>(ri, rw, j, d_ell, vec, s, wv);
+  while (j < hi) {
+    const long long jn = j + kChunk * step;
+    int32_t sn[kChunk] = {-1, -1, -1, -1};
+    float wn[kChunk] = {0.f, 0.f, 0.f, 0.f};
+    if (jn < hi) load_chunk<MSG>(ri, rw, jn, d_ell, vec, sn, wn);
+    T xv[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const bool ok = j + k < hi && s[k] >= 0 && s[k] < num_sources;
+      s[k] = ok ? s[k] : -1;
+      xv[k] = ok ? x[static_cast<long long>(s[k]) * B + c] : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      if (s[k] >= 0)
+        acc = combine<A, C>(acc, to_acc<A, M>(message<T, M, MSG>(xv[k],
+                                                                 wv[k])));
+    j = jn;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      s[k] = sn[k];
+      wv[k] = wn[k];
+    }
+  }
+  return acc;
+}
+
+// the combine of a lane group's partials for its column: the slot lanes
+// of a group of G lanes (C column lanes apart) fold into slot lane 0.
+// Every lane of the warp must call it (the shuffles name the full warp).
+template <typename A, int C>
+__device__ __forceinline__ A group_reduce(A acc, int G, int col_lanes) {
+  for (int off = G / 2; off >= col_lanes; off >>= 1)
+    acc = combine<A, C>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  return acc;
+}
+
+// A row's `count` pieces stored their partials at partial[(first + q) *
+// B + c], q < count: combined in piece order for columns c0, c0 + step,
+// ... < B (past L1: other CTAs wrote them)
+template <typename A, int C, typename O>
+__device__ __forceinline__ void combine_pieces(const A* partial,
+                                               long long first,
+                                               long long count, long long B,
+                                               long long c0, long long step,
+                                               O* out_row) {
+  for (long long c = c0; c < B; c += step) {
+    A r = identity<A, C>();
+    for (long long q = first; q < first + count; ++q)
+      r = combine<A, C>(
+          r, *reinterpret_cast<const volatile A*>(partial + q * B + c));
+    out_row[c] = from_acc<O, A>(r);
+  }
+}
+
+// ---- host: the grid of a launch over `units` pieces of work, per_pass
+// of them a pass of one CTA (one per lane group). block / 128 passes per
+// CTA (the tuner's block_n or block_r), fewer where the units would then
+// fill fewer than four CTAs per SM; returns units per CTA.
+inline long long units_per_block(long long block, long long units,
+                                 long long per_pass) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms < 1) sms = 1;
+  }
+  long long passes = block / 128 > 1 ? block / 128 : 1;
+  const long long min_blocks = 4LL * sms;
+  const long long want = (units + min_blocks - 1) / min_blocks;
+  const long long fit = (want + per_pass - 1) / per_pass;   // passes
+  if (fit < passes) passes = fit > 1 ? fit : 1;
+  return passes * per_pass;
+}
 
 }  // namespace rk

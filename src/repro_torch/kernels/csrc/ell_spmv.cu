@@ -71,91 +71,6 @@ struct PullArgs {
   cudaStream_t stream;
 };
 
-template <typename M, int C> using A_of = typename AccType<M, C>::type;
-
-__device__ __forceinline__ long long row_length(const int32_t* row_len,
-                                                long long v, long long d) {
-  if (!row_len) return d;
-  const long long l = row_len[v];
-  return l < 0 ? 0 : (l > d ? d : l);
-}
-
-constexpr int kChunk = 4;   // slots a lane loads at once (16 B of indices)
-
-// indices and weights of slots [j, j + kChunk) of one row, -1 / 0 at and
-// past `cap`; one 16-byte load each where `vec` says the row is aligned
-template <int MSG>
-__device__ __forceinline__ void load_chunk(const int32_t* __restrict__ ri,
-                                           const float* __restrict__ rw,
-                                           long long j, long long cap,
-                                           bool vec, int32_t (&s)[kChunk],
-                                           float (&wv)[kChunk]) {
-  if (vec && j + kChunk <= cap) {
-    const int4 v = *reinterpret_cast<const int4*>(ri + j);
-    s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
-    if (MSG != COPY) {
-      const float4 f = *reinterpret_cast<const float4*>(rw + j);
-      wv[0] = f.x; wv[1] = f.y; wv[2] = f.z; wv[3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      s[k] = j + k < cap ? ri[j + k] : -1;
-      if (MSG != COPY) wv[k] = j + k < cap ? rw[j + k] : 0.f;
-    }
-  }
-  if (MSG == COPY) {
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) wv[k] = 0.f;
-  }
-}
-
-// combine of one row's slots [lo, hi) for column c by one lane, which
-// takes the chunks of kChunk slots at lo + kChunk * (first + k * step),
-// k = 0, 1, ... The first chunk is loaded before the row length is
-// known (any slot below d_ell may be read), and each chunk's payload
-// loads are issued together.
-template <typename T, typename M, typename A, int C, int MSG>
-__device__ __forceinline__ A walk_chunks(const T* __restrict__ x,
-                                         const int32_t* __restrict__ ri,
-                                         const float* __restrict__ rw,
-                                         long long lo, long long hi,
-                                         long long first, long long step,
-                                         long long d_ell, bool vec,
-                                         long long c, long long B,
-                                         long long num_sources) {
-  A acc = identity<A, C>();
-  long long j = lo + kChunk * first;
-  int32_t s[kChunk];
-  float wv[kChunk];
-  load_chunk<MSG>(ri, rw, j, d_ell, vec, s, wv);
-  while (j < hi) {
-    const long long jn = j + kChunk * step;
-    int32_t sn[kChunk] = {-1, -1, -1, -1};
-    float wn[kChunk] = {0.f, 0.f, 0.f, 0.f};
-    if (jn < hi) load_chunk<MSG>(ri, rw, jn, d_ell, vec, sn, wn);
-    T xv[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const bool ok = j + k < hi && s[k] >= 0 && s[k] < num_sources;
-      s[k] = ok ? s[k] : -1;
-      xv[k] = ok ? x[static_cast<long long>(s[k]) * B + c] : T(0);
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k)
-      if (s[k] >= 0)
-        acc = combine<A, C>(acc, to_acc<A, M>(message<T, M, MSG>(xv[k],
-                                                                 wv[k])));
-    j = jn;
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      s[k] = sn[k];
-      wv[k] = wn[k];
-    }
-  }
-  return acc;
-}
-
 template <typename T, typename M, typename O, int C, int MSG>
 __global__ void __launch_bounds__(kPullThreads, 6)
 ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
@@ -207,8 +122,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                             x, ri, rw, 0, len, sl, S, d_ell, vec, c, B,
                             num_sources)
                       : identity<A, C>();
-        for (int off = G / 2; off >= col_lanes; off >>= 1)
-          acc = combine<A, C>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+        acc = group_reduce<A, C>(acc, G, col_lanes);
         if (live && sl == 0 && c < B) out[v * B + c] = from_acc<O, A>(acc);
       }
     }
@@ -235,8 +149,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                                                  d_ell, vec, c, B,
                                                  num_sources)
                   : identity<A, C>();
-    for (int off = 16; off >= col_lanes; off >>= 1)
-      acc = combine<A, C>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    acc = group_reduce<A, C>(acc, 32, col_lanes);
     if (lane < col_lanes) red[warp][lane] = acc;
     __syncthreads();
     if (t < col_lanes && c < B) {
@@ -256,13 +169,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (long long c = t; c < B; c += kPullThreads) {
-    A r = identity<A, C>();
-    for (long long q = first; q < first + count; ++q)
-      r = combine<A, C>(  // past L1: other CTAs wrote it
-          r, *reinterpret_cast<const volatile A*>(partial + q * B + c));
-    out[v * B + c] = from_acc<O, A>(r);
-  }
+  combine_pieces<A, C>(partial, first, count, B, t, kPullThreads, out + v * B);
   if (t == 0) counters[h] = 0;     // ready for the next launch
 }
 
@@ -275,31 +182,17 @@ struct PullLauncher {
     int col_lanes = 1;
     while (col_lanes < a.B && col_lanes < 32) col_lanes *= 2;
     static const int kLanes[kPullClasses] = {2, 4, 8, 32};
-    static int sms = 0;
-    if (sms == 0) {
-      int dev = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (sms < 1) sms = 1;
-    }
     // block_n / 128 passes per CTA (a pass gives every group one row):
-    // block_n rows per CTA in the 2-lane class at width 1. A class that
-    // would then fill fewer than four CTAs per SM takes fewer passes.
-    const long long passes = a.block_n / 128 > 1 ? a.block_n / 128 : 1;
-    const long long min_blocks = 4LL * sms;
+    // block_n rows per CTA in the 2-lane class at width 1
     PullSections sec;
     long long next = a.pieces;
     for (int k = 0; k < kPullClasses + 1; ++k) sec.row_off[k] = a.class_off[k];
     for (int k = kPullClasses - 1; k >= 0; --k) {
       const int g = kLanes[k] * col_lanes;
       sec.group[k] = g < 32 ? g : 32;
-      const long long per_pass = kPullThreads / sec.group[k];
       const long long rows_k = a.class_off[k + 1] - a.class_off[k];
-      long long p_k = passes;
-      const long long want = (rows_k + min_blocks - 1) / min_blocks;
-      const long long fit = (want + per_pass - 1) / per_pass;  // passes
-      if (fit < p_k) p_k = fit > 1 ? fit : 1;
-      sec.rpb[k] = p_k * per_pass;
+      sec.rpb[k] = units_per_block(a.block_n, rows_k,
+                                   kPullThreads / sec.group[k]);
       sec.block_off[k] = next;
       next += (rows_k + sec.rpb[k] - 1) / sec.rpb[k];
     }

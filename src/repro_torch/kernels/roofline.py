@@ -49,6 +49,13 @@ def onehot_floor_ms(m: int, width: int) -> float:
     return 6 * m * ONEHOT_TILE * width / TF32_OPS_PER_S * 1e3
 
 
+def cin_tf32_floor_ms(B: int, H: int, Hp: int, F: int, D: int) -> float:
+    """The CIN kernel's own floor: its 2 * B * H * Hp * F * D FLOP three
+    times over (hi * hi, hi * lo and lo * hi TF32 products) at the TF32
+    rate."""
+    return 3 * 2 * B * H * Hp * F * D / TF32_OPS_PER_S * 1e3
+
+
 def flash_pairs(T: int, window: int) -> int:
     """(query, key) pairs the causal window keeps over T positions."""
     w = min(window, T)

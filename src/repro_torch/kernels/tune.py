@@ -13,12 +13,14 @@ payload shape, device) and caches the winner twice over:
     directory is unwritable.
 
 Search space — pull: ``block_n`` rungs (rows one CTA walks); frontier
-pull: ``block_r`` rungs over the compacted row list; push: the
+pull: ``block_r`` rungs (``block_r // 128`` passes of a CTA over the
+units of the compacted row list); push: the
 (block_e, block_n = bin width, strategy) grid over both reduce
 strategies (``"scan"`` | ``"mxu"``). The candidate functions return the
 JAX package's tuples. Probes run inline on synthetic data of the shape
 being solved (a seeded ``torch.Generator``; the push uses uniform sorted
-destinations), one warm-up and one timed call each, timed with CUDA
+destinations; the frontier pull, given the graph's layout, its own rows
+and in-degrees), one warm-up and one timed call each, timed with CUDA
 events on the card. Push candidates are grouped by (strategy, bin
 width): a group whose first rung lands ≥ ``_PRUNE``× behind the
 incumbent is abandoned, since its other rungs only move block_e. The
@@ -55,9 +57,11 @@ _BIN_LADDER = (128, 256, 1024)
 _PRUNE = 2.0
 # revision of each kernel's design, part of its cache key, so that a
 # winner timed on an earlier design is not reused: pull 2 is the
-# full-scan pull over real slots with a row plan; push 2 the
-# edge-parallel scan push, 3 the one-hot push on wgmma over tiles
-KERNEL_REVISIONS = {"pull": 2, "push": 3}
+# full-scan pull over real slots with a row plan; pullf 2 the frontier
+# pull over real slots with lane groups and row pieces; push 2 the
+# edge-parallel scan push, 3 the one-hot push on wgmma over tiles (and
+# push_scan, the scan candidates alone, the same grid's)
+KERNEL_REVISIONS = {"pull": 2, "pullf": 2, "push": 3, "push_scan": 3}
 
 
 def _round_up(x: int, q: int) -> int:
@@ -305,9 +309,13 @@ def tune_pull(n: int, d_ell: int, width: int, dtype, combine: str,
 
 
 def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
-                       combine: str, msg: str, device) -> int:
+                       combine: str, msg: str, device,
+                       layout: tuple | None = None) -> int:
     """Best ``block_r`` for a frontier pull of ``rows`` compacted rows
-    (keyed on the row capacity on top of the usual shape key)."""
+    (keyed on the row capacity on top of the usual shape key). With
+    ``layout = (ell_idx, ell_w, row_len)``, the graph's own layout and
+    in-degrees, the probe pulls random rows of it over their real slots,
+    the work the kernel does on the path; else a random full layout."""
     device = torch.device(device)
     cands = pull_frontier_candidates(n, rows)
     if len(cands) == 1:
@@ -321,29 +329,37 @@ def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
         _STATS["probes"] += 1
     t0, launches0 = time.perf_counter(), launch_counts()
     gen = _generator(device, 2)
-    idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
-                        dtype=torch.int32, device=device)
-    w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+    if layout is None:
+        idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
+                            dtype=torch.int32, device=device)
+        w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+        row_len = None
+    else:
+        idx, w, row_len = layout
     x = _ones(n + 1, width, dtype, device)
     rids = torch.randperm(n, generator=gen, device=device)[:rows]
     rids = torch.cat([rids, rids.new_full((max(0, rows - n),), n)])
     rids = rids.to(torch.int32)
     best = _ladder(key, cands, lambda b: _time(lambda: ell_pull_frontier(
-        x, idx, w, rids, combine=combine, msg=msg, block_r=b), device), t0,
-        launches0)
+        x, idx, w, rids, combine=combine, msg=msg, block_r=b,
+        row_len=row_len), device), t0, launches0)
     _cache_put(key, best)
     return best
 
 
 def tune_push(n: int, m: int, width: int, dtype, combine: str, msg: str,
-              device) -> tuple[int, int, str]:
+              device, scan_only: bool = False) -> tuple[int, int, str]:
     """Best ``(block_e, block_n, strategy)`` for a two-phase push of this
-    shape: grid search with group pruning, persisted."""
+    shape: grid search with group pruning, persisted. ``scan_only``
+    searches the grid's "scan" candidates alone (its own cache key)."""
     device = torch.device(device)
     cands = push_candidates(n, m)
+    if scan_only:
+        cands = tuple(c for c in cands if c[2] == "scan")
     if len(cands) == 1:
         return cands[0]
-    key = _cache_key("push", device, (n, m), width, dtype, combine, msg)
+    key = _cache_key("push_scan" if scan_only else "push", device, (n, m),
+                     width, dtype, combine, msg)
     hit = _cache_get(key)
     if hit is not None:
         try:

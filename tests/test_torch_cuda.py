@@ -156,7 +156,7 @@ def test_cuda_solve_matches_dense_on_card(cuda, alg, kw, policy):
 @pytest.mark.parametrize("batch", (None, 3, 8, 16, 32, 33, 64, 130),
                          ids=lambda b: f"B{b}")
 @pytest.mark.parametrize("case", ("ragged", "duplicate_edges", "empty_rows",
-                                  "star", "dead"))
+                                  "star", "dead", "hub"))
 def test_mxu_push_matches_plain(graphs, cuda, case, batch):
     """The one-hot push against its plain versions (``cs.mxu_err``: float
     sums against the float64 plain sum and, on absolute payloads, the
@@ -168,8 +168,9 @@ def test_mxu_push_matches_plain(graphs, cuda, case, batch):
     slices. ``star`` has one hub taking every edge of its bin, so its
     tile is cut across several units at block_e 64; ``empty_rows`` has
     bins with no edge; ``dead`` is the ragged graph with no active
-    source, so no bin has a live edge. Calling again gives the same
-    bits."""
+    source, so no bin has a live edge; ``hub`` has a destination of
+    12,293 in-edges, the shape of a power-law hub under the window
+    reduce. Calling again gives the same bits."""
     g = star(3000, device=cuda) if case == "star" else graphs[
         "ragged" if case == "dead" else case]
     gen = torch.Generator(device=cuda).manual_seed(6)
@@ -269,11 +270,15 @@ def test_flash_attention_refuses_what_it_has_no_instance_for(cuda):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 @pytest.mark.parametrize("B", (1, 37, 300))
 @pytest.mark.parametrize("Hp,F,H,D", [(39, 39, 200, 10), (200, 39, 200, 10),
-                                      (5, 4, 7, 6)])
+                                      (5, 4, 7, 6), (200, 39, 70, 10),
+                                      (13, 9, 37, 3)])
 def test_cin_layer_matches_plain(cuda, dtype, B, Hp, F, H, D):
     """Ragged B against the 128-column tile (columns are b * D + d), the
-    first layer's shape (Hp = F), the later layers' (Hp = 200) and a
-    small odd one; H = 200 leaves a ragged 64-row tile."""
+    first layer's shape (Hp = F), the later layers' (Hp = 200, on the
+    product width N = 200 that fits H), and odd H on the general width
+    (7 and 37 in one tile of 64, 70 in two); F = 39, 4 and 9 padded to
+    a multiple of 8. Few columns (B = 1, 37) split K over several CTAs
+    (up to 31 ranges at B = 1), 300 rows do not."""
     xk = normal((B, Hp, D), 4, cuda, dtype)
     x0 = normal((B, F, D), 5, cuda, dtype)
     w = (normal((H, Hp, F), 6, cuda) * (2.0 / (Hp * F)) ** 0.5).to(dtype)
@@ -335,3 +340,43 @@ def test_scan_push_splits_match_plain(graphs, cuda, bin_n, width):
             again = coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w, g.n,
                              combine, msg, plan=plan, block_e=block_e)
             assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("width", (None, 3, 33), ids=lambda b: f"B{b}")
+def test_frontier_pull_pieces_match_plain(graphs, cuda, width):
+    """The frontier pull over the hub graph (a row of 12,293 in-edges:
+    13 pieces at width 1, 385 at 33 columns), with and without
+    ``row_len``, on a list of every row, a list of a few rows with
+    sentinels and a list of sentinels only; a second call gives the same
+    bits (the last unit of a split row resets its counter)."""
+    g = graphs["hub"]
+    hub_row = int(torch.argmax(g.in_deg))
+    lists = {"all": torch.arange(g.n, dtype=torch.int32, device=cuda),
+             "few": torch.tensor([hub_row, g.n, 3, hub_row, g.n, 0],
+                                 dtype=torch.int32, device=cuda),
+             "sentinels": torch.full((5,), g.n, dtype=torch.int32,
+                                     device=cuda)}
+    for i, (dtype, combine, msg) in enumerate(
+            (d, c, m) for d in cs.DTYPES for c in cs.COMBINES
+            for m in cs.MSGS):
+        shape = (g.n + 1,) + (() if width is None else (width,))
+        x = cs.payload(shape, dtype, i, cuda)
+        x[-1] = 0
+        for name, rows in lists.items():
+            for row_len in (None, g.in_deg):
+                kw = dict(row_len=row_len)
+                want = ell_pull_frontier_plain(x, g.ell_idx, g.ell_w, rows,
+                                               combine, msg, **kw)
+                for block_r in (128, 4096):
+                    got = ell_pull_frontier(x, g.ell_idx, g.ell_w, rows,
+                                            combine, msg, block_r=block_r,
+                                            **kw)
+                    cs.max_abs_err(got, want, combine,
+                                   f"ell_pull_frontier hub {name} B{width} "
+                                   f"{dtype} {combine} {msg} row_len "
+                                   f"{row_len is not None} block_r "
+                                   f"{block_r}")
+                    again = ell_pull_frontier(x, g.ell_idx, g.ell_w, rows,
+                                              combine, msg, block_r=block_r,
+                                              **kw)
+                    assert torch.equal(got, again)

@@ -22,6 +22,7 @@ from repro.graphs import erdos_renyi as ref_erdos_renyi
 from repro_torch import api
 from repro_torch.core import CudaBackend
 from repro_torch.graphs import GRAPH_ARRAYS, graph_from_arrays
+from repro_torch.kernels import tune
 
 ALGS = {"bfs": {"root": 3}, "pagerank": {"iters": 6},
         "sssp_delta": {"source": 3, "delta": 2.5}}
@@ -135,3 +136,76 @@ def test_solve_rejects_bad_inputs(pair):
         api.solve(tg, "bfs", root=0, policy="sideways")
     with pytest.raises(KeyError, match="unknown algorithm"):
         api.solve(tg, "wcc")
+
+
+CAPS = (8, 72)     # below and above default_pull_cap (40 on this graph)
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("policy", ("pull", "auto"))
+@pytest.mark.parametrize("alg", ("bfs", "sssp_delta"))
+def test_pinned_pull_frontier_cap_matches_reference(pair, alg, policy, cap):
+    """A pinned frontier-pull capacity decides which pulls take the
+    frontier kernel and what they charge, in both packages alike: state,
+    Cost, steps and every StepTrace row exactly equal."""
+    g, tg = pair
+    kw = ALGS[alg]
+    want = ref_api.solve(g, alg, policy=policy, backend=PallasBackend(
+        autotune=False, block_n=64, block_e=128, push_block_n=64,
+        push_strategy="scan", pull_frontier_cap=cap), trace=TRACE, **kw)
+    be = CudaBackend(autotune=False, block_n=64, block_e=128,
+                     push_block_n=64, push_strategy="scan",
+                     pull_frontier_cap=cap)
+    got = api.solve(tg, alg, policy=policy, backend=be, trace=TRACE, **kw)
+    assert_states(got.state, want.state)
+    assert got.cost.as_dict() == want.cost.as_dict()
+    assert (got.steps, got.push_steps, got.epochs, got.converged) == (
+        int(want.steps), int(want.push_steps), int(want.epochs),
+        bool(want.converged))
+    steps = int(want.steps)
+    assert got.trace.as_dict(steps) == want.trace.as_dict(steps)
+
+
+@pytest.mark.parametrize("policy", ("pull", "auto"))
+def test_pull_frontier_cap_moves_the_charge(pair, policy):
+    """The pin is read: SSSP's touched sets of 9 to 40 rows take the
+    frontier kernel under the default cap (40) and the full scan under a
+    cap of 8, which charges more reads."""
+    _, tg = pair
+    reads, frontier = [], []
+    for cap in (CAPS[0], None):
+        be = CudaBackend(autotune=False, block_n=64, block_e=128,
+                         push_block_n=64, push_strategy="scan",
+                         pull_frontier_cap=cap)
+        r = api.solve(tg, "sssp_delta", policy=policy, backend=be,
+                      **ALGS["sssp_delta"])
+        reads.append(int(r.cost.reads))
+        frontier.append(be.stats["kernel_pull_frontier"])
+    assert reads[0] > reads[1] and frontier[0] < frontier[1]
+
+
+def test_tuned_mxu_float_sums_run_the_best_scan(pair, monkeypatch):
+    """A tuned "mxu" for a float sum runs the tuner's best scan candidate
+    (its float sums are not held to 1e-5 against the reference's one-hot
+    numerics); a min keeps "mxu", and a pinned "mxu" runs as pinned."""
+    _, tg = pair
+    asked = []
+
+    def fake_tune_push(n, m, width, dtype, combine, msg, device,
+                       scan_only=False):
+        asked.append((dtype, combine, scan_only))
+        return (512, 128, "scan") if scan_only else (256, 64, "mxu")
+    monkeypatch.setattr(tune, "tune_push", fake_tune_push)
+    be = CudaBackend()
+    f32 = torch.zeros(tg.n, dtype=torch.float32)
+    i32 = torch.zeros(tg.n, dtype=torch.int32)
+    assert be.push_blocks(tg, f32, "sum", "copy") == (512, 128, "scan")
+    assert be.push_blocks(tg, f32.double(), "sum", "mul") == (512, 128,
+                                                              "scan")
+    assert be.push_blocks(tg, f32, "min", "add") == (256, 64, "mxu")
+    assert be.push_blocks(tg, i32, "sum", "copy") == (256, 64, "mxu")
+    assert (torch.float32, "sum", True) in asked
+    assert not any(s for d, c, s in asked if c != "sum" or
+                   not d.is_floating_point)
+    pinned = CudaBackend(push_strategy="mxu")
+    assert pinned.push_blocks(tg, f32, "sum", "copy") == (256, 64, "mxu")

@@ -68,7 +68,8 @@ def test_cache_round_trip(cache):
 
 
 def test_poisoned_entry_is_reprobed(cache):
-    key = "cpu|pullf|300x6x512|w1|float32|sum|copy"
+    key = (f"cpu|pullf.r{tune.KERNEL_REVISIONS['pullf']}|300x6x512|w1|"
+           "float32|sum|copy")
     (cache / "tune_torch.json").write_text(json.dumps({key: "garbage"}))
     blk = tune.tune_pull_frontier(300, 6, 512, 1, torch.float32, "sum",
                                   "copy", "cpu")
@@ -156,17 +157,20 @@ def test_cuda_keys_name_the_card(monkeypatch):
         "cpu|pull.r2|1|w1|int64|min|add"
 
 
-@pytest.mark.parametrize("kernel", ("pull", "push"))
+@pytest.mark.parametrize("kernel", ("pull", "push", "pullf"))
 def test_redesigned_kernels_do_not_reuse_old_winners(cache, kernel):
     """A winner cached under an earlier kernel revision's key (no
     revision tag) is not read: the probe runs again and writes the new
     revision's key beside it."""
-    old = (f"cpu|{kernel}|300x6|w1|float32|sum|copy" if kernel == "pull"
-           else f"cpu|{kernel}|300x900|w1|float32|sum|copy")
-    stale = 4096 if kernel == "pull" else [16384, 300, "mxu"]
+    shape = {"pull": "300x6", "push": "300x900", "pullf": "300x6x512"}
+    old = f"cpu|{kernel}|{shape[kernel]}|w1|float32|sum|copy"
+    stale = [16384, 300, "mxu"] if kernel == "push" else 4096
     (cache / "tune_torch.json").write_text(json.dumps({old: stale}))
     if kernel == "pull":
         got = tune.tune_pull(300, 6, 1, torch.float32, "sum", "copy", "cpu")
+    elif kernel == "pullf":
+        got = tune.tune_pull_frontier(300, 6, 512, 1, torch.float32, "sum",
+                                      "copy", "cpu")
     else:
         got = tune.tune_push(300, 900, 1, torch.float32, "sum", "copy",
                              "cpu")
