@@ -22,12 +22,14 @@ non-zero:
      ``"mxu_grid"``, the one-hot push against its plain versions over
      the same cells at B ∈ {1, 3, 8, 16, 32, 33} on those graphs (the
      12,293 hub among them) plus a star whose hub tile is cut across
-     units.
+     units, float32 sums also on a payload spanning 2^80.
      Integers, min and max must agree bit for bit, float sums to
      rtol = atol = 1e-5 (the one-hot push's against the float64 plain
      sum, and against its float32 plain version on absolute payloads;
-     its gap to the float32 plain version on the signed payloads is
-     printed, not held).
+     every destination within 2 · 2^-24 · Σ|terms| of the float64 sum;
+     on the signed payloads its gap to the float32 plain version may not
+     exceed that version's own gap to the float64 sum plus
+     1e-5 (1 + |sum|)).
   3. ``"tune"``: the tuner probes every push and full-scan pull key the
      two main paths below run, on the full CA-road stand-in (n = 1.96 M)
      and Kronecker scale 16; one line per probe (candidates timed,
@@ -84,7 +86,23 @@ non-zero:
      decode step against a prefill one token longer; xDeepFM with the
      kernel against the plain CIN at serve_p99 and on 4,096 rows of the
      bulk batch, retrieval against a float64 recomputation.
-  9. Each model kernel at its path's shapes, on the path's own inputs,
+  9. Main path of slice 7 (run after 5), ``"solve_more"``: on the two
+     graphs, ``solve(..., backend="cuda")`` for WCC (gs, push, pull),
+     δ-PageRank (push, pull; tol = 1e-2 / n), Brandes BC (pull; 2
+     sources on rca, 8 on kron16, the first in the largest component),
+     Boman coloring (push), Borůvka MST (pull) and triangle count (pull,
+     rca only),
+     then PageRank with Partition-Awareness (16 parts, 20 iterations),
+     each with the launch counts zeroed before it and read after it.
+     WCC, δ-PR and BC must launch a pull and a push kernel between
+     them, BC the frontier pull; coloring, MST and triangle count run
+     local steps and launch none. Each answer against the dense backend
+     on the card and a host oracle (scipy's components and spanning
+     tree, a float64 numpy Brandes and power iteration, (A·A)∘A); the
+     PA ranks within 1e-6 of slice 1's PageRank push, with fewer locks.
+     Then the two kernel shapes slice 7 adds (BC's float32-sum frontier
+     pull, δ-PR's scan push), timed as in 6.
+ 10. Each model kernel at its path's shapes, on the path's own inputs,
      timed as in 6, beside ``scaled_dot_product_attention`` (causal,
      GQA; the llama layer) and ``torch.einsum`` (the CIN layer, whose
      row adds its 3xTF32 floor beside the f32 bound).
@@ -127,7 +145,8 @@ from repro_torch.kernels.coo_push import (build_push_plan,  # noqa: E402
 from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
     default_pull_cap, ell_pull_frontier, ell_pull_frontier_plain,
     frontier_plan, frontier_rows)
-from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_plain  # noqa: E402
+from repro_torch.kernels.ell_spmv import (  # noqa: E402
+    _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain)
 from repro_torch.kernels.roofline import (  # noqa: E402
     BF16_OPS_PER_S, F32_OPS_PER_S, bound, cin_tf32_floor_ms, flash_work,
     onehot_floor_ms, push_bytes, time_ms)
@@ -345,18 +364,27 @@ def kernel_grid(device) -> dict:
 
 
 def mxu_err(x: torch.Tensor, active: torch.Tensor, g, plan, combine: str,
-            msg: str, block_e: int, what: str) -> dict:
+            msg: str, block_e: int, what: str,
+            spread: bool = False) -> dict:
     """Hold the one-hot push against its plain versions; returns the
     largest absolute gap of each comparison. Integers, min and max:
     against ``coo_push_mxu_plain`` bit for bit (``"onehot_plain"``).
     Float sums: the kernel sums to float32 rounding, the plain version
     in float32 chunks (the reference's numerics), and two float32 sums
-    agree to 1e-5 only where the terms do not cancel; so float sums are
-    held to 1e-5 against the float64 ``coo_push_plain`` on the payload
-    as given (``"f64_plain_sum"``) and against ``coo_push_mxu_plain`` on
-    its absolute values (``"onehot_plain_abs"``). Their gap to
-    ``coo_push_mxu_plain`` on the payload as given
-    (``"onehot_plain_signed"``) is measured, not held."""
+    agree to 1e-5 only where the terms do not cancel. So float sums are
+    held per element to ``|kernel - sum| <= 2 · 2^-24 · Σ|terms|``, the
+    float64 sum of the messages and of their magnitudes
+    (:func:`term_sums`: relative precision, however far apart the
+    column's magnitudes are; ``"mass_ratio"`` is the largest ``|kernel -
+    sum| / Σ|terms|`` in units of 2^-24); to 1e-5 against the float64 sum on the payload
+    as given (``"f64_plain_sum"``, skipped where ``spread``: the payload
+    then spans beyond 1e-5's absolute scale) and against
+    ``coo_push_mxu_plain`` on its absolute values
+    (``"onehot_plain_abs"``); and on the payload as given, per element,
+    to ``|kernel - plain| <= |plain - f64| + 1e-5 (1 + |f64|)``: no
+    further from the reference's numerics than their own float32
+    rounding is from the exact sum, plus 1e-5 (``"onehot_plain_signed"``
+    is the largest ``|kernel - plain|``)."""
     def run(xv):
         return coo_push(xv, active, g.coo_src, g.coo_dst, g.coo_w, g.n,
                         combine, msg, plan=plan, strategy="mxu",
@@ -365,16 +393,61 @@ def mxu_err(x: torch.Tensor, active: torch.Tensor, g, plan, combine: str,
     want = coo_push_mxu_plain(x, active, plan, g.n, combine, msg, block_e)
     if not (combine == "sum" and got.dtype.is_floating_point):
         return {"onehot_plain": max_abs_err(got, want, combine, what)}
+    exact = coo_push_plain(x, active, plan, g.n, combine, msg)
+    k, p, f = got.double(), want.double(), exact.double()
+    total, mass = (t.reshape(f.shape) for t in term_sums(x, active, g, msg))
+    over = (k - total).abs() - 2.0 * 2.0 ** -24 * mass
+    if over.numel() and float(over.max()) > 0:
+        i = int(over.flatten().argmax())
+        fail(f"{what} (relative): {int((over > 0).sum())} entries past "
+             f"2 · 2^-24 · Σ|terms|; the worst: kernel "
+             f"{float(k.flatten()[i])!r}, f64 {float(total.flatten()[i])!r}"
+             f", Σ|terms| {float(mass.flatten()[i])!r}")
+    ratio = torch.where(mass > 0, (k - total).abs() / mass, 0.0)
+    signed = (k - p).abs()
+    over = signed - (p - f).abs() - 1e-5 * (1.0 + f.abs())
+    if over.numel() and float(over.max()) > 0:
+        i = int(over.flatten().argmax())
+        fail(f"{what} (signed): {int((over > 0).sum())} entries past "
+             f"|plain - f64| + 1e-5 (1 + |f64|); the worst: kernel "
+             f"{float(k.flatten()[i])!r}, plain {float(p.flatten()[i])!r}, "
+             f"f64 {float(f.flatten()[i])!r}")
+    gaps = {"mass_ratio": float(ratio.max()) * 2.0 ** 24 if got.numel()
+            else 0.0,
+            "onehot_plain_signed": float(signed.max()) if got.numel()
+            else 0.0}
+    if spread:
+        return gaps
     xa = x.abs()
-    signed = float((got.double() - want.double()).abs().max()) \
-        if got.numel() else 0.0
-    return {"f64_plain_sum": max_abs_err(
-                got, coo_push_plain(x, active, plan, g.n, combine, msg),
-                combine, what + " (f64)"),
+    return {**gaps,
+            "f64_plain_sum": max_abs_err(got, exact, combine,
+                                         what + " (f64)"),
             "onehot_plain_abs": max_abs_err(run(xa), coo_push_mxu_plain(
                 xa, active, plan, g.n, combine, msg, block_e), combine,
-                what + " (|x|)"),
-            "onehot_plain_signed": signed}
+                what + " (|x|)")}
+
+
+def term_sums(x: torch.Tensor, active: torch.Tensor, g,
+              msg: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """float64 [n(, B)] twice: Σ msg(x[src], w) and Σ|msg(x[src], w)| over
+    each destination's in-edges from active sources, the messages formed
+    in their dtype as the pushes form them."""
+    src, dst = g.coo_src.long(), g.coo_dst.long()
+    m = apply_msg(x[src], g.coo_w, msg, _msg_dtype(x.dtype, g.coo_w.dtype,
+                                                   msg)).double()
+    keep = active[src].reshape((-1,) + (1,) * (m.ndim - 1))
+    m = torch.where(keep, m, 0.0)
+    out = torch.zeros((2, g.n) + tuple(m.shape[1:]), dtype=torch.float64,
+                      device=x.device)
+    return out[0].index_add_(0, dst, m), out[1].index_add_(0, dst, m.abs())
+
+
+def spread_payload(shape, seed: int, device) -> torch.Tensor:
+    """float32 normal values times 2^k, k uniform in [-40, 40] per
+    element: a column spanning about 2^80."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=shape) * np.exp2(rng.integers(-40, 41, size=shape))
+    return torch.from_numpy(a).to(torch.float32).to(device)
 
 
 def mxu_grid(device) -> float:
@@ -382,8 +455,9 @@ def mxu_grid(device) -> float:
     combine × dtype × msg × B ∈ {1, 3, 8, 16, 32, 33} on the small graphs
     plus a star (one hub taking every edge of its bin, cut into several
     units at block_e 64), with bins of 8 and 256 and units of 64 (256
-    edges, the least) and 1,024 slots. Prints the largest gap of each
-    comparison and returns the largest one held."""
+    edges, the least) and 1,024 slots; float32 sums also on a payload
+    spanning 2^80 (:func:`spread_payload`). Prints the largest gap of
+    each comparison and returns the largest absolute one held."""
     gaps, cells, t0 = {}, 0, time.perf_counter()
     graphs = {**small_graphs(device), "star": star(3000, device=device)}
     gen = torch.Generator(device=device).manual_seed(5)
@@ -398,18 +472,29 @@ def mxu_grid(device) -> float:
                 for c in COMBINES:
                     for msg in MSGS:
                         shape = (g.n,) + (() if width is None else (width,))
-                        x = payload(shape, dt, cells, device)
-                        for plan in plans:
-                            for block_e in (64, 1024):
-                                for k, v in mxu_err(
-                                        x, active, g, plan, c, msg, block_e,
-                                        f"coo_push_mxu {case}/{c}/{dt}/"
-                                        f"{msg}/w{width}/bin{plan.bin_n}/"
-                                        f"be{block_e}").items():
-                                    gaps[k] = max(gaps.get(k, 0.0), v)
+                        xs = {"normal": payload(shape, dt, cells, device)}
+                        if c == "sum" and dt == torch.float32:
+                            xs["spread"] = spread_payload(shape, cells,
+                                                          device)
+                        for kind, x in xs.items():
+                            for plan in plans:
+                                for block_e in (64, 1024):
+                                    for k, v in mxu_err(
+                                            x, active, g, plan, c, msg,
+                                            block_e,
+                                            f"coo_push_mxu {case}/{c}/{dt}/"
+                                            f"{msg}/w{width}/bin"
+                                            f"{plan.bin_n}/be{block_e}/"
+                                            f"{kind}",
+                                            spread=kind == "spread"
+                                    ).items():
+                                        k = k if kind == "normal" else \
+                                            f"{kind}_{k}"
+                                        gaps[k] = max(gaps.get(k, 0.0), v)
                         cells += 1
     torch.cuda.synchronize()
-    err = max(v for k, v in gaps.items() if k != "onehot_plain_signed")
+    err = max(v for k, v in gaps.items()
+              if k in ("f64_plain_sum", "onehot_plain_abs", "onehot_plain"))
     emit({"phase": "mxu_grid", "cases": sorted(graphs), "cells": cells,
           "widths": list(MXU_WIDTHS), "max_abs_err": err,
           "gaps": gaps, "seconds": time.perf_counter() - t0})
@@ -860,6 +945,466 @@ def push_choice_phase(graphs: dict, ways: dict) -> None:
                             f"push_choice {gname}/{alg} {way} vs scan")
 
 
+# -- slice 7: the other six algorithms ------------------------------------
+SOLVE_MORE = (("wcc", "gs"), ("wcc", "push"), ("wcc", "pull"),
+              ("pr_delta", "push"), ("pr_delta", "pull"),
+              ("betweenness", "pull"), ("coloring", "push"),
+              ("mst_boruvka", "pull"), ("triangle_count", "pull"))
+EXCHANGE_ALGS = ("wcc", "pr_delta", "betweenness")
+LOCAL_ALGS = ("coloring", "mst_boruvka", "triangle_count")
+PA_PARTS, PA_ITERS = 16, 20
+DAMP = 0.85
+# BC against the float64 Brandes and the dense backend: every term of σ
+# and δ is positive, so float32 sums in other orders stay within a few
+# float32 roundings per level (5.4e-7 relative on CPU test graphs)
+BC_RTOL = 1e-4
+# δ-PR against the dense backend, L1, where both take the same steps
+PR_DELTA_L1 = 1e-5
+
+
+def host_components(g) -> np.ndarray:
+    """Component labels of the (symmetric) graph, by scipy."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    src = g.coo_src.cpu().numpy()
+    dst = g.coo_dst.cpu().numpy()
+    a = csr_matrix((np.ones(g.m, dtype=np.int8), (src, dst)),
+                   shape=(g.n, g.n))
+    return connected_components(a, directed=True, connection="weak")[1]
+
+
+def more_settings(gname: str, g, labels: np.ndarray) -> dict:
+    """(kwargs, reduced) of each slice 7 algorithm on one graph; None
+    where it does not run."""
+    first = int(np.flatnonzero(labels == np.bincount(labels).argmax())[0])
+    road = gname == "rca"
+    bc = ({"num_sources": 2, "source_offset": first},
+          {"num_sources": "2 of n: each source walks ~2,800 levels each "
+                          "way at ~1 ms of host time a step"}) if road else \
+        ({"num_sources": 8, "source_offset": first},
+         {"num_sources": "8 of n"})
+    color = ({"num_parts": 1024},
+             {"num_parts": "1,024, not 16: phase 1 is a host loop over "
+                           "ceil(n / P) slots (122,500 at P = 16)"}) \
+        if road else ({"num_parts": 16, "C": 256},
+                      {"C": "256, not 64: first fit needs 78 colors at "
+                            "Kronecker scale 14 and 91 at 15"})
+    return {"wcc": ({}, {}),
+            "pr_delta": ({"tol": 1e-2 / g.n, "damp": DAMP},
+                         {"tol": "1e-2 / n: the default 1e-6 is above the "
+                                 "initial residual 0.15 / n"}),
+            "betweenness": bc, "coloring": color, "mst_boruvka": ({}, {}),
+            "triangle_count": ({}, {}) if road else None}
+
+
+def solve_more_path(graphs: dict) -> tuple[dict, dict]:
+    """Slice 7's main path: WCC, δ-PageRank and BC through the CUDA
+    backend's kernels, coloring, MST and triangle count as local steps,
+    and PageRank with Partition-Awareness; each run with the launch
+    counts zeroed just before and read just after."""
+    from repro_torch.core.algorithms import PageRankResult
+    from repro_torch.core.algorithms.pagerank import pagerank_pa_prepare
+    be = api.BACKEND_SHORTHANDS["cuda"]
+    totals = {k: 0 for k in _build.KERNELS}
+    by_alg, results = {}, {}
+    for gname, (g, _) in graphs.items():
+        labels = host_components(g)
+        settings = more_settings(gname, g, labels)
+        for alg, policy in SOLVE_MORE:
+            if settings[alg] is None:
+                continue
+            kw, reduced = settings[alg]
+            stats0 = dict(be.stats)
+            tune.clear_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = api.solve(g, alg, policy=policy, backend="cuda", **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = path_launches({k: 0 for k in _build.KERNELS},
+                                     probe_lines("solve_more"))
+            dispatch = {k: be.stats[k] - stats0[k] for k in be.stats}
+            for k, v in launches.items():
+                totals[k] += v
+                by_alg.setdefault(alg, dict.fromkeys(_build.KERNELS, 0))
+                by_alg[alg][k] += v
+            results[(gname, alg, policy)] = (r, kw, labels)
+            emit({"phase": "solve_more", "graph": gname, "alg": alg,
+                  "policy": policy, "backend": "cuda", "kwargs": kw,
+                  "wall_ms": wall_ms, "steps": r.steps,
+                  "push_steps": r.push_steps, "epochs": r.epochs,
+                  "converged": r.converged, "cost": r.cost.as_dict(),
+                  "launches": launches, "dispatch": dispatch,
+                  "reduced": reduced})
+            for k in ("fallback_pull", "fallback_push"):
+                if dispatch[k]:
+                    fail(f"solve_more {gname}/{alg}/{policy}: "
+                         f"{dispatch[k]} steps fell back ({k})")
+        t0 = time.perf_counter()
+        run, split = pagerank_pa_prepare(g, PA_PARTS, iters=PA_ITERS,
+                                         damp=DAMP)
+        split_s = time.perf_counter() - t0
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ranks, cost = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _build.launch_counts()
+        pa = PageRankResult(ranks=ranks, cost=cost, iterations=PA_ITERS)
+        results[(gname, "pagerank_pa", None)] = (pa, {}, labels)
+        emit({"phase": "solve_more", "graph": gname, "alg": "pagerank_pa",
+              "kwargs": {"num_parts": PA_PARTS, "iters": PA_ITERS},
+              "split_s": split_s, "cut_fraction": split["cut_fraction"],
+              "wall_ms": wall_ms, "cost": cost.as_dict(),
+              "launches": launches})
+        if sum(launches.values()):
+            fail(f"pagerank_pa on {gname} launched {launches}")
+    emit({"phase": "solve_more_path", "launches": totals,
+          "by_alg": by_alg})
+    pulls = sum(by_alg[a][k] for a in EXCHANGE_ALGS
+                for k in ("ell_spmv", "ell_pull_frontier"))
+    pushes = sum(by_alg[a][k] for a in EXCHANGE_ALGS for k in PUSH_KERNELS)
+    if pulls <= 0 or pushes <= 0:
+        fail(f"WCC, δ-PR and BC launched {pulls} pull and {pushes} push "
+             "kernels: each kind must run")
+    if by_alg["betweenness"]["ell_pull_frontier"] <= 0:
+        fail("BC never launched ell_pull_frontier")
+    for alg in LOCAL_ALGS:
+        if sum(by_alg[alg].values()):
+            fail(f"{alg} runs local steps only, yet launched {by_alg[alg]}")
+    return results, by_alg
+
+
+def brandes_host(g, sources: list) -> tuple[np.ndarray, int, np.ndarray]:
+    """Brandes BC over ``sources`` in float64 numpy, level by level;
+    returns (bc, the deepest level reached, tainted): ``tainted[v]`` if
+    for some source a term of δ(v), or of δ below v in the DAG, comes
+    from a successor whose (1 + δ) / σ is below float32's least normal
+    (2^-126, with a margin of 2^-10 for float32's rounding of σ and δ),
+    so that a float32 sum that flushes subnormals drops it."""
+    n = g.n
+    ptr = g.out_ptr.cpu().numpy().astype(np.int64)
+    nbrs = g.push_dst.cpu().numpy().astype(np.int64)
+    deg = np.diff(ptr)
+    bc, deepest = np.zeros(n), 0
+    tainted = np.zeros(n, bool)
+    tiny = 2.0 ** -126 * (1 + 2.0 ** -10)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for s in sources:
+            level = np.full(n, -1, np.int64)
+            level[s] = 0
+            sigma = np.zeros(n)
+            sigma[s] = 1.0
+            frontier, dag, d = np.array([s], np.int64), [], 0
+            while frontier.size:
+                cnt = deg[frontier]
+                u = np.repeat(frontier, cnt)
+                v = nbrs[np.repeat(ptr[frontier] - np.cumsum(cnt) + cnt, cnt)
+                         + np.arange(cnt.sum())]
+                level[v[level[v] == -1]] = d + 1
+                keep = level[v] == d + 1
+                u, v = u[keep], v[keep]
+                sigma += np.bincount(v, weights=sigma[u], minlength=n)
+                dag.append((u, v))
+                frontier = np.unique(v)
+                d += 1
+            deepest = max(deepest, d - 1)
+            delta = np.zeros(n)
+            taint = np.zeros(n, bool)
+            for u, v in reversed(dag):
+                pay = (1.0 + delta[v]) / sigma[v]
+                taint[u[taint[v] | ((pay > 0) & (pay < tiny))]] = True
+                delta += np.bincount(u, weights=sigma[u] * pay, minlength=n)
+            delta[s] = 0.0
+            bc += delta
+            tainted |= taint
+    return bc, deepest, tainted
+
+
+def pagerank_fixpoint(g, damp: float = DAMP) -> np.ndarray:
+    """The PageRank fixpoint by a float64 power iteration to an L1
+    change below 1e-13."""
+    from scipy.sparse import csr_matrix
+    src = g.coo_src.cpu().numpy()
+    dst = g.coo_dst.cpu().numpy()
+    a = csr_matrix((np.ones(g.m), (dst, src)), shape=(g.n, g.n))
+    deg = np.maximum(g.out_deg.cpu().numpy(), 1).astype(np.float64)
+    r = np.full(g.n, 1.0 / g.n)
+    for _ in range(2000):
+        nxt = (1 - damp) / g.n + damp * (a @ (r / deg))
+        done = np.abs(nxt - r).sum() < 1e-13
+        r = nxt
+        if done:
+            break
+    return r
+
+
+def rel_gaps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got - want| / (|want| + 1e-6 max|want|), 0 where either is not
+    finite."""
+    fin = np.isfinite(got) & np.isfinite(want)
+    if not fin.any():
+        return np.zeros_like(got)
+    scale = np.abs(want) + 1e-6 * np.abs(want[fin]).max()
+    with np.errstate(invalid="ignore"):
+        return np.where(fin, np.abs(got - want) / scale, 0.0)
+
+
+def check_more(graphs: dict, results: dict, main_results: dict) -> None:
+    """Each slice 7 answer against the dense backend on the card and an
+    independent host oracle (numpy and scipy)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import minimum_spanning_tree
+    for (gname, alg, policy), (r, kw, labels) in results.items():
+        g = graphs[gname][0]
+        line = {"phase": "check_more", "graph": gname, "alg": alg,
+                "policy": policy}
+        if alg == "pagerank_pa":
+            push = main_results[(gname, "pagerank", "push")]
+            gap = float((r.ranks - push.state).abs().max())
+            host = host_reference(g, "pagerank", {"iters": PA_ITERS})
+            if not (gap <= 1e-6 and np.allclose(
+                    r.ranks.double().cpu().numpy(), host, rtol=1e-4,
+                    atol=1e-9)):
+                fail(f"pagerank_pa on {gname}: {gap} from the PageRank "
+                     "push, or off the host power iteration")
+            if not int(r.cost.locks) < int(push.cost.locks):
+                fail(f"pagerank_pa on {gname}: {int(r.cost.locks)} locks, "
+                     f"not fewer than the push's {int(push.cost.locks)}")
+            emit(line | {"max_abs_gap_to_push": gap,
+                         "locks": int(r.cost.locks),
+                         "push_locks": int(push.cost.locks)})
+            continue
+        dense = api.solve(g, alg, policy=policy, backend="dense", **kw)
+        got, want = (
+            {k: v.cpu() for k, v in (s.items() if isinstance(s, dict)
+                                     else {"labels": s}.items())}
+            for s in (r.state, dense.state))
+        src = g.coo_src.cpu().numpy()
+        dst = g.coo_dst.cpu().numpy()
+        if alg == "pr_delta":
+            bound = g.n * kw["tol"] / (1 - DAMP)
+            ranks = got["ranks"].double().numpy()
+            to_dense = float(np.abs(ranks - want["ranks"].double()
+                                    .numpy()).sum())
+            to_host = float(np.abs(ranks - pagerank_fixpoint(g)).sum())
+            if policy == "push" and r.push_steps == 0:
+                fail(f"pr_delta on {gname} pushed no step")
+            # the two backends sum in other orders: the same steps leave
+            # them float32 roundings apart (≤ 1.9e-7 read on the card);
+            # a residual that flips at the tolerance changes the steps,
+            # and then only the tolerance bounds the gap, 2 n tol / (1 -
+            # damp)
+            flip = r.steps != dense.steps
+            if (to_dense > (2 * bound if flip else PR_DELTA_L1)
+                    or to_host > bound + 1e-5):
+                fail(f"pr_delta on {gname}/{policy}: L1 {to_dense} from "
+                     f"dense ({r.steps} vs {dense.steps} steps), "
+                     f"{to_host} from the fixpoint (bound {bound})")
+            line |= {"l1_to_dense": to_dense, "l1_to_fixpoint": to_host,
+                     "bound": bound, "steps": r.steps,
+                     "dense_steps": dense.steps, "tolerance_flip": flip}
+        elif alg == "betweenness":
+            k = kw["num_sources"]
+            sources = [(kw["source_offset"] + i) % g.n for i in range(k)]
+            host, deepest, tainted = brandes_host(g, sources)
+            mine = got["bc"].double().numpy()
+            theirs = want["bc"].double().numpy()
+            nan_same = torch.equal(got["bc"].isnan(), want["bc"].isnan())
+            # the dense backend sums by index_add_, whose float32 atomics
+            # flush subnormal terms to zero; where σ nears the float32
+            # limit, (1 + δ) / σ is subnormal, and the entries that
+            # depend on such a term (``tainted``, from the float64
+            # oracle) may depart from it. The kernels sum in float64.
+            flushes = float(torch.zeros(1, device=g.device).index_add_(
+                0, torch.zeros(2, dtype=torch.long, device=g.device),
+                torch.full((2,), 2.0 ** -130, device=g.device))) == 0.0
+            fin = np.isfinite(mine) & np.isfinite(theirs) & np.isfinite(
+                host)
+            off = fin & (rel_gaps(theirs, host) > BC_RTOL)
+            rel_dense = float(np.where(tainted, 0.0,
+                                       rel_gaps(mine, theirs)).max())
+            rel_host = float(rel_gaps(mine, host).max())
+            if off.any() and not (flushes and tainted[off].all()):
+                fail(f"betweenness on {gname}: the dense backend departs "
+                     f"from the float64 oracle at {int(off.sum())} "
+                     f"entries, {int((off & ~tainted).sum())} of them "
+                     "with no subnormal term below them (index_add_ "
+                     f"flushes subnormals: {flushes})")
+            if not (nan_same and rel_dense <= BC_RTOL
+                    and rel_host <= BC_RTOL
+                    and int(got["max_level"]) == deepest):
+                fail(f"betweenness on {gname}: NaN sets equal {nan_same}, "
+                     f"relative gaps {rel_dense} (dense, untainted), "
+                     f"{rel_host} (host), max level "
+                     f"{int(got['max_level'])} vs {deepest}")
+            sizes = np.bincount(labels)
+            line |= {"sources": sources,
+                     "sources_reaching_more_than_one": int(
+                         (sizes[labels[sources]] > 1).sum()),
+                     "finite": int(np.isfinite(mine).sum()),
+                     "nan": int(np.isnan(mine).sum()),
+                     "host_finite": int(np.isfinite(host).sum()),
+                     "index_add_flushes_subnormals": flushes,
+                     "tainted": int((tainted & fin).sum()),
+                     "dense_off_host": int(off.sum()),
+                     "dense_off_host_untainted": int((off & ~tainted).sum()),
+                     "rel_gap_dense_untainted": rel_dense,
+                     "rel_gap_host": rel_host, "max_level": deepest}
+        else:
+            for key in sorted(want):
+                a, b = got[key], want[key]
+                if a.dtype != b.dtype or a.shape != b.shape or (
+                        not torch.equal(a, b)):
+                    fail(f"{alg} on {gname}/{policy} {key}: differs from "
+                         "the dense backend")
+            if alg == "wcc":
+                mins = np.full(labels.max() + 1, g.n)
+                np.minimum.at(mins, labels, np.arange(g.n))
+                ok = np.array_equal(got["labels"].numpy(), mins[labels])
+                line["components"] = int(labels.max() + 1)
+            elif alg == "coloring":
+                c = got["colors"]
+                ok = (not bool(((c[src] == c[dst]) & (c[src] > 0)).any())
+                      and bool((c > 0).all())
+                      and int(c.max()) <= kw.get("C", 64))
+                line["colors"] = int(c.max())
+            elif alg == "mst_boruvka":
+                w = g.coo_w.cpu().numpy().astype(np.float64)
+                tree = minimum_spanning_tree(
+                    csr_matrix((w, (src, dst)), shape=(g.n, g.n)))
+                host_w = float(tree.sum())
+                ok = (abs(float(got["weight"]) - host_w) <= 1e-6 * host_w
+                      and int(got["components"]) == int(labels.max() + 1))
+                line |= {"weight": float(got["weight"]),
+                         "host_weight": host_w,
+                         "components": int(got["components"])}
+            else:
+                a = csr_matrix((np.ones(g.m, dtype=np.int64), (src, dst)),
+                               shape=(g.n, g.n))
+                per = np.asarray((a @ a).multiply(a).sum(axis=1)).ravel()
+                ok = (np.array_equal(got["per_vertex"].numpy(), per // 2)
+                      and int(got["total"]) == int(per.sum() // 6))
+                line["triangles"] = int(got["total"])
+            if not ok:
+                fail(f"{alg} on {gname}/{policy}: disagrees with the host "
+                     "oracle")
+        emit(line | {"equal_to_dense": True, "equal_to_host": True})
+
+
+def kernel_row(name: str, shape: str, err: float, kernel, plain, library,
+               nbytes: float, ops: float, reps: int,
+               rate: float = F32_OPS_PER_S, plain_reps: int = 0,
+               **extra) -> dict:
+    """One ``"kernel_time"`` line for a kernel already held against its
+    plain version (``err``, the largest gap): the kernel timed with CUDA
+    events (L2 flushed before each launch) beside its plain version
+    (``plain_reps`` runs, else a quarter of ``reps`` and at least 3), the
+    card's bound for ``nbytes`` and ``ops`` at ``rate``, and one PyTorch
+    call computing the same function (``library``, or None); ``extra``
+    keys (graph, path, launches, ...) join the line. Emitted and
+    returned."""
+    b_ms, b_by = bound(nbytes, ops, rate)
+    row = {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+           "replaces": KERNEL_INFO[name][1], "shape": shape,
+           "max_abs_err": err, "ms": time_ms(kernel, reps),
+           "plain_ms": time_ms(plain, plain_reps or max(3, reps // 4)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": (time_ms(library, reps) if library is not None
+                          else None), **extra}
+    emit({"phase": "kernel_time", **row})
+    return row
+
+
+def more_kernel_rows(gname: str, g, auto, results: dict,
+                     by_alg: dict) -> None:
+    """The two kernel shapes slice 7 adds to the main path, held against
+    their plain versions and timed as in :func:`shaped_kernels`: the
+    frontier pull of BC's float32 sums over one BFS level of its first
+    source (the largest level that fits the frontier kernel) and the scan
+    push of δ-PageRank's residual shares halfway through its run."""
+    from repro_torch.core import Direction, Fixed, PushPullEngine
+    from repro_torch.core.algorithms.pr_delta import (pr_delta_init,
+                                                      pr_delta_program)
+    gen = torch.Generator(device=g.device).manual_seed(7)
+    n, m, d = g.n, g.m, g.d_ell
+    reps = 20 if n * d < 1e8 else 8
+
+    # BC's pull: (1 + δ) / σ of one level's vertices, summed into the
+    # level above it (touched = that level)
+    _, kw, _ = results[(gname, "betweenness", "pull")]
+    dist = api.solve(g, "bfs", root=kw["source_offset"],
+                     backend="dense").state["dist"]
+    reach = dist[dist < 2147483647]
+    counts = torch.bincount(reach.long())
+    cap = default_pull_cap(n, m, d)
+    fits = (counts <= cap) & (counts * d < m)
+    lvl = int(torch.where(fits, counts, 0).argmax())
+    touched = dist == lvl
+    cnt = int(touched.sum())
+    rows_n = min(max(8, 1 << (cnt - 1).bit_length()), cap)
+    rows = frontier_rows(touched, rows_n)
+    xf = torch.where(dist == lvl + 1, torch.rand(n, generator=gen,
+                                                 device=g.device), 0.0)
+    xp = pad_values(xf)
+    live = rows[rows < n].long()
+    slots = int(g.in_deg[live].sum())
+    srcs = g.ell_idx[live]
+    distinct = int(torch.unique(srcs[srcs < n]).numel())
+    br = auto._pull_frontier_block(g, rows_n, xf, "sum", "copy")
+    fkw = dict(block_r=br, row_len=g.in_deg)
+    shape = (f"x f32[{n + 1}] rows[{rows_n}] (level {lvl}: {cnt} live, "
+             f"{slots} real slots) idx[{n},{d}] row_len in_deg block_r "
+             f"{br} sum/copy (the BC backward pull)")
+    err = max_abs_err(
+        ell_pull_frontier(xp, g.ell_idx, g.ell_w, rows, "sum", "copy",
+                          **fkw),
+        ell_pull_frontier_plain(xp, g.ell_idx, g.ell_w, rows, "sum", "copy",
+                                row_len=g.in_deg), "sum",
+        f"ell_pull_frontier at {gname} {shape}")
+    kernel_row("ell_pull_frontier", shape, err,
+               lambda: ell_pull_frontier(xp, g.ell_idx, g.ell_w, rows,
+                                         "sum", "copy", **fkw),
+               lambda: ell_pull_frontier_plain(xp, g.ell_idx, g.ell_w, rows,
+                                               "sum", "copy",
+                                               row_len=g.in_deg),
+               None, nbytes=slots * 4 + cnt * 4 + rows_n * 4 + distinct * 4
+               + rows_n * 4, ops=slots, reps=reps, path="solve_more",
+               graph=gname,
+               launches=by_alg["betweenness"]["ell_pull_frontier"],
+               payload="float32 sum/copy")
+
+    # δ-PageRank's push: its residual shares halfway through the run
+    r, kw, _ = results[(gname, "pr_delta", "push")]
+    rounds = max(1, r.steps // 2)
+    prog, _ = pr_delta_program(g, **kw)
+    st = PushPullEngine(program=prog, policy=Fixed(Direction.PUSH),
+                        max_steps=rounds, backend=auto).run(
+        g, *pr_delta_init(g, **kw)).state
+    active = st["res"].abs() > kw["tol"]
+    xs = torch.where(active, DAMP * st["res"]
+                     / g.out_deg.clamp(min=1).float(), 0.0)
+    block_e, bin_n, strategy = auto.push_blocks(g, xs, "sum", "copy")
+    plan = auto.push_plan(g, bin_n)
+    args = (xs, active, g.coo_src, g.coo_dst, g.coo_w, n, "sum", "copy")
+    pkw = dict(plan=plan, strategy=strategy, block_e=block_e)
+    a = torch.sparse_csr_tensor(g.in_ptr, g.coo_src,
+                                torch.ones(m, device=g.device), (n, n))
+    shape = (f"x f32[{n}] plan[{plan.nb},{plan.cap}] bin_n {plan.bin_n} "
+             f"block_e {block_e} sum/copy, {int(active.sum())} of {n} "
+             f"active (δ-PageRank's push after {rounds} rounds)")
+    err = max_abs_err(coo_push(*args, **pkw),
+                      coo_push_plain(xs, active, plan, n, "sum", "copy"),
+                      "sum", f"coo_push at {gname} {shape}")
+    kernel_row("coo_push", shape, err, lambda: coo_push(*args, **pkw),
+               lambda: coo_push_plain(xs, active, plan, n, "sum", "copy"),
+               lambda: torch.sparse.mm(a, xs[:, None]),
+               nbytes=push_bytes(m, n, 1, plan.nb, plan.bin_n), ops=m,
+               reps=reps, path="solve_more", graph=gname,
+               launches=by_alg["pr_delta"]["coo_push"], strategy=strategy)
+    torch.cuda.synchronize()
+
+
 # -- kernels at the main path's shapes -------------------------------------
 def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     """Phase 5 on one graph: each kernel at the shape the main path gives
@@ -869,20 +1414,11 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
 
-    def record(name, shape, got, want, combine, kernel, plain, library,
-               nbytes, ops, reps, extra=None):
+    def record(name, shape, got, want, combine, *timed, extra=None,
+               **work):
         err = max_abs_err(got, want, combine, f"{name} at {gname} {shape}")
-        b_ms, b_by = bound(nbytes, ops)
-        row = {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-               "replaces": KERNEL_INFO[name][1], "graph": gname,
-               "shape": shape, "max_abs_err": err,
-               "ms": time_ms(kernel, reps),
-               "plain_ms": time_ms(plain, max(3, reps // 4)),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": (time_ms(library, reps) if library is not None
-                              else None), **(extra or {})}
-        emit({"phase": "kernel_time", **row})
-        out.append(row)
+        out.append(kernel_row(name, shape, err, *timed, graph=gname,
+                              **work, **(extra or {})))
 
     n, m, d = g.n, g.m, g.d_ell
     reps = 20 if n * d < 1e8 else 8
@@ -1378,18 +1914,10 @@ def model_kernel_rows(lms: dict, rec: dict) -> list:
 
     def record(name, shape, args, kernel, plain, library, tol, nbytes, ops_,
                rate, reps):
-        got, want = kernel(), plain()
-        b_ms, b_by = bound(nbytes, ops_, rate)
-        row = {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-               "replaces": KERNEL_INFO[name][1], "shape": shape,
-               "max_abs_err": close_to(got, want, tol, f"{name} {shape}"),
-               "ms": time_ms(kernel, reps),
-               "plain_ms": time_ms(plain, 3),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": (time_ms(library, reps) if library is not None
-                              else None), **args}
-        emit({"phase": "kernel_time", **row})
-        rows.append(row)
+        err = close_to(kernel(), plain(), tol, f"{name} {shape}")
+        rows.append(kernel_row(name, shape, err, kernel, plain, library,
+                               nbytes, ops_, reps, rate=rate, plain_reps=3,
+                               **args))
 
     for arch, st in lms.items():
         cfg = st["cfg"]
@@ -1483,11 +2011,16 @@ def main() -> int:
     serving = serving_path(graphs, ways)
     counts = {k: counts[k] + serving[k] for k in counts}
     push_choice_phase(graphs, ways)
+    more, by_alg = solve_more_path(graphs)
+    counts = {k: counts[k] + sum(v[k] for v in by_alg.values())
+              for k in counts}
+    check_more(graphs, more, results)
 
     rows = []
     for gname, (g, _) in graphs.items():
         rows += shaped_kernels(gname, g, device, ways)
-    del graphs, ways
+        more_kernel_rows(gname, g, ways["auto"], more, by_alg)
+    del graphs, ways, more
     torch.cuda.empty_cache()
 
     errs.update(model_kernel_grid(device))

@@ -1,6 +1,6 @@
 """repro_torch.api — one k-relaxation API for the graph workloads.
-PyTorch port of ``repro.api``: ``solve`` for BFS, PageRank, personalized
-PageRank and Δ-stepping SSSP, and ``solve_batch`` for B queries of the
+PyTorch port of ``repro.api``: ``solve`` for the ten algorithms of the
+JAX package, and ``solve_batch`` for B queries of the
 source-parameterized ones in one engine run (telemetry and resilience
 are later slices).
 
@@ -11,6 +11,7 @@ are later slices).
     r = api.solve(g, "pagerank", iters=20, backend="cuda")  # CUDA kernels
     r = api.solve(g, "bfs", root=0, policy="auto", backend="cuda")
     r = api.solve(g, "sssp_delta", source=0, delta=2.0)     # dense backend
+    r = api.solve(g, "mst_boruvka", backend="cuda")         # local steps
     br = api.solve_batch(g, "ppr", sources=[0, 5, 9], backend="cuda")
     br.states[1]["ranks"]          # == solve(g, "ppr", source=5).state
 
@@ -26,10 +27,14 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 
-from .core.algorithms import (bfs_init, bfs_program, pagerank_init,
-                              pagerank_program, ppr_finalize, ppr_init,
-                              ppr_program, sssp_delta_finalize,
-                              sssp_delta_init, sssp_delta_program)
+from .core.algorithms import (
+    betweenness_finalize, betweenness_init, betweenness_program, bfs_init,
+    bfs_program, coloring_finalize, coloring_init, coloring_program,
+    mst_finalize, mst_init, mst_program, pagerank_init, pagerank_program,
+    ppr_finalize, ppr_init, ppr_program, pr_delta_finalize, pr_delta_init,
+    pr_delta_program, sssp_delta_finalize, sssp_delta_init,
+    sssp_delta_program, triangle_finalize, triangle_init, triangle_program,
+    wcc_init, wcc_program)
 from .core.backend import (CudaBackend, DenseBackend, EllBackend,
                            ExchangeBackend)
 from .core.cost_model import Cost, StepTrace
@@ -205,8 +210,7 @@ def solve(g: Graph, algorithm: str, *,
 
     Args:
         g: the :class:`~repro_torch.graphs.structure.Graph`.
-        algorithm: ``"bfs"``, ``"pagerank"``, ``"ppr"`` or
-            ``"sssp_delta"``.
+        algorithm: a registered name — see :func:`algorithms`.
         policy: a DirectionPolicy or ``"push"``, ``"pull"``, ``"gs"``,
             ``"grs"``, ``"auto"``; default: the algorithm's own.
         backend: an ExchangeBackend or ``"dense"`` (default), ``"ell"``,
@@ -214,7 +218,8 @@ def solve(g: Graph, algorithm: str, *,
         max_steps: per-phase step bound (bounds epochs for phase
             programs).
         trace: StepTrace capacity, or True for 256 slots.
-        **kw: ``root``, ``source``, ``iters``, ``damp``, ``delta``, ...
+        **kw: ``root``, ``source``, ``iters``, ``damp``, ``delta``,
+            ``tol``, ``num_sources``, ``num_parts``, ``C``, ...
 
     Raises:
         KeyError: unknown algorithm.
@@ -302,3 +307,32 @@ register(AlgorithmSpec(
     name="sssp_delta", build=sssp_delta_program, init=sssp_delta_init,
     finalize=sssp_delta_finalize, default_policy=Fixed(Direction.PUSH),
     runtime_keys=("source",), paper="§3.4/§4.4 Alg. 4"))
+
+register(AlgorithmSpec(
+    name="wcc", build=wcc_program, init=wcc_init,
+    paper="§3.3 (label propagation)"))
+
+register(AlgorithmSpec(
+    name="pr_delta", build=pr_delta_program, init=pr_delta_init,
+    finalize=pr_delta_finalize, default_policy=Fixed(Direction.PUSH),
+    paper="§3.1 (Whang [60])"))
+
+register(AlgorithmSpec(
+    name="betweenness", build=betweenness_program, init=betweenness_init,
+    finalize=betweenness_finalize, default_policy=Fixed(Direction.PULL),
+    paper="§3.5/§4.5 Alg. 5"))
+
+register(AlgorithmSpec(
+    name="coloring", build=coloring_program, init=coloring_init,
+    finalize=coloring_finalize, default_policy=Fixed(Direction.PUSH),
+    paper="§3.6/§4.6 Alg. 6"))
+
+register(AlgorithmSpec(
+    name="mst_boruvka", build=mst_program, init=mst_init,
+    finalize=mst_finalize, default_policy=Fixed(Direction.PULL),
+    paper="§3.7/§4.7 Alg. 7"))
+
+register(AlgorithmSpec(
+    name="triangle_count", build=triangle_program, init=triangle_init,
+    finalize=triangle_finalize, default_policy=Fixed(Direction.PULL),
+    paper="§3.2/§4.2 Alg. 2"))

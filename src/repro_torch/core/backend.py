@@ -206,11 +206,8 @@ class CudaBackend(EllBackend):
     ``push_block_n`` (push bin width) and ``push_strategy`` ("scan" |
     "mxu"). A partial pin overrides only its own part (a pinned "mxu"
     over a tuned bin wider than 256 takes 256, the widest bin its kernel
-    takes). Where the tuner picks "mxu" for a float sum, the backend
-    takes the tuner's best "scan" candidate instead: the one-hot push's
-    float sums are not held to 1e-5 against its reference numerics
-    (PERF.md), so only a pinned ``push_strategy="mxu"`` runs them. With
-    ``autotune=False`` each unpinned part takes its ladder's first rung.
+    takes). With ``autotune=False`` each unpinned part takes its ladder's
+    first rung.
 
     Cells outside the kernels' coverage — a msg_fn other than copy, mul
     or add, a combine outside sum/min/max, rank > 2, a dtype outside
@@ -319,16 +316,6 @@ class CudaBackend(EllBackend):
             lambda: tune.tune_push(g.n, g.m, width, dt, combine, mode,
                                    values.device),
             lambda: tune.push_candidates(g.n, g.m)[0])
-        # a tuned "mxu" float sum runs the best scan candidate instead:
-        # the one-hot push's float sums are not held to 1e-5 against the
-        # reference's one-hot numerics (PERF.md)
-        if (strat == "mxu" and self.push_strategy is None
-                and combine == "sum" and dt.is_floating_point):
-            be, bn, strat = self._tune(
-                ("push_scan", g.n, g.m, width, dt, combine, mode),
-                lambda: tune.tune_push(g.n, g.m, width, dt, combine, mode,
-                                       values.device, scan_only=True),
-                lambda: tune.push_candidates(g.n, g.m)[0])
         # partial pins override only their own component; a pinned "mxu"
         # over a tuned bin takes at most the widest bin its kernel takes
         strat = self.push_strategy or strat

@@ -10,9 +10,13 @@ A *vertex program* is (msg_fn, combine, update_fn) plus optional hooks:
                                                   converged)
     values_fn(g, state, frontier) -> wire values       (default: state)
     touched_fn(g, state, frontier, visited) -> bool[n] pull destinations
+    local_fn(g, state, frontier, step, do_push, cost)  (a step that never
+        -> (state, frontier, converged, cost)           touches the
+                                                        exchange backend)
 
 A :class:`PhaseProgram` runs a sequence of :class:`Phase` s under an
-epoch loop (Δ-stepping's buckets).
+epoch loop (Δ-stepping's buckets, BC's forward/backward pair per source,
+Borůvka's find-min/contract rounds, Boman coloring's color/fix rounds).
 
 The JAX package runs the loop under ``lax.while_loop`` and picks the
 direction with ``lax.cond``; here the loop runs on the host over device
@@ -57,6 +61,13 @@ class VertexProgram:
     k_filter_set_fn: Optional[Callable] = None
     # GreedySwitch terminal hand-off: tail_fn(g, state, frontier, cost)
     tail_fn: Optional[Callable] = None
+    # local_fn(g, state, frontier, step, do_push, cost)
+    #   -> (state, frontier, converged, cost) replaces relax + update:
+    # the step never touches the exchange backend (partition-sequential
+    # coloring, Borůvka's find-min over supervertices, blocked triangle
+    # edge maps); the decided direction arrives as the python bool
+    # ``do_push`` so the step can charge the direction's cost
+    local_fn: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,13 +173,16 @@ class PushPullEngine:
         while not converged and not handoff and step < phase.max_steps:
             frontier = c.frontier
             unvisited = ~visited
-            values = values_fn(g, c.state, frontier)
-            if prog.touched_fn is not None:
-                touched = prog.touched_fn(g, c.state, frontier, visited)
-            elif prog.pull_touched == "unvisited":
-                touched = unvisited
+            if prog.local_fn is not None:
+                values = touched = None
             else:
-                touched = None
+                values = values_fn(g, c.state, frontier)
+                if prog.touched_fn is not None:
+                    touched = prog.touched_fn(g, c.state, frontier, visited)
+                elif prog.pull_touched == "unvisited":
+                    touched = unvisited
+                else:
+                    touched = None
             stats = (self._step_stats(g, prog, frontier, unvisited, touched,
                                       values, step, last_push)
                      if (fixed_dir is None or tracing) else None)
@@ -177,18 +191,23 @@ class PushPullEngine:
             else:
                 do_push = bool(self.policy.decide(g, frontier, stats))
             cost0 = c.cost
-            msgs, cost = self.backend.relax(
-                g, values, frontier,
-                direction=Direction.PUSH if do_push else Direction.PULL,
-                combine=prog.combine, msg_fn=prog.msg_fn, touched=touched,
-                cost=cost0)
-            state, new_frontier, conv = prog.update_fn(c.state, msgs, step)
-            if prog.k_filter_push and do_push:
-                # push produced a sparse updated set -> k-filter compacts
-                kf_set = (new_frontier if prog.k_filter_set_fn is None
-                          else prog.k_filter_set_fn(c.state, state,
-                                                    new_frontier))
-                _, cost = k_filter(kf_set, cost)
+            if prog.local_fn is not None:
+                state, new_frontier, conv, cost = prog.local_fn(
+                    g, c.state, frontier, step, do_push, cost0)
+            else:
+                msgs, cost = self.backend.relax(
+                    g, values, frontier,
+                    direction=Direction.PUSH if do_push else Direction.PULL,
+                    combine=prog.combine, msg_fn=prog.msg_fn,
+                    touched=touched, cost=cost0)
+                state, new_frontier, conv = prog.update_fn(c.state, msgs,
+                                                           step)
+                if prog.k_filter_push and do_push:
+                    # push produced a sparse updated set -> k-filter
+                    kf_set = (new_frontier if prog.k_filter_set_fn is None
+                              else prog.k_filter_set_fn(c.state, state,
+                                                        new_frontier))
+                    _, cost = k_filter(kf_set, cost)
             cost = cost.charge(iterations=1, barriers=1,
                                **dict(prog.step_charges))
             if prog.charge_fn is not None:

@@ -2,9 +2,11 @@ from .structure import (GRAPH_ARRAYS, Graph, build_graph, graph_from_arrays,
                         pad_values, resolve_device)
 from .generators import (STANDIN_SPECS, erdos_renyi, kronecker, ring,
                          road_grid, standin, star)
+from .partition import Partition, PartitionedEdges, pa_split, partition_1d
 
 __all__ = [
     "Graph", "build_graph", "graph_from_arrays", "pad_values",
     "resolve_device", "GRAPH_ARRAYS", "kronecker", "erdos_renyi",
     "road_grid", "ring", "star", "standin", "STANDIN_SPECS",
+    "Partition", "partition_1d", "PartitionedEdges", "pa_split",
 ]

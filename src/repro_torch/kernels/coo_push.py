@@ -30,10 +30,13 @@ by one of two strategies (``PUSH_STRATEGIES``, the tuner's choice):
     sums as a window reduce over the same tiles. Each tile's edge range
     is cut into units of ``block_e`` edges (:func:`mxu_units`), one CTA
     each, and a tile cut across units is combined in unit order by its
-    last CTA. Plain version: :func:`coo_push_mxu_plain`, which keeps the
-    JAX package's numerics (each ``block_e`` chunk reduced in the message
-    dtype, then chunks combined). Bins are at most 256 destinations
-    wide, and payloads at most 256 columns, on the card.
+    last CTA. Float32 sums scale each message by its destination's
+    largest term of the chunk and split it into four parts, so that each
+    part's sum is exact on the tensor cores. Plain version:
+    :func:`coo_push_mxu_plain`, which keeps the JAX package's numerics
+    (each ``block_e`` chunk reduced in the message dtype, then chunks
+    combined). Bins are at most 256 destinations wide, and payloads at
+    most 256 columns, on the card.
 
 On a CUDA tensor :func:`coo_push` launches the strategy's kernel; on a
 CPU tensor it runs the plain version. Destinations with no active

@@ -12,8 +12,8 @@
 // (8 B per plan slot plus the gathered payload rows, ~0.002-0.09 ms per
 // push on the graphs of this repo). The one-hot design's own floor is
 // its multiply-adds: each edge meets only its own destination tile of 64
-// rows, m x 64 x B x 3 products (hi, mid and lo) x 2 FLOP, which at
-// B = 32 on Kronecker scale 16 is 2.2e10, about 0.045 ms at the 495
+// rows, m x 64 x B x 4 products (the four parts) x 2 FLOP, which at
+// B = 32 on Kronecker scale 16 is 2.9e10, about 0.06 ms at the 495
 // TFLOP/s TF32 rate. In practice it is bound by the issue of its many
 // small products (one m64nNk8 wgmma per 8 edges, whatever B), by the
 // per-element convert and by the round trips of each staged chunk.
@@ -28,25 +28,39 @@
 // order: no atomics on results, the output is deterministic.
 //   * float32 sums: onehot[64, chunk] @ msgs[chunk, N] by wgmma
 //     (m64nNk8 .tf32). One CTA (a warpgroup) covers all payload columns
-//     (up to 64 a launch; wider payloads run in slices), so each edge's
+//     (up to 32 a launch; wider payloads run in slices), so each edge's
 //     metadata is read once, and walks a contiguous run of units as one
-//     stream of staged chunks of 64 to 512 edges. Each message is split
-//     exactly into three TF32 parts, hi = tf32(m), mid = tf32(m - hi),
-//     lo = m - hi - mid (11 significant bits each: 33 >= float32's 24;
-//     two parts keep only ~22, and on cancelling sums of large terms
-//     that left the result further than 1e-5 from the exact sum); hi
-//     goes to columns [0, P), mid to [P, 2P) and lo to [2P, 3P) of the
-//     B operand (P = B rounded up to 2, 8, 16, 32 or 64; N = 3P, but 8
-//     at P = 2), which is written transposed, [column][edge], in 8 x
-//     16-byte core matrices (padded, so that a warp's 32 edges hit 32
-//     banks), K-major
+//     stream of staged chunks of 64 to 512 edges. The products sum
+//     each message in four parts, exactly. A destination row's messages
+//     in a chunk share a scale 2^e per column: the least power of two
+//     above their largest finite magnitude (a first pass over the
+//     staged chunk, combined per run of one row within a warp, then a
+//     shared-memory atomic max). Each message is multiplied by 2^-e
+//     (exact), and part j is the remainder of the parts before it
+//     rounded to a multiple of 2^(-11 (j + 1)), so it has at most 11
+//     significant bits (exact in TF32); a row's sum of one part over a
+//     chunk, at most 512 x 2^11 of its quanta, is exact in the tensor
+//     cores' f32 accumulation whatever the terms' signs. The four part
+//     sums are added in f64 and multiplied back by 2^e. What is lost is
+//     below 2^(e - 45) a message, e from the row's own terms: each
+//     destination keeps its relative precision, however far apart the
+//     column's magnitudes are across rows. (A split relative to each
+//     message's own exponent is exact per message but not in the sum:
+//     where large terms cancel within a chunk, the small ones lost
+//     their low bits in the f32 partial sums, up to 5e-3 on a bin of
+//     +-2^14 terms.) An infinite or NaN message goes whole into part 0
+//     and takes no part in the scale. Part j goes to columns
+//     [jP, (j + 1)P) of the B operand (P = the slice's columns rounded
+//     up to 2, 8, 16 or 32; N = 4P), which is written transposed,
+//     [column][edge], in 8 x 16-byte core matrices (padded, so that a
+//     warp's 32 edges hit 32 banks), K-major
 //     as TF32 requires. The one-hot A operand is built in registers from
 //     the staged tile rows (no vote, no skipped tile: every product is
 //     one the tile needs), two groups of 4 k-steps in flight, their
 //     registers held until their products complete (wgmma reads them
-//     asynchronously). The f32 sums of a chunk (each part's exact unless
-//     its terms span 2^13) are added to f64 registers once per chunk and
-//     rounded once at the end. Staging runs ahead: a chunk's metadata
+//     asynchronously). The part sums of a chunk are added to f64
+//     registers once per chunk and rounded once at the end. Staging
+//     runs ahead: a chunk's metadata
 //     loads two chunks early, its sources' active flags one early, and
 //     its payload rows arrive by cp.async (a gather: TMA has none) into
 //     the second of two buffers while the current chunk is converted
@@ -107,10 +121,34 @@ __device__ __forceinline__ Unit load_unit(const int4* table, long long u) {
   return {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float f) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
-  return r;
+__device__ __forceinline__ double pow2(int k) {   // 2^k, |k| < 1023
+  return __longlong_as_double(static_cast<long long>(1023 + k) << 52);
+}
+
+__device__ __forceinline__ float pow2f(int k) {   // 2^k, |k| < 127
+  return __int_as_float((127 + k) << 23);
+}
+
+// the scale exponent e of a row's column: the least e with 2^e above
+// the magnitude whose float32 bits are `bits` (-126 for a subnormal or
+// zero magnitude), so e is in [-126, 128]
+__device__ __forceinline__ int scale_exp(uint32_t bits) {
+  const int biased = static_cast<int>(bits >> 23);
+  return biased == 0 ? -126 : biased - 126;
+}
+
+// the four parts of a float32 m scaled below 1 in magnitude: part j
+// the remainder of the parts before it rounded to a multiple of
+// 2^(-11 (j + 1)), by adding and taking away 1.5 x 2^23 of those quanta
+// (every step exact; part 0 reaches at most 2^11 quanta, 1)
+__device__ __forceinline__ void split4(float m, float (&p)[4]) {
+  const float mag[4] = {1.5f * 4096.f, 1.5f * 2.f, 1.5f / 1024.f,
+                        1.5f / 2097152.f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = __fsub_rn(__fadd_rn(m, mag[j]), mag[j]);
+    m = __fsub_rn(m, p[j]);
+  }
 }
 
 template <typename A>
@@ -151,16 +189,15 @@ __device__ void finish_split(const Unit& un, long long v0, long long B,
 // stream of chunks (an empty unit is one chunk of no edge), so the
 // staging pipeline runs across unit boundaries; each unit's accumulator
 // is written (or recorded) after its last chunk. The product's N
-// columns hold each message's hi part in columns [0, P), its mid part
-// in [P, 2P) and its lo part in [2P, 3P) (P = N / 3, or 2 at N = 8), so
-// one wgmma a k-step makes the three products and their sums stay
-// apart. Shared
+// columns hold each message's part j in columns [jP, (j + 1)P) (P =
+// N / 4), so one wgmma a k-step makes the four products and their sums
+// stay apart. Shared
 // memory: bop [N / 8][chunk / 4] core matrices of 8 columns x 4 edges
 // (the wgmma B operand, K-major), raw [2][chunk][bs] payload rows as
 // gathered, rel and w [3][chunk] per staged edge (three slots: the chunk
 // being multiplied, the next one being staged, and one the last warp
 // may still read). The kernel takes columns [0, B) of payload rows ld
-// apart (the launcher cuts payloads wider than 64 columns).
+// apart (the launcher cuts payloads wider than 32 columns).
 template <typename T, int MSG, int NW>
 __global__ void __launch_bounds__(128)
 mxu_sum_wgmma(const T* __restrict__ x, const uint8_t* __restrict__ active,
@@ -172,7 +209,7 @@ mxu_sum_wgmma(const T* __restrict__ x, const uint8_t* __restrict__ active,
               long long per, int32_t* counters, double* rec) {
   constexpr int kPerThread = max_chunk<NW>() / 128;   // edges a thread
                                                       // stages a chunk
-  constexpr int P = NW == 8 ? 2 : NW / 3;   // columns of each part
+  constexpr int P = NW / 4;                 // columns of each part
   extern __shared__ __align__(128) unsigned char smem[];
   // core matrices kCoreWords apart along K, groups of 8 columns
   // sbo_words apart
@@ -192,6 +229,13 @@ mxu_sum_wgmma(const T* __restrict__ x, const uint8_t* __restrict__ active,
 
   // columns past B (of each part) stay zero in the B operand
   for (int i = tid; i < NW / 8 * sbo_words; i += 128) bop[i] = 0u;
+  // each (tile row, column)'s largest finite |message| of the chunk, as
+  // float32 bits (which order as unsigned integers), rows kMaxLd apart
+  // (odd, so that a warp's distinct rows hit distinct banks); zero
+  // between chunks (the fold of a chunk clears what its max pass set)
+  constexpr int kMaxLd = P + 1;
+  __shared__ uint32_t s_max[kTileRows * kMaxLd];
+  for (int i = tid; i < kTileRows * kMaxLd; i += 128) s_max[i] = 0u;
 
   // a position in the stream: unit u (its fields), chunk c of it
   struct Cursor {
@@ -269,12 +313,11 @@ mxu_sum_wgmma(const T* __restrict__ x, const uint8_t* __restrict__ active,
     hop::cp_async_commit();
   };
 
-  // per chunk the products accumulate in f32, the three parts apart:
-  // each keeps 11 significant bits, so its sum over a chunk is exact
-  // unless the terms span more than 2^13; then they are added to f64. A
-  // thread holds kHi of the hi columns, and the mid and lo parts of the
-  // same columns P / 2 and P registers further (at N = 8: the lanes one
-  // and two up)
+  // per chunk the products accumulate in f32, the four parts apart,
+  // each part's sum exact; then they are added to f64. A thread holds
+  // kHi of part 0's columns, and the other parts of the same columns
+  // P / 2, P and 3P / 2 registers further (at N = 8: the lanes one, two
+  // and three up)
   constexpr int kHi = NW == 8 ? 4 : P / 2;
   double accd[kHi];
 #pragma unroll
@@ -328,36 +371,87 @@ mxu_sum_wgmma(const T* __restrict__ x, const uint8_t* __restrict__ active,
     advance(cm);
     hop::cp_async_wait<0>();
     __syncthreads();            // chunk k's rows and metadata are in
-    // ---- convert: message, three-part split, transposed into the B
-    // operand; a thread takes one edge at a time and writes its B
-    // columns (the core matrices' padded stride puts 32 edges in 32
-    // banks). The differences round to nearest and are never fused
-    // with the message's product: they are exact, and the three parts
-    // sum to the float32 message
-    {
-      const int32_t* rel = s_rel + (k % 3) * chunk;
-      const float* wv = s_w + (k % 3) * chunk;
-      const T* rw = raw + (k % 2) * chunk * bs;
-      for (int e = tid; e < len_pad; e += 128) {
-        const bool live = e < len && rel[e] != kRelNone;
-        const float we = wv[e];
-        uint32_t* at = bop + (e / 4) * kCoreWords + e % 4;
-        const T* xe = rw + e * bs;
-        // unrolled over the P columns a part has room for, so that the
-        // stores' column offsets fold at compile time; columns past B
-        // stay zero
+    const int32_t* rel_k = s_rel + (k % 3) * chunk;
+    const float* w_k = s_w + (k % 3) * chunk;
+    const T* raw_k = raw + (k % 2) * chunk * bs;
+    // ---- scale: each (row, column)'s largest finite |message| into
+    // s_max. A warp whose live edges all go to one row (a hub's) reduces
+    // each column in one instruction; any other takes the maximum of
+    // each run of one row (its live edges are contiguous, dst-sorted) by
+    // a segmented shuffle. One lane of a run issues the atomic. Columns
+    // four at a time, so that their chains overlap
+    for (int e0 = 0; e0 < len; e0 += 128) {    // the same trips per warp
+      const int e = e0 + tid;
+      const int r = e < len ? rel_k[e] : kRelNone;
+      const float we = r != kRelNone ? w_k[e] : 0.f;
+      const T* xe = raw_k + e * bs;
+      auto mag = [&](int c) -> uint32_t {    // |message| bits, 0 if none
+        if (r == kRelNone) return 0u;
+        const float m = message<T, float, MSG>(xe[c], we);
+        return isfinite(m) ? __float_as_uint(fabsf(m)) : 0u;
+      };
+      const int top = __reduce_max_sync(0xffffffffu,
+                                        r == kRelNone ? -1 : r);
+      if (__all_sync(0xffffffffu, r == kRelNone || r == top)) {
+        if (top < 0) continue;                 // no live edge
+#pragma unroll 4
+        for (int c = 0; c < P && c < B; ++c) {
+          const uint32_t v = __reduce_max_sync(0xffffffffu, mag(c));
+          if (lane == 0 && v != 0u) atomicMax(s_max + top * kMaxLd + c, v);
+        }
+        continue;
+      }
+      bool same[5];                            // lane + 2^s in r's run
 #pragma unroll
-        for (int c = 0; c < P; ++c) {
-          if (c >= B) break;
-          const float m = live ? message<T, float, MSG>(xe[c], we) : 0.f;
-          const uint32_t hi = to_tf32(m);
-          const float r = __fsub_rn(m, __uint_as_float(hi));
-          const uint32_t mid = to_tf32(r);
-          const int cm = c + P, cl = c + 2 * P;
-          at[(c / 8) * sbo_words + (c % 8) * 4] = hi;
-          at[(cm / 8) * sbo_words + (cm % 8) * 4] = mid;
-          at[(cl / 8) * sbo_words + (cl % 8) * 4] =
-              __float_as_uint(__fsub_rn(r, __uint_as_float(mid)));
+      for (int s = 0; s < 5; ++s) {
+        const int ro = __shfl_down_sync(0xffffffffu, r, 1 << s);
+        same[s] = lane + (1 << s) < 32 && ro == r;
+      }
+      const int r_prev = __shfl_up_sync(0xffffffffu, r, 1);
+      const bool head = r != kRelNone && (lane == 0 || r_prev != r);
+#pragma unroll 4
+      for (int c = 0; c < P && c < B; ++c) {
+        uint32_t v = mag(c);
+#pragma unroll
+        for (int s = 0; s < 5; ++s) {
+          const uint32_t vo = __shfl_down_sync(0xffffffffu, v, 1 << s);
+          if (same[s]) v = max(v, vo);
+        }
+        if (head && v != 0u) atomicMax(s_max + r * kMaxLd + c, v);
+      }
+    }
+    __syncthreads();
+    // ---- convert: message, scaled to its row's 2^e, four-part split,
+    // transposed into the B operand; a thread takes one edge at a time
+    // and writes its B columns (the core matrices' padded stride puts 32
+    // edges in 32 banks)
+    for (int e = tid; e < len_pad; e += 128) {
+      const bool live = e < len && rel_k[e] != kRelNone;
+      const int r = live ? rel_k[e] : 0;
+      const float we = w_k[e];
+      uint32_t* at = bop + (e / 4) * kCoreWords + e % 4;
+      const T* xe = raw_k + e * bs;
+      // a loop over the P columns a part has room for, two at a time
+      // (unrolled further, the split's temporaries would take the
+      // registers of every column at once); columns past B stay zero
+#pragma unroll 2
+      for (int c = 0; c < P && c < B; ++c) {
+        const float m = live ? message<T, float, MSG>(xe[c], we) : 0.f;
+        float part[4];
+        if (isfinite(m)) {
+          // times 2^-e in two exact steps (2^-e itself may not be a
+          // normal float)
+          const int ne = -scale_exp(s_max[r * kMaxLd + c]);
+          split4(__fmul_rn(__fmul_rn(m, pow2f(ne / 2)), pow2f(ne - ne / 2)),
+                 part);
+        } else {
+          part[0] = m;
+          part[1] = part[2] = part[3] = 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int cj = c + q * P;
+          at[(cj / 8) * sbo_words + (cj % 8) * 4] = __float_as_uint(part[q]);
         }
       }
     }
@@ -396,20 +490,33 @@ mxu_sum_wgmma(const T* __restrict__ x, const uint8_t* __restrict__ active,
       hop::reg_fence(a0);
       hop::reg_fence(a1);
       hop::reg_fence(acc);
-      if constexpr (NW == 8) {
+      // the four part sums (each exact) in f64, times the row's 2^e;
+      // the owner of (row, column) clears its s_max for the next chunk
+      // (at N = 8 the lanes t = 0 hold the part-0 columns and take the
+      // other parts from the three lanes up)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          accd[i] += static_cast<double>(acc[i]) +
-                     static_cast<double>(
-                         __shfl_down_sync(0xffffffffu, acc[i], 1)) +
-                     static_cast<double>(
-                         __shfl_down_sync(0xffffffffu, acc[i], 2));
-      } else {
-#pragma unroll
-        for (int i = 0; i < kHi; ++i)
-          accd[i] += static_cast<double>(acc[i]) +
-                     static_cast<double>(acc[i + kHi]) +
-                     static_cast<double>(acc[i + 2 * kHi]);
+      for (int i = 0; i < kHi; ++i) {
+        double sum;
+        if constexpr (NW == 8)
+          sum = static_cast<double>(acc[i]) +
+                static_cast<double>(
+                    __shfl_down_sync(0xffffffffu, acc[i], 1)) +
+                static_cast<double>(
+                    __shfl_down_sync(0xffffffffu, acc[i], 2)) +
+                static_cast<double>(
+                    __shfl_down_sync(0xffffffffu, acc[i], 3));
+        else
+          sum = static_cast<double>(acc[i]) +
+                static_cast<double>(acc[i + kHi]) +
+                static_cast<double>(acc[i + 2 * kHi]) +
+                static_cast<double>(acc[i + 3 * kHi]);
+        const int r = row0 + 8 * ((i >> 1) & 1);
+        const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+        if (col < P) {
+          uint32_t* mx = s_max + r * kMaxLd + col;
+          accd[i] += sum * pow2(scale_exp(*mx));
+          *mx = 0u;
+        }
       }
     }
     if (cc.c + 1 < chunks_of(cc.un)) {
@@ -525,8 +632,8 @@ inline int raw_stride(long long B, bool vec) {
   return (b / 4) % 2 == 0 ? b + 4 : b;
 }
 
-// one launch per slice of at most 64 columns, NW = three times the
-// slice's columns rounded up to 8, 16, 32 or 64, or 8 for 1-2 columns
+// one launch per slice of at most 32 columns, NW = four times the
+// slice's columns rounded up to 2, 8, 16 or 32
 template <typename T, int MSG, int NW>
 cudaError_t launch_slice(const MxuArgs& a, long long c0, int cols) {
   auto kernel = mxu_sum_wgmma<T, MSG, NW>;
@@ -546,9 +653,9 @@ cudaError_t launch_slice(const MxuArgs& a, long long c0, int cols) {
   // chunks of 64 to 512 edges (whole pairs of groups of 4 k-steps), as
   // long as the budget allows
   int chunk = max_chunk<NW>();
-  // (at 17-32 columns a chunk of 64 edges is 48 KB: there the budget is
-  // half as large again, for chunks of 128)
-  const size_t budget = NW == 96 ? kSmemBudget * 3 / 2 : kSmemBudget;
+  // (at 17-32 columns a chunk of 64 edges is 57 KB: there the budget is
+  // twice as large, for chunks of 128)
+  const size_t budget = NW == 128 ? kSmemBudget * 2 : kSmemBudget;
   while (chunk > 64 && chunk * per_edge > budget) chunk /= 2;
   const size_t smem = chunk * per_edge;
   // as many CTAs as fit on the card at once, each walking a contiguous
@@ -573,14 +680,13 @@ cudaError_t launch_slice(const MxuArgs& a, long long c0, int cols) {
 
 template <typename T, int MSG>
 cudaError_t launch_sum(const MxuArgs& a) {
-  for (long long c0 = 0; c0 < a.B; c0 += 64) {
-    const int cols = static_cast<int>(a.B - c0 < 64 ? a.B - c0 : 64);
+  for (long long c0 = 0; c0 < a.B; c0 += 32) {
+    const int cols = static_cast<int>(a.B - c0 < 32 ? a.B - c0 : 32);
     const cudaError_t err =
         cols <= 2    ? launch_slice<T, MSG, 8>(a, c0, cols)
-        : cols <= 8  ? launch_slice<T, MSG, 24>(a, c0, cols)
-        : cols <= 16 ? launch_slice<T, MSG, 48>(a, c0, cols)
-        : cols <= 32 ? launch_slice<T, MSG, 96>(a, c0, cols)
-                     : launch_slice<T, MSG, 192>(a, c0, cols);
+        : cols <= 8  ? launch_slice<T, MSG, 32>(a, c0, cols)
+        : cols <= 16 ? launch_slice<T, MSG, 64>(a, c0, cols)
+                     : launch_slice<T, MSG, 128>(a, c0, cols);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -633,8 +739,9 @@ extern "C" int repro_coo_push_mxu(const void* x, int dtype,
                                   const void* ptr, void* out, long long n,
                                   long long bin_n, long long cap,
                                   long long B, int combine, int msg,
-                                  long long units, const void* table,
-                                  void* counters, void* rec, void* stream) {
+                                  long long units,
+                                  const void* table, void* counters,
+                                  void* rec, void* stream) {
   rk::MxuArgs a{x,
                 static_cast<const uint8_t*>(active),
                 static_cast<const int32_t*>(src),

@@ -44,9 +44,9 @@ def push_bytes(m: int, n: int, width: int, nb: int, bin_n: int,
 
 def onehot_floor_ms(m: int, width: int) -> float:
     """The one-hot push design's own floor: each edge against its
-    64-row destination tile, in three TF32 products (hi, mid and lo),
-    two FLOP each."""
-    return 6 * m * ONEHOT_TILE * width / TF32_OPS_PER_S * 1e3
+    64-row destination tile, in four TF32 products (its four aligned
+    parts), two FLOP each."""
+    return 8 * m * ONEHOT_TILE * width / TF32_OPS_PER_S * 1e3
 
 
 def cin_tf32_floor_ms(B: int, H: int, Hp: int, F: int, D: int) -> float:

@@ -59,9 +59,9 @@ _PRUNE = 2.0
 # winner timed on an earlier design is not reused: pull 2 is the
 # full-scan pull over real slots with a row plan; pullf 2 the frontier
 # pull over real slots with lane groups and row pieces; push 2 the
-# edge-parallel scan push, 3 the one-hot push on wgmma over tiles (and
-# push_scan, the scan candidates alone, the same grid's)
-KERNEL_REVISIONS = {"pull": 2, "pullf": 2, "push": 3, "push_scan": 3}
+# edge-parallel scan push, 3 the one-hot push on wgmma over tiles, 4 its
+# float sums in four aligned parts
+KERNEL_REVISIONS = {"pull": 2, "pullf": 2, "push": 4}
 
 
 def _round_up(x: int, q: int) -> int:
@@ -348,18 +348,14 @@ def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
 
 
 def tune_push(n: int, m: int, width: int, dtype, combine: str, msg: str,
-              device, scan_only: bool = False) -> tuple[int, int, str]:
+              device) -> tuple[int, int, str]:
     """Best ``(block_e, block_n, strategy)`` for a two-phase push of this
-    shape: grid search with group pruning, persisted. ``scan_only``
-    searches the grid's "scan" candidates alone (its own cache key)."""
+    shape: grid search with group pruning, persisted."""
     device = torch.device(device)
     cands = push_candidates(n, m)
-    if scan_only:
-        cands = tuple(c for c in cands if c[2] == "scan")
     if len(cands) == 1:
         return cands[0]
-    key = _cache_key("push_scan" if scan_only else "push", device, (n, m),
-                     width, dtype, combine, msg)
+    key = _cache_key("push", device, (n, m), width, dtype, combine, msg)
     hit = _cache_get(key)
     if hit is not None:
         try:

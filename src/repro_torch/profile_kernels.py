@@ -19,8 +19,8 @@ picks some, all by default):
     and 32, the graphs of ``chip_smoke.py``, with the blocks the tree's
     tuner picks for the one-hot strategy; beside ``torch.sparse.mm`` on
     the CSR of the same graph, the bytes bound and the one-hot design's
-    own floor (three TF32 products of each edge against its 64-row
-    tile).
+    own floor (its TF32 products of each edge against its 64-row tile,
+    as the tree's own ``roofline.py`` counts them).
   * ``flash``: bf16, the llama3.2-1b prefill layer (q [2, 4,096, 32,
     64], 8 KV heads, causal) beside ``scaled_dot_product_attention``,
     and the gemma2-9b layers (q [1, 8,192, 16, 256], 8 KV heads,

@@ -21,6 +21,7 @@ the CIN layer rtol = atol = 2e-4 in f32 (both sum in f32, in other
 orders) and 2e-2 in bf16 (the output rounds to bf16).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -159,13 +160,16 @@ def test_cuda_solve_matches_dense_on_card(cuda, alg, kw, policy):
                                   "star", "dead", "hub"))
 def test_mxu_push_matches_plain(graphs, cuda, case, batch):
     """The one-hot push against its plain versions (``cs.mxu_err``: float
-    sums against the float64 plain sum and, on absolute payloads, the
-    float32 one-hot plain version; everything else bit for bit) over
-    combine × dtype × msg (float sums on the tensor cores; min, max,
-    integer and float64 sums through the window reduce), with bins of 8,
-    100 and 256 and units of 64 (256 edges, the least) and 4,096 slots;
-    payload widths from one column to 64 in one launch and 130 in three
-    slices. ``star`` has one hub taking every edge of its bin, so its
+    sums against the float64 plain sum, each destination within 2 ·
+    2^-24 · Σ|terms| of the float64 sum, on absolute payloads against
+    the float32 one-hot plain version, and on the signed ones within the
+    plain version's own gap to the float64 sum plus 1e-5 (1 + |sum|);
+    everything else bit for bit) over combine × dtype × msg (float sums
+    on the tensor cores; min, max, integer and float64 sums through the
+    window reduce), with bins of 8, 100 and 256 and units of 64 (256
+    edges, the least) and 4,096 slots; payload widths from one column to
+    32 in one launch and 33, 64 and 130 in slices of 32. ``star`` has
+    one hub taking every edge of its bin, so its
     tile is cut across several units at block_e 64; ``empty_rows`` has
     bins with no edge; ``dead`` is the ragged graph with no active
     source, so no bin has a live edge; ``hub`` has a destination of
@@ -207,6 +211,78 @@ def test_mxu_push_refuses_wide_bins(graphs, cuda):
                  strategy="mxu")
 
 
+@pytest.mark.parametrize("batch", (None, 16), ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("msg", ("copy", "mul"))
+def test_push_holds_a_signed_cancelling_bin(cuda, msg, batch):
+    """One bin whose terms cancel: vertex 0 takes 1,024 in-edges whose
+    messages are +2^14, a term of ~1e-2, -2^14 (the same weight as its
+    +2^14), another small term, and so on. The scan push holds 1e-5 of
+    the float64 sum; the one-hot push holds ``cs.mxu_err``: 1e-5 of the
+    float64 sum and, per element, ``|kernel - plain| <= |plain - f64| +
+    1e-5 (1 + |f64|)`` (its four aligned parts sum exactly on the tensor
+    cores; a split relative to each message's exponent left 5e-3 here).
+    Units of 64 and 1,024 slots."""
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    n, deg = 2048, 1024
+    src = torch.arange(1, deg + 1)
+    w = torch.rand(deg, generator=gen) * 1.5 + 0.5
+    neg = torch.nonzero(src % 4 == 3).flatten()
+    w[neg] = w[neg - 2]
+    g = cs.build_graph(src.numpy(), torch.zeros(deg, dtype=torch.long)
+                       .numpy(), n=n, weights=w.numpy(), device=cuda)
+    shape = (n,) if batch is None else (n, batch)
+    ids = torch.arange(n).reshape((n,) + (1,) * (len(shape) - 1))
+    x = torch.randn(shape, generator=gen) * 1e-2
+    x = torch.where(ids % 4 == 1, 2.0 ** 14, x)
+    x = torch.where(ids % 4 == 3, -2.0 ** 14, x).to(cuda)
+    active = torch.ones(n, dtype=torch.bool, device=cuda)
+    plan = build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, 8)
+    exact = coo_push_plain(x, active, plan, n, "sum", msg)
+    assert float(exact.abs()[0].max()) < 1.0
+    for block_e in (64, 1024):
+        scan = coo_push(x, active, g.coo_src, g.coo_dst, g.coo_w, n, "sum",
+                        msg, plan=plan, strategy="scan", block_e=block_e)
+        cs.max_abs_err(scan, exact, "sum", f"scan be {block_e}")
+        cs.mxu_err(x, active, g, plan, "sum", msg, block_e,
+                   f"cancelling bin {msg} B{batch} be {block_e}")
+
+
+@pytest.mark.parametrize("batch", (None, 16), ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("msg", ("copy", "mul"))
+def test_push_keeps_each_destination_relative(cuda, msg, batch):
+    """Rows of one tile whose terms lie far apart: destination d takes
+    in-edges only from sources of its class d % 4, whose payloads are
+    2^-60, 2^-20, 2^20 or 2^60 times a normal value times 2^k (k in
+    -15 .. 15), so a column spans about 2^150 and each row about 2^30;
+    destination 0 also takes 5,000 in-edges of every class (several
+    chunks and units). ``cs.mxu_err`` holds every destination within
+    2 · 2^-24 · Σ|terms| of the float64 sum (a scale for the whole
+    column lost the small rows' every bit) and within the float32 plain
+    version's own gap plus 1e-5 (1 + |sum|). Bins of 8 and 256, units of
+    64 and 1,024 slots."""
+    rng = np.random.default_rng(37)
+    n = 4096
+    deg = rng.integers(1, 40, size=n)
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n // 4, size=dst.size) * 4 + dst % 4
+    src = np.concatenate([src, rng.integers(0, n, size=5000)])
+    dst = np.concatenate([dst, np.zeros(5000, np.int64)])
+    w = rng.uniform(0.5, 2.0, size=src.size)
+    g = cs.build_graph(src, dst, n=n, weights=w, device=cuda)
+    shape = (n,) if batch is None else (n, batch)
+    ids = np.arange(n).reshape((n,) + (1,) * (len(shape) - 1))
+    x = (rng.normal(size=shape) * np.exp2(40.0 * (ids % 4) - 60.0)
+         * np.exp2(rng.integers(-15, 16, size=shape)))
+    x = torch.from_numpy(x).to(torch.float32).to(cuda)
+    active = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    for bin_n in (8, 256):
+        plan = build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, bin_n)
+        for block_e in (64, 1024):
+            cs.mxu_err(x, active, g, plan, "sum", msg, block_e,
+                       f"classes {msg} B{batch} bin {bin_n} be {block_e}",
+                       spread=True)
+
+
 @pytest.mark.parametrize("strategy", ("scan", "mxu"))
 @pytest.mark.parametrize("alg,kw,key", [("bfs", {}, "root"),
                                         ("sssp_delta", {"delta": 4.0},
@@ -227,6 +303,54 @@ def test_batched_solve_equals_single_source_on_card(cuda, alg, kw, key,
                            f"{alg}/{strategy} source {s} {k}")
     assert be.stats["fallback_pull"] == be.stats["fallback_push"] == 0
     assert bool(br.done.all())
+
+
+SLICE7 = [("wcc", {}), ("pr_delta", {"tol": 1e-7}),
+          ("betweenness", {"num_sources": 4, "source_offset": 7}),
+          ("coloring", {}), ("mst_boruvka", {}), ("triangle_count", {})]
+
+
+@pytest.mark.parametrize("alg,kw", SLICE7, ids=[a for a, _ in SLICE7])
+@pytest.mark.parametrize("policy", ("push", "pull", "gs"))
+def test_slice7_solve_matches_dense_on_card(cuda, alg, kw, policy):
+    """Each algorithm of slice 7 through the CUDA backend against the
+    dense backend, both on the card, on a sparse random graph with
+    several components. Integers bit for bit; BC's float sums to rtol =
+    atol = 1e-5 of its largest value (σ and δ are summed in other
+    orders); δ-PageRank's ranks to the L1 gap two runs of its tolerance
+    may leave, 2 n tol / (1 - damp), since the dense backend's atomic
+    float sums may flip a residual at the tolerance and with it the
+    steps. The exchange algorithms launch kernels and never fall back;
+    the local-step ones touch no backend."""
+    g = erdos_renyi(3000, 1.5, seed=4, weighted=True, device=cuda)
+    be = api.CudaBackend()
+    got = api.solve(g, alg, policy=policy, backend=be, **kw)
+    want = api.solve(g, alg, policy=policy, backend="dense", **kw)
+    gs, ws = ((r.state if isinstance(r.state, dict) else {"labels": r.state})
+              for r in (got, want))
+    for k, b in ws.items():
+        a = gs[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if alg == "pr_delta":
+            gap = float((a.double() - b.double()).abs().sum())
+            assert gap <= 2 * g.n * kw["tol"] / 0.15, (k, gap)
+        elif a.dtype.is_floating_point:
+            scale = max(float(b.abs().max()), 1.0)
+            torch.testing.assert_close(a / scale, b / scale, rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            assert torch.equal(a, b), f"{alg}/{policy} {k}"
+    if alg != "pr_delta":
+        assert (got.steps, got.epochs, got.converged) == (
+            want.steps, want.epochs, want.converged)
+    assert got.converged and got.steps > 0
+    s = be.stats
+    assert s["fallback_pull"] == s["fallback_push"] == 0
+    kernels = s["kernel_pull"] + s["kernel_pull_frontier"] + s["kernel_push"]
+    if alg in ("coloring", "mst_boruvka", "triangle_count"):
+        assert kernels == 0 and s["skip_empty_pull"] == 0
+    else:
+        assert kernels > 0
 
 
 def normal(shape, seed: int, device, dtype=torch.float32) -> torch.Tensor:

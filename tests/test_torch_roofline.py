@@ -21,9 +21,9 @@ def test_push_bytes_and_onehot_floor():
     # 10 edges, 4 vertices, 2 bins of 2, width 3: 40 B of sources, 24 of
     # bin pointers, 4 active flags, 2 x 4 x 3 x 4 B of payload and output
     assert rl.push_bytes(10, 4, 3, 2, 2) == 40 + 24 + 4 + 96
-    # three TF32 products of 64 rows per edge and column, 2 FLOP each
+    # four TF32 products of 64 rows per edge and column, 2 FLOP each
     assert rl.onehot_floor_ms(1000, 2) == pytest.approx(
-        6 * 1000 * 64 * 2 / rl.TF32_OPS_PER_S * 1e3)
+        8 * 1000 * 64 * 2 / rl.TF32_OPS_PER_S * 1e3)
 
 
 @pytest.mark.parametrize("T,window,pairs", [

@@ -135,7 +135,7 @@ def test_solve_rejects_bad_inputs(pair):
     with pytest.raises(ValueError, match="unknown policy"):
         api.solve(tg, "bfs", root=0, policy="sideways")
     with pytest.raises(KeyError, match="unknown algorithm"):
-        api.solve(tg, "wcc")
+        api.solve(tg, "not_an_algorithm")
 
 
 CAPS = (8, 72)     # below and above default_pull_cap (40 on this graph)
@@ -184,28 +184,32 @@ def test_pull_frontier_cap_moves_the_charge(pair, policy):
     assert reads[0] > reads[1] and frontier[0] < frontier[1]
 
 
-def test_tuned_mxu_float_sums_run_the_best_scan(pair, monkeypatch):
-    """A tuned "mxu" for a float sum runs the tuner's best scan candidate
-    (its float sums are not held to 1e-5 against the reference's one-hot
-    numerics); a min keeps "mxu", and a pinned "mxu" runs as pinned."""
+def test_tuned_mxu_float_sums_run_the_one_hot_push(pair, monkeypatch):
+    """The tuner's pick runs as tuned for every payload, float sums
+    included, as ``PallasBackend`` runs it: a tuned "mxu" float sum runs
+    the one-hot push. A pinned strategy overrides the tuned one, and a
+    pinned "mxu" runs as pinned."""
     _, tg = pair
     asked = []
 
-    def fake_tune_push(n, m, width, dtype, combine, msg, device,
-                       scan_only=False):
-        asked.append((dtype, combine, scan_only))
-        return (512, 128, "scan") if scan_only else (256, 64, "mxu")
+    def fake_tune_push(n, m, width, dtype, combine, msg, device):
+        asked.append((dtype, combine, msg))
+        return 256, 64, "mxu"
     monkeypatch.setattr(tune, "tune_push", fake_tune_push)
     be = CudaBackend()
     f32 = torch.zeros(tg.n, dtype=torch.float32)
     i32 = torch.zeros(tg.n, dtype=torch.int32)
-    assert be.push_blocks(tg, f32, "sum", "copy") == (512, 128, "scan")
-    assert be.push_blocks(tg, f32.double(), "sum", "mul") == (512, 128,
-                                                              "scan")
+    assert be.push_blocks(tg, f32, "sum", "copy") == (256, 64, "mxu")
+    assert be.push_blocks(tg, f32.double(), "sum", "mul") == (256, 64,
+                                                              "mxu")
     assert be.push_blocks(tg, f32, "min", "add") == (256, 64, "mxu")
     assert be.push_blocks(tg, i32, "sum", "copy") == (256, 64, "mxu")
-    assert (torch.float32, "sum", True) in asked
-    assert not any(s for d, c, s in asked if c != "sum" or
-                   not d.is_floating_point)
-    pinned = CudaBackend(push_strategy="mxu")
-    assert pinned.push_blocks(tg, f32, "sum", "copy") == (256, 64, "mxu")
+    assert be.push_blocks(tg, f32, "sum", "copy") == (256, 64, "mxu")
+    assert asked == [(torch.float32, "sum", "copy"),
+                     (torch.float64, "sum", "mul"),
+                     (torch.float32, "min", "add"),
+                     (torch.int32, "sum", "copy")]
+    assert CudaBackend(push_strategy="scan").push_blocks(
+        tg, f32, "sum", "copy") == (256, 64, "scan")
+    assert CudaBackend(push_strategy="mxu").push_blocks(
+        tg, f32, "sum", "copy") == (256, 64, "mxu")

@@ -51,7 +51,7 @@ def test_cache_round_trip(cache):
     best = tune.tune_push(150, 600, 3, torch.float32, "sum", "copy", "cpu")
     assert best in tune.push_candidates(150, 600)
     disk = json.loads((cache / "tune_torch.json").read_text())
-    assert disk == {"cpu|push.r3|150x600|w3|float32|sum|copy": list(best)}
+    assert disk == {"cpu|push.r4|150x600|w3|float32|sum|copy": list(best)}
     blk = tune.tune_pull(300, 6, 4, torch.int32, "min", "copy", "cpu")
     assert blk in tune.pull_candidates(300, 4)
     assert tune.tune_stats()["probes"] == 2
@@ -82,7 +82,7 @@ def test_garbage_cache_file_degrades_to_memory(cache):
     (cache / "tune_torch.json").write_text("{not json")
     best = tune.tune_push(120, 300, 1, torch.int32, "min", "copy", "cpu")
     assert json.loads((cache / "tune_torch.json").read_text()) == {
-        "cpu|push.r3|120x300|w1|int32|min|copy": list(best)}
+        "cpu|push.r4|120x300|w1|int32|min|copy": list(best)}
 
 
 def test_push_group_pruning(cache, monkeypatch):
@@ -151,7 +151,7 @@ def test_cuda_keys_name_the_card(monkeypatch):
                         lambda device=None: (9, 0))
     key = tune._cache_key("push", torch.device("cuda"), (5, 7), 16,
                           torch.float32, "sum", "copy")
-    assert key == "cuda-sm90|push.r3|5x7|w16|float32|sum|copy"
+    assert key == "cuda-sm90|push.r4|5x7|w16|float32|sum|copy"
     assert tune._cache_key("pull", torch.device("cpu"), (1,), 1,
                            torch.int64, "min", "add") == \
         "cpu|pull.r2|1|w1|int64|min|add"
