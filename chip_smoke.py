@@ -101,8 +101,29 @@ non-zero:
      tree, a float64 numpy Brandes and power iteration, (A·A)∘A); the
      PA ranks within 1e-6 of slice 1's PageRank push, with fewer locks.
      Then the two kernel shapes slice 7 adds (BC's float32-sum frontier
-     pull, δ-PR's scan push), timed as in 6.
- 10. Each model kernel at its path's shapes, on the path's own inputs,
+     pull, δ-PR's scan push), timed as in 6. BC is held to the float64
+     oracle on every finite entry through both backends: the dense
+     backend's ``segment_sum`` sums float32 in float64 on the card, and
+     a probe of two 2^-130 terms through it must not read 0.
+ 10. Main path of slice 8 (run after 9), ``"observe"``, through the
+     autotuned backend: on both graphs BFS (auto) and PageRank (pull)
+     with and without a ``Telemetry`` handle, equal bit for bit (state,
+     Cost, steps, StepTrace), one timed ``step`` event per step whose
+     sum stays within the ``solve:*`` span; the walls, the median push
+     and pull step times and the AutoSwitch audit are printed; SSSP
+     (push), a phase program, audited on the predicted basis. The trace
+     is written as JSONL and as a Chrome trace under ``build/observe``
+     and validated. Then BFS (gs) on rca with a checkpoint every 64
+     steps under an ``engine.step`` fault every 500 hits, equal to the
+     fault-free solve with at least one fault and one resume; PageRank
+     under ``check_finite="nan"``, and BC on rca, whose float32 σ
+     overflows, raising ``DivergenceError``; and a ``QueryService`` with
+     telemetry on kron16 answering the 48 requests of 5 under
+     ``ci-default``'s three service sites, equal to a fault-free
+     service, with chunk retries, cache errors and ``service.*`` and
+     ``resilience.*`` events. ``ell_spmv``, ``ell_pull_frontier`` and a
+     push kernel must launch, with no fallback.
+ 11. Each model kernel at its path's shapes, on the path's own inputs,
      timed as in 6, beside ``scaled_dot_product_attention`` (causal,
      GQA; the llama layer) and ``torch.einsum`` (the CIN layer, whose
      row adds its 3xTF32 floor beside the f32 bound).
@@ -159,7 +180,8 @@ from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_params, pad_kv_cache,
                                             prefill)
 from repro_torch.service import QueryService  # noqa: E402
-from repro_torch.sparse.segment import reduce_identity  # noqa: E402
+from repro_torch.sparse.segment import (reduce_identity,  # noqa: E402
+                                       segment_sum)
 
 KERNEL_INFO = {
     "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -1075,20 +1097,14 @@ def solve_more_path(graphs: dict) -> tuple[dict, dict]:
     return results, by_alg
 
 
-def brandes_host(g, sources: list) -> tuple[np.ndarray, int, np.ndarray]:
+def brandes_host(g, sources: list) -> tuple[np.ndarray, int]:
     """Brandes BC over ``sources`` in float64 numpy, level by level;
-    returns (bc, the deepest level reached, tainted): ``tainted[v]`` if
-    for some source a term of δ(v), or of δ below v in the DAG, comes
-    from a successor whose (1 + δ) / σ is below float32's least normal
-    (2^-126, with a margin of 2^-10 for float32's rounding of σ and δ),
-    so that a float32 sum that flushes subnormals drops it."""
+    returns (bc, the deepest level reached)."""
     n = g.n
     ptr = g.out_ptr.cpu().numpy().astype(np.int64)
     nbrs = g.push_dst.cpu().numpy().astype(np.int64)
     deg = np.diff(ptr)
     bc, deepest = np.zeros(n), 0
-    tainted = np.zeros(n, bool)
-    tiny = 2.0 ** -126 * (1 + 2.0 ** -10)
     with np.errstate(invalid="ignore", over="ignore"):
         for s in sources:
             level = np.full(n, -1, np.int64)
@@ -1110,15 +1126,12 @@ def brandes_host(g, sources: list) -> tuple[np.ndarray, int, np.ndarray]:
                 d += 1
             deepest = max(deepest, d - 1)
             delta = np.zeros(n)
-            taint = np.zeros(n, bool)
             for u, v in reversed(dag):
                 pay = (1.0 + delta[v]) / sigma[v]
-                taint[u[taint[v] | ((pay > 0) & (pay < tiny))]] = True
                 delta += np.bincount(u, weights=sigma[u] * pay, minlength=n)
             delta[s] = 0.0
             bc += delta
-            tainted |= taint
-    return bc, deepest, tainted
+    return bc, deepest
 
 
 def pagerank_fixpoint(g, damp: float = DAMP) -> np.ndarray:
@@ -1207,37 +1220,36 @@ def check_more(graphs: dict, results: dict, main_results: dict) -> None:
         elif alg == "betweenness":
             k = kw["num_sources"]
             sources = [(kw["source_offset"] + i) % g.n for i in range(k)]
-            host, deepest, tainted = brandes_host(g, sources)
+            host, deepest = brandes_host(g, sources)
             mine = got["bc"].double().numpy()
             theirs = want["bc"].double().numpy()
             nan_same = torch.equal(got["bc"].isnan(), want["bc"].isnan())
-            # the dense backend sums by index_add_, whose float32 atomics
-            # flush subnormal terms to zero; where σ nears the float32
-            # limit, (1 + δ) / σ is subnormal, and the entries that
-            # depend on such a term (``tainted``, from the float64
-            # oracle) may depart from it. The kernels sum in float64.
-            flushes = float(torch.zeros(1, device=g.device).index_add_(
-                0, torch.zeros(2, dtype=torch.long, device=g.device),
-                torch.full((2,), 2.0 ** -130, device=g.device))) == 0.0
+            # where σ nears the float32 limit, (1 + δ) / σ is subnormal:
+            # a float32 sum by atomics would flush such terms to zero.
+            # The kernels and the dense backend's segment sums sum float32
+            # in float64 on the card, so both backends are held to the
+            # float64 oracle on every finite entry.
+            flushes = float(segment_sum(
+                torch.full((2,), 2.0 ** -130, device=g.device),
+                torch.zeros(2, dtype=torch.long, device=g.device),
+                1)[0]) == 0.0
             fin = np.isfinite(mine) & np.isfinite(theirs) & np.isfinite(
                 host)
             off = fin & (rel_gaps(theirs, host) > BC_RTOL)
-            rel_dense = float(np.where(tainted, 0.0,
-                                       rel_gaps(mine, theirs)).max())
+            rel_dense = float(rel_gaps(mine, theirs).max())
+            rel_dense_host = float(rel_gaps(theirs, host).max())
             rel_host = float(rel_gaps(mine, host).max())
-            if off.any() and not (flushes and tainted[off].all()):
+            if flushes or off.any():
                 fail(f"betweenness on {gname}: the dense backend departs "
-                     f"from the float64 oracle at {int(off.sum())} "
-                     f"entries, {int((off & ~tainted).sum())} of them "
-                     "with no subnormal term below them (index_add_ "
-                     f"flushes subnormals: {flushes})")
+                     f"from the float64 oracle at {int(off.sum())} finite "
+                     f"entries (segment_sum flushes subnormals: {flushes})")
             if not (nan_same and rel_dense <= BC_RTOL
                     and rel_host <= BC_RTOL
                     and int(got["max_level"]) == deepest):
                 fail(f"betweenness on {gname}: NaN sets equal {nan_same}, "
-                     f"relative gaps {rel_dense} (dense, untainted), "
-                     f"{rel_host} (host), max level "
-                     f"{int(got['max_level'])} vs {deepest}")
+                     f"relative gaps {rel_dense} (dense), {rel_host} "
+                     f"(host), max level {int(got['max_level'])} vs "
+                     f"{deepest}")
             sizes = np.bincount(labels)
             line |= {"sources": sources,
                      "sources_reaching_more_than_one": int(
@@ -1245,11 +1257,10 @@ def check_more(graphs: dict, results: dict, main_results: dict) -> None:
                      "finite": int(np.isfinite(mine).sum()),
                      "nan": int(np.isnan(mine).sum()),
                      "host_finite": int(np.isfinite(host).sum()),
-                     "index_add_flushes_subnormals": flushes,
-                     "tainted": int((tainted & fin).sum()),
+                     "segment_sum_flushes_subnormals": flushes,
                      "dense_off_host": int(off.sum()),
-                     "dense_off_host_untainted": int((off & ~tainted).sum()),
-                     "rel_gap_dense_untainted": rel_dense,
+                     "rel_gap_dense": rel_dense,
+                     "rel_gap_dense_host": rel_dense_host,
                      "rel_gap_host": rel_host, "max_level": deepest}
         else:
             for key in sorted(want):
@@ -1290,6 +1301,239 @@ def check_more(graphs: dict, results: dict, main_results: dict) -> None:
                 fail(f"{alg} on {gname}/{policy}: disagrees with the host "
                      "oracle")
         emit(line | {"equal_to_dense": True, "equal_to_host": True})
+
+
+# -- slice 8: the stepwise engine, telemetry and fault injection ----------
+# enough StepTrace slots for every step of rca's solves here (~2,300 BFS
+# levels, ~3,000 SSSP steps)
+OBSERVE_TRACE = 8192
+OBSERVE_RUNS = (("bfs", "auto", {"root": 0}), ("pagerank", "pull",
+                                              {"iters": 20}))
+
+
+def state_dict(state) -> dict:
+    return state if isinstance(state, dict) else {"state": state}
+
+
+def same_runs(a, b, what: str) -> None:
+    """Two solves equal bit for bit: state, Cost, steps, push steps,
+    converged and every StepTrace row."""
+    sa, sb = state_dict(a.state), state_dict(b.state)
+    for k in sb:
+        if sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k]):
+            fail(f"{what} {k}: differs")
+    if (a.cost.as_dict(), a.steps, a.push_steps, a.converged) != (
+            b.cost.as_dict(), b.steps, b.push_steps, b.converged):
+        fail(f"{what}: Cost, steps or converged differ")
+    if (a.trace is None) != (b.trace is None) or (
+            a.trace is not None
+            and a.trace.as_dict(a.steps) != b.trace.as_dict(b.steps)):
+        fail(f"{what}: StepTrace rows differ")
+
+
+def timed_solve(g, alg: str, **kw):
+    t0 = time.perf_counter()
+    r = api.solve(g, alg, backend="cuda", **kw)
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def observe_runs(graphs: dict, tel) -> None:
+    """(a) flat solves with and without telemetry, (b) a phase program
+    under telemetry."""
+    for gname, (g, delta) in graphs.items():
+        for alg, policy, kw in OBSERVE_RUNS:
+            plain, plain_ms = timed_solve(g, alg, policy=policy,
+                                          trace=OBSERVE_TRACE, **kw)
+            seen, seen_ms = timed_solve(g, alg, policy=policy,
+                                        trace=OBSERVE_TRACE, telemetry=tel,
+                                        **kw)
+            what = f"observe {gname}/{alg}/{policy}"
+            same_runs(seen, plain, what)
+            run = tel.last_run
+            steps = tel.events_for(run, "step")
+            (span,) = [e for e in tel.events_for(run, "span")
+                       if e["name"] == f"solve:{alg}"]
+            (audit,) = tel.events_for(run, "audit")
+            us = [e.get("us") for e in steps]
+            if len(steps) != seen.steps or None in us:
+                fail(f"{what}: {len(steps)} step events for {seen.steps} "
+                     "steps, or a step without its wall time")
+            if sum(us) > span["dur_us"]:
+                fail(f"{what}: the steps' {sum(us)} us exceed the solve "
+                     f"span's {span['dur_us']} us")
+            push = [e["us"] for e in steps if e["pushed"]]
+            pull = [e["us"] for e in steps if not e["pushed"]]
+            emit({"phase": "observe", "graph": gname, "alg": alg,
+                  "policy": policy, "plain_wall_ms": plain_ms,
+                  "telemetry_wall_ms": seen_ms, "steps": seen.steps,
+                  "push_steps": seen.push_steps,
+                  "sum_step_us": sum(us), "span_us": span["dur_us"],
+                  "push_us_median": (statistics.median(push) if push
+                                     else None),
+                  "pull_us_median": (statistics.median(pull) if pull
+                                     else None),
+                  "audit": {k: audit[k] for k in
+                            ("basis", "audited_steps", "flagged",
+                             "mispredict_rate")}})
+        r, ms = timed_solve(g, "sssp_delta", policy="push",
+                            trace=OBSERVE_TRACE, telemetry=tel, source=0,
+                            delta=delta)
+        run = tel.last_run
+        (audit,) = tel.events_for(run, "audit")
+        steps = tel.events_for(run, "step")
+        if audit["basis"] != "predicted" or any("us" in e for e in steps):
+            fail(f"observe {gname}/sssp_delta: a phase program runs whole, "
+                 f"yet its audit reads {audit['basis']}")
+        emit({"phase": "observe", "graph": gname, "alg": "sssp_delta",
+              "policy": "push", "telemetry_wall_ms": ms, "steps": r.steps,
+              "epochs": r.epochs, "step_events": len(steps),
+              "audit": {k: audit[k] for k in
+                        ("basis", "audited_steps", "flagged",
+                         "mispredict_rate")}})
+
+
+def observe_export(tel) -> None:
+    """(c) the run's events as JSONL and as a Chrome trace."""
+    from repro_torch.obs import (validate_trace_file, write_chrome_trace,
+                                 write_jsonl)
+    out = _build.BUILD_DIR.parent / "observe"
+    out.mkdir(parents=True, exist_ok=True)
+    lines = write_jsonl(tel, out / "trace.jsonl")
+    if validate_trace_file(out / "trace.jsonl") != lines:
+        fail("observe: the JSONL trace does not validate")
+    chrome = write_chrome_trace(tel, out / "trace.json")
+    kinds = {}
+    for e in tel.events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    emit({"phase": "observe_export", "jsonl_lines": lines,
+          "chrome_events": chrome, "events_by_kind": kinds,
+          "dropped": tel.dropped})
+
+
+def observe_faults(graphs: dict, more: dict) -> None:
+    """(d) a checkpointed BFS under engine.step faults, and the
+    divergence guard."""
+    from repro_torch import resilience
+    g, _ = graphs["rca"]
+    plain, plain_ms = timed_solve(g, "bfs", policy="gs", root=0)
+    plan = resilience.FaultPlan(name="engine-step-500", seed=7, specs=(
+        resilience.FaultSpec(site="engine.step", kind="transient",
+                             every=500, start=100),))
+    resilience.clear_resilience_stats()
+    t0 = time.perf_counter()
+    with resilience.inject(plan) as inj:
+        r = api.solve(g, "bfs", policy="gs", backend="cuda", root=0,
+                      checkpoint_every=64)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    same_runs(r, plain, "observe rca/bfs/gs under engine.step faults")
+    injected = inj.stats()["injected"].get("engine.step", 0)
+    resumes = resilience.resilience_stats().get("resume.engine.step", 0)
+    resilience.drain_events()
+    if injected < 1 or resumes < 1:
+        fail(f"observe: {injected} engine.step faults, {resumes} resumes")
+    line = {"phase": "observe_faults", "graph": "rca", "alg": "bfs",
+            "policy": "gs", "checkpoint_every": 64, "wall_ms": wall_ms,
+            "fault_free_wall_ms": plain_ms, "steps": r.steps,
+            "injected": injected, "resumes": resumes,
+            "equal_to_fault_free": True}
+    for gname, (g, _) in graphs.items():
+        api.solve(g, "pagerank", policy="pull", backend="cuda", iters=20,
+                  check_finite="nan")
+    line["pagerank_check_finite"] = "passed"
+    g, _ = graphs["rca"]
+    _, kw, _ = more[("rca", "betweenness", "pull")]
+    try:
+        api.solve(g, "betweenness", policy="pull", backend="cuda",
+                  check_finite="nan", **kw)
+    except resilience.DivergenceError as e:
+        line["bc_divergence_step"] = e.step
+    else:
+        fail("observe: BC on rca has NaN entries, yet check_finite passed")
+    emit(line)
+
+
+def service_requests(g, delta: float) -> list:
+    return [(alg, s, batch_kwargs(alg, delta))
+            for alg in ("bfs", "sssp_delta", "ppr")
+            for s in top_sources(g, SERVE_PER_ALG)]
+
+
+def observe_service(graphs: dict, tel) -> None:
+    """(e) serving under the service sites of ci-default."""
+    from repro_torch import resilience
+    g, delta = graphs["kron16"]
+    reqs = service_requests(g, delta)
+    clean = QueryService(g, backend="cuda", slots=BATCH["kron16"])
+    want = [clean.submit(alg, s, **kw) for alg, s, kw in reqs]
+    clean.run_until_complete()
+    plan = resilience.FaultPlan(name="ci-default-service", seed=7,
+                                specs=tuple(
+        s for s in resilience.named_plans()["ci-default"].specs
+        if s.site.startswith("service.")))
+    resilience.clear_resilience_stats()
+    t0 = time.perf_counter()
+    with resilience.inject(plan) as inj:
+        svc = QueryService(g, backend="cuda", slots=BATCH["kron16"],
+                           telemetry=tel)
+        got = [svc.submit(alg, s, **kw) for alg, s, kw in reqs]
+        svc.run_until_complete()
+    wall_s = time.perf_counter() - t0
+    for (alg, s, _), a, b in zip(reqs, got, want):
+        same = state_dict(svc.poll(a)), state_dict(clean.poll(b))
+        for k in same[1]:
+            if not torch.equal(same[0][k], same[1][k]):
+                fail(f"observe serve kron16/{alg} source {s} {k}: differs "
+                     "from the fault-free service")
+    st = svc.stats()
+    names = {e.get("name", "") for e in tel.events}
+    svc_events = sorted(n for n in names if n.startswith("service."))
+    res_events = sorted(n for n in names if n.startswith("resilience."))
+    if st["chunk_retries"] < 1 or st["cache_errors"] < 1 or not (
+            svc_events and res_events):
+        fail(f"observe serve: {st['chunk_retries']} chunk retries, "
+             f"{st['cache_errors']} cache errors, events {svc_events} "
+             f"{res_events}")
+    emit({"phase": "observe_serve", "graph": "kron16",
+          "requests": len(reqs), "wall_s": wall_s,
+          "qps": len(reqs) / wall_s, "injected": inj.stats()["injected"],
+          "chunk_retries": st["chunk_retries"],
+          "cache_errors": st["cache_errors"], "failures": st["failures"],
+          "service_events": svc_events, "resilience_events": res_events,
+          "equal_to_fault_free": True})
+
+
+def observe_path(graphs: dict, more: dict) -> dict:
+    """Slice 8's main path: telemetry, checkpoints and faults through the
+    autotuned CUDA backend, with the launch counts zeroed just before
+    and read just after."""
+    from repro_torch.obs import Telemetry
+    be = api.BACKEND_SHORTHANDS["cuda"]
+    stats0 = dict(be.stats)
+    tune.clear_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tel = Telemetry()
+    observe_runs(graphs, tel)
+    observe_export(tel)
+    observe_faults(graphs, more)
+    observe_service(graphs, Telemetry())
+    seconds = time.perf_counter() - t0
+    counts = path_launches({k: 0 for k in _build.KERNELS},
+                           probe_lines("observe"))
+    dispatch = {k: be.stats[k] - stats0[k] for k in be.stats}
+    emit({"phase": "observe_path", "seconds": seconds, "launches": counts,
+          "dispatch": dispatch})
+    for name in ("ell_spmv", "ell_pull_frontier"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the observe path")
+    if sum(counts[k] for k in PUSH_KERNELS) <= 0:
+        fail("no push kernel was launched on the observe path")
+    for k in ("fallback_pull", "fallback_push"):
+        if dispatch[k]:
+            fail(f"{dispatch[k]} observe steps fell back ({k})")
+    return counts
 
 
 def kernel_row(name: str, shape: str, err: float, kernel, plain, library,
@@ -2015,6 +2259,8 @@ def main() -> int:
     counts = {k: counts[k] + sum(v[k] for v in by_alg.values())
               for k in counts}
     check_more(graphs, more, results)
+    observed = observe_path(graphs, more)
+    counts = {k: counts[k] + observed[k] for k in counts}
 
     rows = []
     for gname, (g, _) in graphs.items():

@@ -1,8 +1,9 @@
 """repro_torch.api — one k-relaxation API for the graph workloads.
 PyTorch port of ``repro.api``: ``solve`` for the ten algorithms of the
 JAX package, and ``solve_batch`` for B queries of the
-source-parameterized ones in one engine run (telemetry and resilience
-are later slices).
+source-parameterized ones in one engine run, each with the reference's
+telemetry (``telemetry=``) and, for ``solve``, its resilience guards
+(``check_finite=``, ``checkpoint_every=``).
 
     from repro_torch import api
     from repro_torch.graphs import kronecker
@@ -14,6 +15,10 @@ are later slices).
     r = api.solve(g, "mst_boruvka", backend="cuda")         # local steps
     br = api.solve_batch(g, "ppr", sources=[0, 5, 9], backend="cuda")
     br.states[1]["ranks"]          # == solve(g, "ppr", source=5).state
+
+    tel = Telemetry()              # repro_torch.obs: step times, counters
+    r = api.solve(g, "bfs", root=0, policy="auto", backend="cuda",
+                  telemetry=tel)   # and the AutoSwitch decision audit
 
 ``policy`` picks the direction per step (``"push"``, ``"pull"``,
 ``"gs"``, ``"grs"``, ``"auto"`` or a DirectionPolicy); ``backend`` the
@@ -204,6 +209,7 @@ def solve(g: Graph, algorithm: str, *,
           policy: Optional[DirectionPolicy | str] = None,
           backend: Optional[ExchangeBackend | str] = None,
           max_steps: Optional[int] = None, trace: int | bool = 0,
+          telemetry=None, check_finite=None, checkpoint_every: int = 0,
           **kw) -> RunResult:
     """Run ``algorithm`` on ``g`` (on ``g``'s device) under a direction
     policy and an exchange backend.
@@ -218,13 +224,30 @@ def solve(g: Graph, algorithm: str, *,
         max_steps: per-phase step bound (bounds epochs for phase
             programs).
         trace: StepTrace capacity, or True for 256 slots.
+        telemetry: a :class:`repro_torch.obs.Telemetry` handle, or None
+            (default). With a handle the run emits per-step counter and
+            prediction rows, a run summary, a ``solve:<algorithm>`` span
+            and a direction-decision audit into it, and flat programs
+            run step by step so each step also carries its wall time
+            (``telemetry.step_timing = False`` keeps ``run``). None runs
+            the engine's ``run`` and imports nothing of ``obs``.
+        check_finite: the divergence guard: ``"nan"`` trips on NaN
+            state, ``"all"`` or True also on ±Inf (BFS and SSSP carry
+            Inf sentinels). Flat programs check after every step and
+            raise :class:`repro_torch.resilience.DivergenceError` naming
+            the step; phase programs check the final state.
+        checkpoint_every: snapshot the loop carry every N steps (flat
+            programs only); an interrupted solve resumes from the last
+            checkpoint, bit-identical, within a bounded number of
+            stalled resumes. 0 (default) disables.
         **kw: ``root``, ``source``, ``iters``, ``damp``, ``delta``,
             ``tol``, ``num_sources``, ``num_parts``, ``C``, ...
 
     Raises:
         KeyError: unknown algorithm.
         ValueError: unknown shorthand, unsupported (policy × backend)
-            combination, or a ``root``/``source`` outside ``[0, n)``.
+            combination, a ``root``/``source`` outside ``[0, n)``, or
+            ``checkpoint_every`` on a phase program.
     """
     spec = get_spec(algorithm)
     for vkey in _VERTEX_KEYS:
@@ -235,6 +258,9 @@ def solve(g: Graph, algorithm: str, *,
     backend = _resolve_backend(backend)
     trace_capacity = (_DEFAULT_TRACE_CAPACITY if trace is True
                       else int(trace))
+    if telemetry is not None and trace_capacity == 0:
+        # telemetry needs the StepTrace rows to audit against
+        trace_capacity = _DEFAULT_TRACE_CAPACITY
     static_kw = {k: v for k, v in kw.items() if k not in spec.runtime_keys}
 
     def build_engine() -> PushPullEngine:
@@ -256,17 +282,122 @@ def solve(g: Graph, algorithm: str, *,
          tuple(sorted(static_kw.items())),
          g.n, g.m, g.d_ell, max_steps, trace_capacity), build_engine)
     init_state, init_frontier = spec.init(g, **kw)
-    res = engine.run(g, init_state, init_frontier)
+    if checkpoint_every and not engine.supports_stepwise:
+        raise ValueError(
+            f"checkpoint_every is supported for flat programs only; "
+            f"{algorithm!r} is phase-structured (its epoch/phase loop "
+            "runs under run())")
+    guards = bool(check_finite) or checkpoint_every > 0
+    if telemetry is not None:
+        res = _solve_observed(telemetry, engine, g, init_state,
+                              init_frontier, algorithm=algorithm,
+                              policy=policy, backend=backend,
+                              check_finite=check_finite,
+                              checkpoint_every=checkpoint_every)
+    elif guards and engine.supports_stepwise:
+        res = _run_stepwise_resilient(
+            engine, g, init_state, init_frontier,
+            check_finite=check_finite, checkpoint_every=checkpoint_every)
+    else:
+        res = engine.run(g, init_state, init_frontier)
+        if check_finite:
+            # phase programs are checked at run end
+            PushPullEngine._check_finite(res.state, check_finite, res.steps)
     return RunResult(state=spec.finalize(g, res.state), cost=res.cost,
                      steps=res.steps, push_steps=res.push_steps,
                      converged=res.converged, epochs=res.epochs,
                      trace=res.trace)
 
 
+def _run_stepwise_resilient(engine: PushPullEngine, g: Graph,
+                            init_state, init_frontier, *, on_step=None,
+                            check_finite=None, checkpoint_every: int = 0,
+                            max_resumes: int = 4):
+    """Stepwise execution with checkpoint-resume: a failure mid-loop (an
+    injected ``engine.step`` fault, a failing launch) resumes from the
+    last checkpoint, or restarts when it predates the first; the replayed
+    steps are the same calls, so the result is bit-identical to an
+    uninterrupted run. ``max_resumes`` bounds consecutive resumes
+    without checkpoint progress: a fault pattern may interrupt a long
+    solve any number of times as long as each resume advances the
+    checkpoint, while a permanent failure re-raises
+    :class:`~repro_torch.resilience.SolveInterrupted` after
+    ``max_resumes`` stalled attempts (``__cause__`` is the original
+    error)."""
+    from .resilience import SolveInterrupted, note
+    ckpt = None
+    stalled = 0
+    while True:
+        try:
+            return engine.run_stepwise(
+                g, init_state, init_frontier, on_step=on_step,
+                check_finite=check_finite,
+                checkpoint_every=checkpoint_every, resume_from=ckpt)
+        except SolveInterrupted as e:
+            progressed = e.checkpoint is not None and (
+                ckpt is None or e.checkpoint.step > ckpt.step)
+            stalled = 0 if progressed else stalled + 1
+            if stalled > max_resumes:
+                raise
+            if e.checkpoint is not None:
+                ckpt = e.checkpoint
+            note("resume.engine.step", failed_step=e.step,
+                 resume_from=(ckpt.step if ckpt is not None else 0),
+                 stalled=stalled)
+
+
+def _solve_observed(tel, engine: PushPullEngine, g: Graph, init_state,
+                    init_frontier, *, algorithm: str,
+                    policy: DirectionPolicy, backend: ExchangeBackend,
+                    check_finite=None, checkpoint_every: int = 0):
+    """The telemetry path of ``solve`` and ``solve_batch``: run the
+    engine (step by step with per-step wall times when the handle asks
+    for them and the program is flat), inside a ``solve:<algorithm>``
+    span that ends with a synchronize of the card; then fold the result
+    into the handle (step and run events, the tuner's and the
+    resilience layer's counters) and emit an ``audit`` event when the
+    run has step rows."""
+    from .obs.metrics import collect_resilience, collect_tuner, record_solve
+    from .obs.report import decision_audit
+
+    run = tel.new_run()
+    step_times: dict[int, float] = {}
+    t0 = tel.now_us()
+    guards = bool(check_finite) or checkpoint_every > 0
+    with tel.span(f"solve:{algorithm}", device=g.device, run=run,
+                  algorithm=algorithm, policy=policy.name,
+                  backend=backend.name) as sp:
+        if (tel.step_timing or guards) and engine.supports_stepwise:
+            res = _run_stepwise_resilient(
+                engine, g, init_state, init_frontier,
+                on_step=(lambda i, us: step_times.__setitem__(i, us))
+                if tel.step_timing else None,
+                check_finite=check_finite,
+                checkpoint_every=checkpoint_every)
+        else:
+            res = engine.run(g, init_state, init_frontier)
+            if check_finite:
+                PushPullEngine._check_finite(res.state, check_finite,
+                                             res.steps)
+        sp["steps"] = int(res.steps)
+    record_solve(tel, algorithm=algorithm, policy=policy,
+                 backend=backend, result=res, run=run,
+                 step_times=step_times or None, t0_us=t0)
+    collect_tuner(tel)
+    collect_resilience(tel)
+    audit = decision_audit(tel.events_for(run, "step"), run=run)
+    if audit is not None:
+        tel.emit("audit", run=run, basis=audit["basis"],
+                 audited_steps=audit["audited_steps"],
+                 flagged=audit["flagged"],
+                 mispredict_rate=audit["mispredict_rate"])
+    return res
+
+
 def solve_batch(g: Graph, algorithm: str, *, sources,
                 policy: Optional[DirectionPolicy | str] = None,
                 backend: Optional[ExchangeBackend | str] = None,
-                max_steps: Optional[int] = None, **kw):
+                max_steps: Optional[int] = None, telemetry=None, **kw):
     """Run B queries of ``algorithm`` (one per entry of ``sources``) as
     one batched engine run over ``g``: B payload columns, one graph scan
     per pull step, one union-frontier scatter per push step. Per-query
@@ -278,6 +409,9 @@ def solve_batch(g: Graph, algorithm: str, *, sources,
         br = api.solve_batch(g, "bfs", sources=[0, 5, 9])
         br.states[1]["dist"]       # == solve(g, "bfs", root=5).state["dist"]
 
+    ``telemetry``: a :class:`repro_torch.obs.Telemetry` handle, as for
+    :func:`solve` (the whole batch is one run).
+
     Returns a :class:`repro_torch.service.BatchResult`.
 
     Raises:
@@ -287,7 +421,8 @@ def solve_batch(g: Graph, algorithm: str, *, sources,
     """
     from .service.batch import solve_batch as _solve_batch
     return _solve_batch(g, algorithm, sources=sources, policy=policy,
-                        backend=backend, max_steps=max_steps, **kw)
+                        backend=backend, max_steps=max_steps,
+                        telemetry=telemetry, **kw)
 
 
 register(AlgorithmSpec(

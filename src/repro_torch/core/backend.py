@@ -105,6 +105,11 @@ class ExchangeBackend:
     def name(self) -> str:
         return type(self).__name__
 
+    def telemetry_counters(self) -> dict:
+        """Totals this backend keeps, for ``repro_torch.obs`` to surface
+        under ``backend.<name>.*``; stateless backends keep none."""
+        return {}
+
 
 @dataclasses.dataclass(frozen=True)
 class DenseBackend(ExchangeBackend):
@@ -238,6 +243,11 @@ class CudaBackend(EllBackend):
 
     def __eq__(self, other):
         return self is other
+
+    def telemetry_counters(self) -> dict:
+        """Kernel launches by kind, empty pulls skipped and fallbacks to
+        the plain paths (``stats``)."""
+        return dict(self.stats)
 
     def _mode(self, values, combine, msg_fn) -> Optional[str]:
         if combine not in ("sum", "max", "min"):

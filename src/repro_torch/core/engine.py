@@ -1,6 +1,6 @@
 """PushPullEngine — the fixed-point loop over push/pull k-relaxations.
-PyTorch port of ``repro.core.engine`` (``run``; the stepwise path and
-checkpoints are not ported yet).
+PyTorch port of ``repro.core.engine``: ``run``, and ``run_stepwise``
+with its per-step wall times, finite check and checkpoints.
 
 A *vertex program* is (msg_fn, combine, update_fn) plus optional hooks:
 
@@ -22,24 +22,42 @@ The JAX package runs the loop under ``lax.while_loop`` and picks the
 direction with ``lax.cond``; here the loop runs on the host over device
 tensors, reads each step's decision and convergence flag, and runs only
 the chosen direction. Counters, step counts and trace rows are the
-JAX engine's exactly.
+JAX engine's exactly. One function takes a step on an explicit loop
+carry (:class:`_Loop`), and one loop drives it for both ``run`` and
+``run_stepwise``, so the two are bit-identical by construction: the
+stepwise path only adds the ``engine.step`` fault site, a timer, the
+finite check and checkpoints around the same calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
 from ..graphs.structure import Graph
+from ..models.common import tree_leaves
+from ..resilience import DivergenceError, SolveInterrupted, fault_point
 from .backend import DenseBackend, ExchangeBackend
-from .cost_model import COUNTER, Cost, StepStats, StepTrace, counter
+from .cost_model import (COUNTER, Cost, CostPredictor, StepStats, StepTrace,
+                         counter)
 from .direction import Direction, DirectionPolicy, Fixed, GreedySwitch
 from .primitives import frontier_in_edges, frontier_out_edges, k_filter
 
 __all__ = ["VertexProgram", "Phase", "PhaseProgram", "PushPullEngine",
-           "EngineResult"]
+           "EngineResult", "Checkpoint"]
+
+
+class Checkpoint(NamedTuple):
+    """A stepwise solve's resumable snapshot: the loop carry after
+    ``step`` completed steps. The carry is a copy (every tensor cloned),
+    since later steps write the trace and may write state in place;
+    resuming copies it again and re-enters the same step function, so a
+    resumed run is bit-identical to an uninterrupted one."""
+    step: int
+    carry: Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +132,87 @@ class _Carry:
 
 
 @dataclasses.dataclass(frozen=True)
+class _Loop:
+    """One phase's loop carry: everything a step reads and writes."""
+    state: Any
+    frontier: torch.Tensor
+    visited: torch.Tensor
+    converged: bool
+    handoff: bool
+    step: int
+    cost: Cost
+    pushes: int
+    last_push: bool
+    trace: StepTrace
+
+
+@dataclasses.dataclass(frozen=True)
+class _PhaseRun:
+    """What stays fixed while one phase loops."""
+    phase: Phase
+    steps0: int                # steps before this phase: the trace cursor
+    greedy: bool               # GreedySwitch with a tail hand-off
+    fixed_dir: Optional[Direction]
+    predictor: Optional[CostPredictor]
+
+    def going(self, st: _Loop) -> bool:
+        return (not st.converged and not st.handoff
+                and st.step < self.phase.max_steps)
+
+
+def _clone(tree):
+    """A copy of ``tree`` with every tensor cloned: tensors, dicts,
+    lists, tuples, named tuples and dataclasses (``_Loop``, ``Cost``,
+    ``StepTrace``); anything else is shared."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*map(_clone, tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map(_clone, tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _clone(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+class _Watch:
+    """``run_stepwise``'s guards around each step: its wall time (the
+    host clock around the step, which ends with a synchronize on the
+    card, else it would time the launches), the finite check, the
+    checkpoints and ``on_step``. ``i`` counts completed steps, ``last``
+    is the newest checkpoint."""
+
+    def __init__(self, device: torch.device, on_step, check_finite,
+                 checkpoint_every: int, resume_from):
+        self.device = device
+        self.on_step = on_step
+        self.check_finite = check_finite
+        self.every = checkpoint_every
+        self.last = resume_from
+        self.i = 0 if resume_from is None else resume_from.step
+
+    def step(self, take: Callable[[], _Loop]) -> _Loop:
+        t0 = time.perf_counter()
+        st = take()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        us = (time.perf_counter() - t0) * 1e6
+        self.i += 1
+        if self.check_finite:
+            PushPullEngine._check_finite(st.state, self.check_finite,
+                                         self.i - 1)
+        if self.every and self.i % self.every == 0:
+            self.last = Checkpoint(step=self.i, carry=_clone(st))
+        if self.on_step is not None:
+            self.on_step(self.i - 1, us)
+        return st
+
+
+@dataclasses.dataclass(frozen=True)
 class PushPullEngine:
     program: Union[VertexProgram, PhaseProgram]
     policy: DirectionPolicy = Fixed(Direction.PULL)
@@ -149,93 +248,137 @@ class PushPullEngine:
             push_wire_bytes=push_wb, pull_wire_bytes=pull_wb,
             pull_touched_edges=pull_touched)
 
-    def _run_phase(self, g: Graph, phase: Phase, c: _Carry,
-                   epoch: int) -> bool:
-        """Run one phase's loop on carry ``c`` (updated in place);
-        returns the phase's converged flag."""
-        prog = phase.program
-        values_fn = prog.values_fn or (lambda g_, s, f: s)
-        greedy = (isinstance(self.policy, GreedySwitch)
-                  and prog.tail_fn is not None)
-        fixed_dir = (self.policy.direction
-                     if isinstance(self.policy, Fixed) else None)
-        tracing = self.trace_capacity > 0
-        predictor = self.policy.trace_predictor() if tracing else None
-
+    # -- one phase: enter, step, loop, finish ----------------------------
+    def _enter(self, g: Graph, phase: Phase, c: _Carry,
+               epoch: int) -> tuple[_PhaseRun, _Loop]:
+        """Rewrite the carry with ``enter_fn`` and build the phase's
+        first loop carry."""
         if phase.enter_fn is not None:
             c.state, c.frontier = phase.enter_fn(g, c.state, c.frontier,
                                                  epoch)
-        visited = c.frontier
+        ph = _PhaseRun(
+            phase=phase, steps0=c.steps,
+            greedy=(isinstance(self.policy, GreedySwitch)
+                    and phase.program.tail_fn is not None),
+            fixed_dir=(self.policy.direction
+                       if isinstance(self.policy, Fixed) else None),
+            predictor=(self.policy.trace_predictor()
+                       if self.trace_capacity > 0 else None))
         # an empty entering frontier is already converged
-        converged = not bool(c.frontier.any())
-        handoff = False
-        step, pushes, last_push = 0, 0, False
-        while not converged and not handoff and step < phase.max_steps:
-            frontier = c.frontier
-            unvisited = ~visited
-            if prog.local_fn is not None:
-                values = touched = None
+        st = _Loop(state=c.state, frontier=c.frontier, visited=c.frontier,
+                   converged=not bool(c.frontier.any()), handoff=False,
+                   step=0, cost=c.cost, pushes=0, last_push=False,
+                   trace=c.trace)
+        return ph, st
+
+    def _step(self, g: Graph, ph: _PhaseRun, st: _Loop) -> _Loop:
+        """One step of the phase on carry ``st``: the next carry. Writes
+        the step's trace row into ``st.trace`` in place."""
+        prog = ph.phase.program
+        frontier, step = st.frontier, st.step
+        unvisited = ~st.visited
+        if prog.local_fn is not None:
+            values = touched = None
+        else:
+            values = (prog.values_fn or (lambda g_, s, f: s))(
+                g, st.state, frontier)
+            if prog.touched_fn is not None:
+                touched = prog.touched_fn(g, st.state, frontier, st.visited)
+            elif prog.pull_touched == "unvisited":
+                touched = unvisited
             else:
-                values = values_fn(g, c.state, frontier)
-                if prog.touched_fn is not None:
-                    touched = prog.touched_fn(g, c.state, frontier, visited)
-                elif prog.pull_touched == "unvisited":
-                    touched = unvisited
-                else:
-                    touched = None
-            stats = (self._step_stats(g, prog, frontier, unvisited, touched,
-                                      values, step, last_push)
-                     if (fixed_dir is None or tracing) else None)
-            if fixed_dir is not None:
-                do_push = fixed_dir == Direction.PUSH
+                touched = None
+        tracing = ph.predictor is not None
+        stats = (self._step_stats(g, prog, frontier, unvisited, touched,
+                                  values, step, st.last_push)
+                 if (ph.fixed_dir is None or tracing) else None)
+        if ph.fixed_dir is not None:
+            do_push = ph.fixed_dir == Direction.PUSH
+        else:
+            do_push = bool(self.policy.decide(g, frontier, stats))
+        cost0 = st.cost
+        if prog.local_fn is not None:
+            state, new_frontier, conv, cost = prog.local_fn(
+                g, st.state, frontier, step, do_push, cost0)
+        else:
+            msgs, cost = self.backend.relax(
+                g, values, frontier,
+                direction=Direction.PUSH if do_push else Direction.PULL,
+                combine=prog.combine, msg_fn=prog.msg_fn, touched=touched,
+                cost=cost0)
+            state, new_frontier, conv = prog.update_fn(st.state, msgs, step)
+            if prog.k_filter_push and do_push:
+                # push produced a sparse updated set -> k-filter
+                kf_set = (new_frontier if prog.k_filter_set_fn is None
+                          else prog.k_filter_set_fn(st.state, state,
+                                                    new_frontier))
+                _, cost = k_filter(kf_set, cost)
+        cost = cost.charge(iterations=1, barriers=1,
+                           **dict(prog.step_charges))
+        if prog.charge_fn is not None:
+            cost = cost.charge(**prog.charge_fn(g, st.state, frontier))
+        handoff = st.handoff
+        if ph.greedy:
+            active = new_frontier.to(COUNTER).sum()
+            handoff = (not bool(conv)) and bool(
+                self.policy.should_handoff(g, active))
+        trace = st.trace
+        if tracing:
+            trace = trace.record(
+                ph.steps0 + step, do_push, stats, cost - cost0,
+                predicted_push=ph.predictor.predict_push(stats),
+                predicted_pull=ph.predictor.predict_pull(stats))
+        return _Loop(state=state, frontier=new_frontier,
+                     visited=st.visited | new_frontier,
+                     converged=bool(conv), handoff=handoff, step=step + 1,
+                     cost=cost, pushes=st.pushes + int(do_push),
+                     last_push=do_push, trace=trace)
+
+    def _loop(self, g: Graph, ph: _PhaseRun, st: _Loop,
+              watch: Optional[_Watch] = None) -> _Loop:
+        """The phase loop of both ``run`` and ``run_stepwise``. With a
+        watch, the ``engine.step`` fault site comes before each test of
+        the loop condition (the final one included, as in the JAX
+        package's host loop) and the watch's guards around each step."""
+        while True:
+            if watch is not None:
+                fault_point("engine.step")
+            if not ph.going(st):
+                return st
+            if watch is None:
+                st = self._step(g, ph, st)
             else:
-                do_push = bool(self.policy.decide(g, frontier, stats))
-            cost0 = c.cost
-            if prog.local_fn is not None:
-                state, new_frontier, conv, cost = prog.local_fn(
-                    g, c.state, frontier, step, do_push, cost0)
-            else:
-                msgs, cost = self.backend.relax(
-                    g, values, frontier,
-                    direction=Direction.PUSH if do_push else Direction.PULL,
-                    combine=prog.combine, msg_fn=prog.msg_fn,
-                    touched=touched, cost=cost0)
-                state, new_frontier, conv = prog.update_fn(c.state, msgs,
-                                                           step)
-                if prog.k_filter_push and do_push:
-                    # push produced a sparse updated set -> k-filter
-                    kf_set = (new_frontier if prog.k_filter_set_fn is None
-                              else prog.k_filter_set_fn(c.state, state,
-                                                        new_frontier))
-                    _, cost = k_filter(kf_set, cost)
-            cost = cost.charge(iterations=1, barriers=1,
-                               **dict(prog.step_charges))
-            if prog.charge_fn is not None:
-                cost = cost.charge(**prog.charge_fn(g, c.state, frontier))
-            if greedy:
-                active = new_frontier.to(COUNTER).sum()
-                handoff = (not bool(conv)) and bool(
-                    self.policy.should_handoff(g, active))
-            if tracing:
-                c.trace = c.trace.record(
-                    c.steps + step, do_push, stats, cost - cost0,
-                    predicted_push=predictor.predict_push(stats),
-                    predicted_pull=predictor.predict_pull(stats))
-            c.state, c.frontier, c.cost = state, new_frontier, cost
-            visited = visited | new_frontier
-            converged = bool(conv)
-            step += 1
-            pushes += int(do_push)
-            last_push = do_push
-        if greedy and handoff:
+                st = watch.step(lambda: self._step(g, ph, st))
+
+    def _finish(self, g: Graph, ph: _PhaseRun, st: _Loop,
+                c: _Carry) -> bool:
+        """Greedy tail hand-off and ``exit_fn``; folds the phase into
+        ``c`` and returns the phase's converged flag."""
+        prog = ph.phase.program
+        c.state, c.frontier, c.cost, c.trace = (st.state, st.frontier,
+                                                st.cost, st.trace)
+        converged = st.converged
+        if ph.greedy and st.handoff:
             c.state, c.cost = prog.tail_fn(g, c.state, c.frontier, c.cost)
             converged = True
-        if phase.exit_fn is not None:
-            c.state, c.frontier, c.cost = phase.exit_fn(g, c.state,
-                                                        c.frontier, c.cost)
-        c.steps += step
-        c.pushes += pushes
+        if ph.phase.exit_fn is not None:
+            c.state, c.frontier, c.cost = ph.phase.exit_fn(
+                g, c.state, c.frontier, c.cost)
+        c.steps += st.step
+        c.pushes += st.pushes
         return converged
+
+    def _carry(self, g: Graph, init_state, init_frontier) -> _Carry:
+        return _Carry(state=init_state, frontier=init_frontier,
+                      cost=Cost.zeros(g.device), steps=0, pushes=0,
+                      trace=StepTrace.empty(self.trace_capacity, g.device))
+
+    def _result(self, c: _Carry, converged: bool,
+                epochs: int) -> EngineResult:
+        return EngineResult(
+            state=c.state, cost=c.cost, steps=c.steps, push_steps=c.pushes,
+            converged=converged, epochs=epochs,
+            trace=c.trace if self.trace_capacity > 0 else None)
 
     def run(self, g: Graph, init_state: Any,
             init_frontier: torch.Tensor) -> EngineResult:
@@ -250,14 +393,13 @@ class PushPullEngine:
                             max_steps=self.max_steps),)
             max_epochs, epoch_cond, epoch_exit = 1, None, None
 
-        c = _Carry(state=init_state, frontier=init_frontier,
-                   cost=Cost.zeros(g.device), steps=0, pushes=0,
-                   trace=StepTrace.empty(self.trace_capacity, g.device))
+        c = self._carry(g, init_state, init_frontier)
 
         def run_epoch(epoch: int) -> bool:
             conv = True
-            for ph in phases:
-                conv = self._run_phase(g, ph, c, epoch)
+            for phase in phases:
+                ph, st = self._enter(g, phase, c, epoch)
+                conv = self._finish(g, ph, self._loop(g, ph, st), c)
             if epoch_exit is not None:
                 c.state, c.frontier = epoch_exit(g, c.state, c.frontier,
                                                  epoch)
@@ -275,7 +417,80 @@ class PushPullEngine:
             # converged iff the work test (not the epoch bound) ended it
             converged = (not bool(epoch_cond(g, c.state, epochs))
                          if epoch_cond is not None else conv)
-        return EngineResult(
-            state=c.state, cost=c.cost, steps=c.steps, push_steps=c.pushes,
-            converged=converged, epochs=epochs,
-            trace=c.trace if self.trace_capacity > 0 else None)
+        return self._result(c, converged, epochs)
+
+    # -- host-driven stepwise execution (telemetry and resilience) --------
+    @property
+    def supports_stepwise(self) -> bool:
+        """True when :meth:`run_stepwise` can execute this program:
+        flat (single-phase, single-epoch) programs only."""
+        return not isinstance(self.program, PhaseProgram)
+
+    @staticmethod
+    def _check_finite(state: Any, mode, step: int) -> None:
+        """Stop on non-finite float state: ``mode`` ``"nan"`` trips on
+        NaN only (BFS and SSSP carry ±Inf sentinels), ``"all"`` or True
+        on NaN or ±Inf. The leaves' flags are reduced on the device and
+        read once. Raises :class:`DivergenceError` naming the step."""
+        strict = mode in ("all", True)
+        flags = [(~torch.isfinite(x)).any() if strict else x.isnan().any()
+                 for x in tree_leaves(state) if x.dtype.is_floating_point]
+        if flags and bool(torch.stack(flags).any()):
+            raise DivergenceError(step=step,
+                                  mode="all" if strict else "nan")
+
+    def run_stepwise(self, g: Graph, init_state: Any,
+                     init_frontier: torch.Tensor,
+                     on_step: Optional[Callable] = None,
+                     check_finite=None, checkpoint_every: int = 0,
+                     resume_from: Optional[Checkpoint] = None
+                     ) -> EngineResult:
+        """Run a flat program step by step with guards around each step.
+
+        The same step function and loop as :meth:`run`, so the result
+        (state, ``Cost``, steps, push steps, ``StepTrace``, converged) is
+        bit-identical to it, provided the backend's kernels are
+        deterministic. Around each step:
+
+        * the ``engine.step`` fault site;
+        * ``on_step(step_index, wall_us)``: the step's wall time, on the
+          card up to a ``torch.cuda.synchronize``. Before the timed
+          loop one step runs on a copy of the carry and is thrown away,
+          so that the first timed step does not pay for the tuner's
+          probes, plans and library loads;
+        * ``check_finite``: ``"nan"``, ``"all"`` or True enables the
+          divergence check (:meth:`_check_finite`) after every step;
+        * ``checkpoint_every=N``: a :class:`Checkpoint` every N
+          completed steps. A failure mid-loop (an injected
+          ``engine.step`` fault, a failing launch) raises
+          :class:`SolveInterrupted` carrying the last one;
+        * ``resume_from``: re-enter the loop from a checkpoint (a copy
+          of it, so it can serve again).
+
+        Raises:
+            ValueError: for :class:`PhaseProgram` programs.
+            DivergenceError: ``check_finite`` tripped.
+            SolveInterrupted: the loop died.
+        """
+        if not self.supports_stepwise:
+            raise ValueError(
+                "run_stepwise executes flat (single-VertexProgram) "
+                "programs only; phase-structured programs run under "
+                "run() — check supports_stepwise before dispatching")
+        phase = Phase(program=self.program, max_steps=self.max_steps)
+        c = self._carry(g, init_state, init_frontier)
+        ph, st = self._enter(g, phase, c, 0)
+        if resume_from is not None:
+            st = _clone(resume_from.carry)
+        watch = _Watch(torch.device(g.device), on_step, check_finite,
+                       checkpoint_every, resume_from)
+        if on_step is not None and ph.going(st):
+            self._step(g, ph, _clone(st))       # warm-up, thrown away
+        try:
+            st = self._loop(g, ph, st, watch)
+        except (DivergenceError, SolveInterrupted):
+            raise
+        except Exception as exc:  # noqa: BLE001 — the resumable seam
+            raise SolveInterrupted(step=watch.i,
+                                   checkpoint=watch.last) from exc
+        return self._result(c, self._finish(g, ph, st, c), 1)

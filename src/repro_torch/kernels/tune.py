@@ -27,7 +27,25 @@ incumbent is abandoned, since its other rungs only move block_e. The
 pull ladders ascend in tile size, and a probe stops at the first rung
 ≥ ``_PRUNE``× behind the incumbent: larger tiles only take parallelism
 away (the last rung, one CTA for the whole range, can take seconds at
-batch width). A probe that fails raises.
+batch width).
+
+Resilience, as in the JAX package: the ``tune.probe``,
+``tune.cache.load`` and ``tune.cache.write`` fault sites; a disk fault
+falls back to the memory tier; a probe is retried with backoff
+(``$REPRO_TUNE_RETRIES``, default 2) under a wall deadline
+(``$REPRO_TUNE_DEADLINE_S``, default 120), and when every attempt
+fails the tuner takes the first candidate and does not write it to
+disk, so a later healthy run probes again. Two departures from the JAX
+package:
+
+  * the deadline is checked between candidates, not by a daemon thread
+    the caller abandons: the host cannot abandon a kernel running on the
+    card, and a thread left behind would only queue the next launch
+    behind it;
+  * only ``FaultInjected``, ``ProbeTimeout`` and ``OSError`` are retried
+    and fall back. Any other exception, such as a candidate that fails
+    to launch, propagates: a broken kernel is never hidden behind a
+    default.
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ import time
 import numpy as np
 import torch
 
+from ..resilience import FaultInjected, ProbeTimeout, fault_point, note
 from ._build import launch_counts
 from .coo_push import build_push_plan, coo_push
 from .ell_pull_frontier import ell_pull_frontier
@@ -107,7 +126,8 @@ _MEM_CACHE: dict[str, object] = {}
 _DISK: dict | None = None
 _LOCK = threading.Lock()
 _STATS = {"mem_hits": 0, "disk_hits": 0, "misses": 0, "probes": 0,
-          "writes": 0, "write_errors": 0}
+          "writes": 0, "write_errors": 0, "probe_retries": 0,
+          "probe_timeouts": 0, "probe_failures": 0, "probe_degraded": 0}
 # what each probe did: key, candidates timed, groups (push) or rungs
 # (pull) pruned, winner, seconds and the kernel launches it made (the
 # newest 256)
@@ -170,11 +190,13 @@ def _cache_key(kernel: str, device: torch.device, shape: tuple, width: int,
 
 def _load_disk() -> dict:
     """The on-disk tier, or {} for a missing, unreadable, truncated or
-    non-dict file (the next write replaces it atomically)."""
+    non-dict file, or an injected fault (the next write replaces it
+    atomically)."""
     try:
+        fault_point("tune.cache.load")
         with open(_cache_path()) as f:
             data = json.load(f)
-    except (OSError, ValueError):
+    except (OSError, ValueError, FaultInjected):
         return {}
     return data if isinstance(data, dict) else {}
 
@@ -206,13 +228,15 @@ def _cache_put(key: str, value) -> None:
         _DISK[key] = list(value) if isinstance(value, tuple) else value
         path = _cache_path()
         try:
+            fault_point("tune.cache.write")
             os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             with open(tmp, "w") as f:
                 json.dump(_DISK, f, indent=0, sort_keys=True)
             os.replace(tmp, path)
-        except OSError:
-            # unwritable cache directory: the in-memory tier still serves
+        except (OSError, FaultInjected):
+            # unwritable cache directory (or an injected disk fault):
+            # the in-memory tier still serves
             _STATS["write_errors"] += 1
 
 
@@ -245,11 +269,58 @@ def _record(key: str, timed: int, pruned: int, winner, t0: float,
                                      for k in now}})
 
 
-def _ladder(key: str, cands, time_one, t0: float, launches0: dict) -> int:
+def _probe_deadline_s() -> float:
+    return float(os.environ.get("REPRO_TUNE_DEADLINE_S", "120"))
+
+
+def _probe_retries() -> int:
+    return int(os.environ.get("REPRO_TUNE_RETRIES", "2"))
+
+
+def _probe_guarded(kernel: str, probe, default):
+    """Run ``probe(in_time)`` behind the ``tune.probe`` fault site, with
+    bounded retries and backoff; returns ``(winner, probed)``. The probe
+    calls ``in_time()`` between candidates, which raises
+    :class:`ProbeTimeout` once the attempt has run past the deadline.
+    An injected fault, a timeout or an ``OSError`` is retried; when the
+    attempts run out the tuner takes ``default`` (``probed=False``: the
+    caller must not persist it). Any other exception propagates."""
+    deadline, retries = _probe_deadline_s(), _probe_retries()
+    for attempt in range(retries + 1):
+        start = time.perf_counter()
+
+        def in_time() -> None:
+            if time.perf_counter() - start > deadline:
+                raise ProbeTimeout(kernel, deadline)
+
+        try:
+            fault_point("tune.probe")
+            return probe(in_time), True
+        except (FaultInjected, ProbeTimeout, OSError) as e:
+            timed_out = isinstance(e, ProbeTimeout)
+            with _LOCK:
+                _STATS["probe_timeouts" if timed_out
+                       else "probe_failures"] += 1
+            if attempt < retries:
+                with _LOCK:
+                    _STATS["probe_retries"] += 1
+                note("retry.tune.probe", kernel=kernel,
+                     attempt=attempt + 1, error=type(e).__name__)
+                time.sleep(min(0.02 * (2 ** attempt), 0.5))
+    with _LOCK:
+        _STATS["probe_degraded"] += 1
+    note("degraded.tune.probe", kernel=kernel, default=str(default))
+    return default, False
+
+
+def _ladder(key: str, cands, time_one, in_time, t0: float,
+            launches0: dict) -> int:
     """Time ascending tile rungs until one lands ≥ _PRUNE× behind the
     incumbent; returns the winner."""
     best, best_t, timed = None, None, 0
     for c in cands:
+        if timed:
+            in_time()
         t = time_one(c)
         timed += 1
         if best_t is None or t < best_t:
@@ -257,6 +328,17 @@ def _ladder(key: str, cands, time_one, t0: float, launches0: dict) -> int:
         elif t > _PRUNE * best_t:
             break
     _record(key, timed, len(cands) - timed, best, t0, launches0)
+    return best
+
+
+def _probe_and_keep(key: str, kernel: str, probe, default):
+    """Probe under :func:`_probe_guarded`; write a probed winner to the
+    cache (a default taken after failed probes stays off disk)."""
+    with _LOCK:
+        _STATS["probes"] += 1
+    best, probed = _probe_guarded(kernel, probe, default)
+    if probed:
+        _cache_put(key, best)
     return best
 
 
@@ -292,20 +374,20 @@ def tune_pull(n: int, d_ell: int, width: int, dtype, combine: str,
     hit = _cached_int(key)
     if hit is not None:
         return hit
-    with _LOCK:
-        _STATS["probes"] += 1
-    t0, launches0 = time.perf_counter(), launch_counts()
-    gen = _generator(device, 0)
-    idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
-                        dtype=torch.int32, device=device)
-    w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
-    x = _ones(n + 1, width, dtype, device)
-    plan = ell_row_plan(None, n, d_ell, width, device)
-    best = _ladder(key, cands, lambda b: _time(lambda: ell_spmv(
-        x, idx, w, combine=combine, msg=msg, block_n=b, plan=plan),
-        device), t0, launches0)
-    _cache_put(key, best)
-    return best
+
+    def probe(in_time):
+        t0, launches0 = time.perf_counter(), launch_counts()
+        gen = _generator(device, 0)
+        idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
+                            dtype=torch.int32, device=device)
+        w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+        x = _ones(n + 1, width, dtype, device)
+        plan = ell_row_plan(None, n, d_ell, width, device)
+        return _ladder(key, cands, lambda b: _time(lambda: ell_spmv(
+            x, idx, w, combine=combine, msg=msg, block_n=b, plan=plan),
+            device), in_time, t0, launches0)
+
+    return _probe_and_keep(key, "pull", probe, cands[0])
 
 
 def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
@@ -325,26 +407,28 @@ def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
     hit = _cached_int(key)
     if hit is not None:
         return hit
-    with _LOCK:
-        _STATS["probes"] += 1
-    t0, launches0 = time.perf_counter(), launch_counts()
-    gen = _generator(device, 2)
-    if layout is None:
-        idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
-                            dtype=torch.int32, device=device)
-        w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
-        row_len = None
-    else:
-        idx, w, row_len = layout
-    x = _ones(n + 1, width, dtype, device)
-    rids = torch.randperm(n, generator=gen, device=device)[:rows]
-    rids = torch.cat([rids, rids.new_full((max(0, rows - n),), n)])
-    rids = rids.to(torch.int32)
-    best = _ladder(key, cands, lambda b: _time(lambda: ell_pull_frontier(
-        x, idx, w, rids, combine=combine, msg=msg, block_r=b,
-        row_len=row_len), device), t0, launches0)
-    _cache_put(key, best)
-    return best
+
+    def probe(in_time):
+        t0, launches0 = time.perf_counter(), launch_counts()
+        gen = _generator(device, 2)
+        if layout is None:
+            idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
+                                dtype=torch.int32, device=device)
+            w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+            row_len = None
+        else:
+            idx, w, row_len = layout
+        x = _ones(n + 1, width, dtype, device)
+        rids = torch.randperm(n, generator=gen, device=device)[:rows]
+        rids = torch.cat([rids, rids.new_full((max(0, rows - n),), n)])
+        rids = rids.to(torch.int32)
+        return _ladder(key, cands, lambda b: _time(
+            lambda: ell_pull_frontier(x, idx, w, rids, combine=combine,
+                                      msg=msg, block_r=b,
+                                      row_len=row_len), device), in_time,
+            t0, launches0)
+
+    return _probe_and_keep(key, "pullf", probe, cands[0])
 
 
 def tune_push(n: int, m: int, width: int, dtype, combine: str, msg: str,
@@ -363,41 +447,44 @@ def tune_push(n: int, m: int, width: int, dtype, combine: str, msg: str,
             return int(be), int(bn), str(strat)
         except (TypeError, ValueError):
             pass   # poisoned cache entry: fall through and re-probe
-    with _LOCK:
-        _STATS["probes"] += 1
-    t0, launches0 = time.perf_counter(), launch_counts()
-    gen = _generator(device, 1)
-    dst = torch.sort(torch.randint(0, n, (m,), generator=gen,
-                                   dtype=torch.int32, device=device))[0]
-    src = torch.randint(0, n, (m,), generator=gen, dtype=torch.int32,
-                        device=device)
-    w = torch.ones((m,), dtype=torch.float32, device=device)
-    x = _ones(n, width, dtype, device)
-    active = torch.ones((n,), dtype=torch.bool, device=device)
-    host = (src.cpu().numpy(), dst.cpu().numpy(),
-            np.ones(m, dtype=np.float32))
-    plans: dict[int, object] = {}         # one plan per bin width
-    best, best_t, timed = None, None, 0
-    pruned: set[tuple[str, int]] = set()
-    seen: set[tuple[str, int]] = set()
-    for block_e, block_n, strategy in cands:
-        group = (strategy, block_n)
-        if group in pruned:
-            continue
-        if block_n not in plans:
-            plans[block_n] = build_push_plan(*host, n, block_n,
-                                             device=device)
-        t = _time(lambda: coo_push(
-            x, active, src, dst, w, n, combine=combine, msg=msg,
-            plan=plans[block_n], strategy=strategy, block_e=block_e),
-            device)
-        timed += 1
-        first = group not in seen
-        seen.add(group)
-        if best_t is None or t < best_t:
-            best, best_t = (block_e, block_n, strategy), t
-        elif first and t > _PRUNE * best_t:
-            pruned.add(group)    # the rest of the group only moves block_e
-    _record(key, timed, len(pruned), list(best), t0, launches0)
-    _cache_put(key, best)
-    return best
+
+    def probe(in_time):
+        t0, launches0 = time.perf_counter(), launch_counts()
+        gen = _generator(device, 1)
+        dst = torch.sort(torch.randint(0, n, (m,), generator=gen,
+                                       dtype=torch.int32, device=device))[0]
+        src = torch.randint(0, n, (m,), generator=gen, dtype=torch.int32,
+                            device=device)
+        w = torch.ones((m,), dtype=torch.float32, device=device)
+        x = _ones(n, width, dtype, device)
+        active = torch.ones((n,), dtype=torch.bool, device=device)
+        host = (src.cpu().numpy(), dst.cpu().numpy(),
+                np.ones(m, dtype=np.float32))
+        plans: dict[int, object] = {}         # one plan per bin width
+        best, best_t, timed = None, None, 0
+        pruned: set[tuple[str, int]] = set()
+        seen: set[tuple[str, int]] = set()
+        for block_e, block_n, strategy in cands:
+            group = (strategy, block_n)
+            if group in pruned:
+                continue
+            if timed:
+                in_time()
+            if block_n not in plans:
+                plans[block_n] = build_push_plan(*host, n, block_n,
+                                                 device=device)
+            t = _time(lambda: coo_push(
+                x, active, src, dst, w, n, combine=combine, msg=msg,
+                plan=plans[block_n], strategy=strategy, block_e=block_e),
+                device)
+            timed += 1
+            first = group not in seen
+            seen.add(group)
+            if best_t is None or t < best_t:
+                best, best_t = (block_e, block_n, strategy), t
+            elif first and t > _PRUNE * best_t:
+                pruned.add(group)  # the rest of the group only moves block_e
+        _record(key, timed, len(pruned), list(best), t0, launches0)
+        return best
+
+    return _probe_and_keep(key, "push", probe, cands[0])

@@ -1,5 +1,5 @@
 """solve_batch — one engine run answering B queries. PyTorch port of
-``repro.service.batch`` (the telemetry argument is a later slice).
+``repro.service.batch``.
 
 The batched path shares what a loop of single-source ``solve`` calls
 would repeat: the graph layouts, every pull step's scan (one scan, B
@@ -56,8 +56,8 @@ _ENGINE_CACHE = api.EngineCache()
 
 def _engine_for(g: Graph, algorithm: str, bspec: BatchSpec, batch: int,
                 policy: DirectionPolicy, backend: ExchangeBackend,
-                max_steps: Optional[int], static_kw: dict
-                ) -> PushPullEngine:
+                max_steps: Optional[int], static_kw: dict,
+                trace_capacity: int = 0) -> PushPullEngine:
     def build_engine() -> PushPullEngine:
         try:
             program, default_steps = bspec.build(
@@ -70,12 +70,12 @@ def _engine_for(g: Graph, algorithm: str, bspec: BatchSpec, batch: int,
         return PushPullEngine(
             program=program, policy=policy,
             max_steps=default_steps if max_steps is None else max_steps,
-            backend=backend)
+            backend=backend, trace_capacity=trace_capacity)
 
     return _ENGINE_CACHE.get_or_build(
         (algorithm, bspec, batch, policy, backend,
          tuple(sorted(static_kw.items())),
-         g.n, g.m, g.d_ell, max_steps), build_engine)
+         g.n, g.m, g.d_ell, max_steps, trace_capacity), build_engine)
 
 
 def _resolve(g: Graph, algorithm: str, sources, policy, backend, kw):
@@ -119,16 +119,22 @@ def default_step_bound(g: Graph, algorithm: str, batch: int, *,
 
 def solve_batch(g: Graph, algorithm: str, *, sources, policy=None,
                 backend=None, max_steps: Optional[int] = None,
-                **kw) -> BatchResult:
+                telemetry=None, **kw) -> BatchResult:
     """Batched multi-query solve — see :func:`repro_torch.api.solve_batch`
     for the public contract."""
     batch = int(_sources_array(sources).shape[0])
     bspec, policy, backend, static_kw = _resolve(
         g, algorithm, sources, policy, backend, kw)
+    tcap = api._DEFAULT_TRACE_CAPACITY if telemetry is not None else 0
     engine = _engine_for(g, algorithm, bspec, batch, policy, backend,
-                         max_steps, static_kw)
+                         max_steps, static_kw, trace_capacity=tcap)
     state0, frontier0 = bspec.init(g, sources, **kw)
-    res = engine.run(g, state0, frontier0)
+    if telemetry is None:
+        res = engine.run(g, state0, frontier0)
+    else:
+        res = api._solve_observed(telemetry, engine, g, state0, frontier0,
+                                  algorithm=algorithm, policy=policy,
+                                  backend=backend)
     done = bspec.done(g, res.state, None, **kw)
     states = [bspec.extract(g, res.state, i) for i in range(batch)]
     return BatchResult(states=states, state=res.state, cost=res.cost,

@@ -1,6 +1,6 @@
 """QueryService — continuous batching over fixed query slots. PyTorch
-port of ``repro.service.scheduler`` (fault injection, chunk retries and
-telemetry are later slices).
+port of ``repro.service.scheduler``, with its fault sites, chunk retries
+and telemetry.
 
 A fixed budget of B query *slots*, one batched engine run per compatible
 request group, and between engine *chunks* every finished query retires
@@ -23,6 +23,12 @@ engine, and identical in-flight requests coalesce onto one slot.
 
 Algorithms without a batched program still flow through submit/poll:
 each runs as one ``api.solve`` when its group is scheduled.
+
+Failures: each chunk (and each single solve) runs behind the
+``service.chunk`` fault site with bounded retries of transient errors;
+a failing result-cache lookup or store (``service.cache.get``,
+``service.cache.put``) degrades to a recompute. Each recovery is
+counted and noted for ``repro_torch.obs``.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from typing import Any, Optional
 
 from .. import api
 from ..graphs.structure import Graph
-from ..resilience import AdmissionError, DeadlineExceeded
+from ..resilience import (AdmissionError, DeadlineExceeded, FaultInjected,
+                          fault_point, note)
 from .batch import default_step_bound, run_chunk
 from .cache import ResultCache, graph_fingerprint
 from .programs import batchable, get_batch_spec
@@ -105,9 +112,20 @@ class QueryService:
             :class:`~repro_torch.resilience.AdmissionError` without
             consuming a request id. Cache hits and coalesced duplicates
             are always admitted. None means unbounded.
+        max_chunk_retries: retries of a transient failure (an injected
+            fault, I/O, a timeout) per chunk and per single solve,
+            behind the ``service.chunk`` fault site; deterministic
+            errors (a bad cell, bad kwargs) are never retried.
         clock: monotonic-seconds callable for deadline accounting.
         backend: the backend of every ``submit`` that names none (e.g.
             ``"cuda"``); None means the ``api`` default.
+        telemetry: a :class:`repro_torch.obs.Telemetry` handle, or None.
+            With a handle the scheduler emits ``service.*`` events
+            (submit outcomes, batch starts, chunk spans, force-retires),
+            serves single solves with the same handle (so they carry run
+            and step events), and folds :meth:`stats` and the
+            process-wide ``resilience.*`` counters into the handle each
+            time a batch drains.
     """
 
     def __init__(self, g: Graph, *, slots: int = 8,
@@ -116,17 +134,20 @@ class QueryService:
                  max_records: int = 4096,
                  cache: Optional[ResultCache] = None,
                  max_queue: Optional[int] = None,
-                 clock=time.monotonic, backend=None):
+                 max_chunk_retries: int = 2,
+                 clock=time.monotonic, backend=None, telemetry=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.telemetry = telemetry
         self.g = g
         self.slots = slots
         self.chunk_steps = chunk_steps
         self.max_chunks_per_query = max_chunks_per_query
         self.max_records = max_records
         self.max_queue = max_queue
+        self.max_chunk_retries = max_chunk_retries
         self.backend = backend
         self.cache = cache if cache is not None else ResultCache()
         self._clock = clock
@@ -143,9 +164,15 @@ class QueryService:
         self.batches_started = 0
         self.chunks_run = 0
         self.force_retired = 0
+        self.chunk_retries = 0
         self.deadline_expired = 0
         self.admission_rejected = 0
+        self.cache_errors = 0
         self._failures: deque = deque(maxlen=64)
+
+    def _emit(self, name: str, **fields) -> None:
+        if self.telemetry is not None:
+            self.telemetry.emit("event", name, **fields)
 
     # -- submission ------------------------------------------------------
     def submit(self, algorithm: str, source: Optional[int] = None, *,
@@ -179,12 +206,16 @@ class QueryService:
                 f"deadline_ms must be > 0, got {deadline_ms}")
         pkey = tuple(sorted(params.items()))
         ckey = (self._fp, algorithm, source, pkey, policy, backend)
-        hit = self.cache.get(ckey)
+        hit = self._cache_lookup(ckey)
         coalesce = hit is None and ckey in self._inflight
         if hit is None and not coalesce and self.max_queue is not None:
             queued = sum(len(q) for q in self._queues.values())
             if queued >= self.max_queue:
                 self.admission_rejected += 1
+                note("admission.service.reject", queued=queued,
+                     algorithm=algorithm)
+                self._emit("service.admission_reject",
+                           algorithm=algorithm, queued=queued)
                 raise AdmissionError(queued, self.max_queue)
         rid = self._next_rid
         self._next_rid += 1
@@ -195,11 +226,13 @@ class QueryService:
         if hit is not None:
             rec.state, rec.converged = hit
             rec.cached = True
+            self._emit("service.cache_hit", rid=rid, algorithm=algorithm)
             return rid
         if coalesce:                                 # coalesce duplicates
             self._inflight[ckey].append(rid)
             self.coalesced += 1
             self._pending += 1
+            self._emit("service.coalesce", rid=rid, algorithm=algorithm)
             return rid
         self._inflight[ckey] = [rid]
         self._pending += 1
@@ -271,12 +304,53 @@ class QueryService:
                 "batches_started": self.batches_started,
                 "chunks_run": self.chunks_run,
                 "force_retired": self.force_retired,
+                "chunk_retries": self.chunk_retries,
                 "deadline_expired": self.deadline_expired,
                 "admission_rejected": self.admission_rejected,
+                "cache_errors": self.cache_errors,
                 "failures": list(self._failures),
                 "cache": self.cache.stats()}
 
     # -- internals -------------------------------------------------------
+    def _cache_lookup(self, ckey):
+        """Guarded ResultCache lookup: a failing cache (injected or
+        real) degrades to a miss; the query is recomputed, never
+        dropped."""
+        try:
+            fault_point("service.cache.get")
+            return self.cache.get(ckey)
+        except (OSError, FaultInjected) as e:
+            self.cache_errors += 1
+            note("fallback.service.cache.get", error=type(e).__name__)
+            return None
+
+    def _cache_store(self, ckey, value):
+        """Guarded ResultCache store: a failing put loses the cache
+        entry (a later identical submit recomputes), not the result."""
+        try:
+            fault_point("service.cache.put")
+            self.cache.put(ckey, value)
+        except (OSError, FaultInjected) as e:
+            self.cache_errors += 1
+            note("fallback.service.cache.put", error=type(e).__name__)
+
+    def _chunk_call(self, fn):
+        """The ``service.chunk`` fault site and ``fn()``, with bounded
+        retries of transient failures (injected faults, I/O, timeouts).
+        Deterministic errors (a bad cell, bad kwargs) raise on the
+        first attempt."""
+        for attempt in range(self.max_chunk_retries + 1):
+            try:
+                fault_point("service.chunk")
+                return fn()
+            except (FaultInjected, OSError, TimeoutError,
+                    ConnectionError) as e:
+                if attempt >= self.max_chunk_retries:
+                    raise
+                self.chunk_retries += 1
+                note("retry.service.chunk", attempt=attempt + 1,
+                     error=type(e).__name__)
+
     def _waited_ms(self, rec) -> Optional[float]:
         """Elapsed ms since submit iff the record's deadline passed."""
         if rec.deadline_ms is None:
@@ -301,6 +375,9 @@ class QueryService:
             rec.error = DeadlineExceeded(rid, rec.deadline_ms, waited,
                                          where)
             self._pending -= 1
+            note("deadline.service", rid=rid, where=where)
+            self._emit("service.deadline", rid=rid, where=where,
+                       algorithm=rec.algorithm)
         if alive:
             self._inflight[ckey] = alive
             return True
@@ -313,7 +390,7 @@ class QueryService:
         if cacheable is None:
             cacheable = converged
         if cacheable:
-            self.cache.put(ckey, (state, converged))
+            self._cache_store(ckey, (state, converged))
         first = True
         for rid in self._inflight.pop(ckey, ()):
             rec = self._records[rid]
@@ -364,8 +441,10 @@ class QueryService:
             if source is not None:
                 params[_source_kwarg(algorithm)] = source
             try:
-                r = api.solve(self.g, algorithm, policy=policy,
-                              backend=backend, **params)
+                r = self._chunk_call(
+                    lambda: api.solve(self.g, algorithm, policy=policy,
+                                      backend=backend,
+                                      telemetry=self.telemetry, **params))
             except Exception as e:            # bad cell / bad kwargs
                 self._fail(ckey, e)
                 return True
@@ -401,19 +480,23 @@ class QueryService:
             slot_chunks=[0] * width, step_bound=step_bound,
             slot_steps0=[0] * width)
         self.batches_started += 1
+        self._emit("service.batch_start", algorithm=algorithm, width=width)
         return True
 
     def _run_chunk(self) -> int:
         act = self._active
         bspec = get_batch_spec(act.algorithm)
         # chunks never exceed the unchunked run's own step budget
+        t0 = (self.telemetry.now_us() if self.telemetry is not None
+              else 0.0)
         try:
-            res, done = run_chunk(
-                self.g, act.algorithm, act.width, state=act.state,
-                frontier=act.frontier, policy=act.policy,
-                backend=act.backend,
-                max_steps=min(self.chunk_steps, act.step_bound),
-                **act.params)
+            res, done = self._chunk_call(
+                lambda: run_chunk(
+                    self.g, act.algorithm, act.width, state=act.state,
+                    frontier=act.frontier, policy=act.policy,
+                    backend=act.backend,
+                    max_steps=min(self.chunk_steps, act.step_bound),
+                    **act.params))
         except Exception as e:
             for i, slot in enumerate(act.slot_rids):
                 if slot is not None:
@@ -428,6 +511,13 @@ class QueryService:
         act.total_steps += int(res.epochs if bspec.bound_unit == "epochs"
                                else res.steps)
         done = (done | bool(res.converged)).cpu().tolist()
+        if self.telemetry is not None:
+            # the done mask's host read synchronized the chunk, so the
+            # span covers its execution
+            self.telemetry.emit(
+                "span", "service.chunk", ts_us=t0,
+                dur_us=round(self.telemetry.now_us() - t0, 3),
+                algorithm=act.algorithm, width=act.width, steps=res.steps)
         finished = 0
         queue = self._queues.get(act.group, deque())
         # refill only a full-width batch with no other group waiting: an
@@ -452,6 +542,9 @@ class QueryService:
                              or consumed >= act.step_bound)
                 if exhausted and not done[i]:
                     self.force_retired += 1
+                    self._emit("service.force_retire",
+                               rid=act.slot_rids[i][0],
+                               algorithm=act.algorithm)
                 if done[i] or exhausted:
                     _, ckey = act.slot_rids[i]
                     self._finish(ckey, bspec.extract(self.g, act.state, i),
@@ -470,4 +563,8 @@ class QueryService:
             self._queues.pop(act.group, None)
         if all(s is None for s in act.slot_rids):
             self._active = None
+            if self.telemetry is not None:
+                from ..obs.metrics import collect_resilience, collect_service
+                collect_service(self.telemetry, self)
+                collect_resilience(self.telemetry)
         return finished

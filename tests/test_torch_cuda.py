@@ -504,3 +504,107 @@ def test_frontier_pull_pieces_match_plain(graphs, cuda, width):
                                               combine, msg, block_r=block_r,
                                               **kw)
                     assert torch.equal(got, again)
+
+
+# -- slice 8: float32 sums of the dense backend, the stepwise engine, spans
+
+
+def dense_push_sum(cuda, terms: list[float]) -> float:
+    """The dense backend's push of ``terms`` (float32), one edge each,
+    into vertex 0."""
+    from repro_torch.core.backend import DenseBackend
+    from repro_torch.core.cost_model import Cost
+    from repro_torch.graphs import build_graph
+    k = len(terms)
+    g = build_graph(np.arange(1, k + 1), np.zeros(k, np.int64), k + 1,
+                    device=cuda)
+    values = torch.tensor([0.0] + terms, dtype=torch.float32, device=cuda)
+    frontier = torch.ones(k + 1, dtype=torch.bool, device=cuda)
+    out, _ = DenseBackend().push(g, values, frontier, "sum", None,
+                                 Cost.zeros(cuda))
+    return out[0].item()
+
+
+def test_dense_push_keeps_subnormal_terms(cuda):
+    """Two 2^-130 terms sum to 2^-129: float32 atomics would flush both
+    to zero, the float64 accumulator keeps them."""
+    assert dense_push_sum(cuda, [2.0 ** -130, 2.0 ** -130]) == 2.0 ** -129
+
+
+def test_dense_push_rounds_once(cuda):
+    """1 + 2^-24 + 2^-24 rounds once, to 1 + 2^-23; summed in float32
+    from 1.0 on, each 2^-24 would round away."""
+    assert dense_push_sum(cuda, [1.0, 2.0 ** -24, 2.0 ** -24]) == \
+        1.0 + 2.0 ** -23
+
+
+@pytest.mark.parametrize("alg,policy,kw", [
+    ("bfs", "auto", {"root": 0}), ("bfs", "gs", {"root": 0}),
+    ("pagerank", "pull", {"iters": 10}), ("pagerank", "push", {"iters": 10}),
+    ("ppr", "auto", {"source": 3})])
+def test_run_stepwise_equals_run_on_card(cuda, alg, policy, kw):
+    """Through the autotuned CUDA backend, the same instance (its tuned
+    blocks and plans) launches the same kernels in both loops: state,
+    Cost, steps and every StepTrace row bit for bit, and the telemetry
+    path of ``solve`` equals the plain one."""
+    from repro_torch.core.engine import PushPullEngine
+    from repro_torch.graphs import kronecker
+    from repro_torch.obs import Telemetry
+    g = kronecker(12, edge_factor=16, seed=0, weighted=True, device=cuda)
+    be = api.CudaBackend()
+    spec = api.get_spec(alg)
+    pol = api._resolve_policy(policy)
+    program, steps = spec.build(g, policy=pol, backend=be)
+    eng = PushPullEngine(program=program, policy=pol, max_steps=steps,
+                         backend=be, trace_capacity=64)
+    state0, frontier0 = spec.init(g, **kw)
+    whole = eng.run(g, state0, frontier0)
+    times = {}
+    stepped = eng.run_stepwise(g, state0, frontier0,
+                               on_step=times.__setitem__)
+    sw, ss = ((r.state if isinstance(r.state, dict) else {"x": r.state})
+              for r in (whole, stepped))
+    for k in sw:
+        assert torch.equal(sw[k], ss[k]), k
+    assert whole.cost.as_dict() == stepped.cost.as_dict()
+    assert (whole.steps, whole.push_steps) == (stepped.steps,
+                                               stepped.push_steps)
+    assert whole.trace.as_dict(whole.steps) == \
+        stepped.trace.as_dict(whole.steps)
+    assert sorted(times) == list(range(whole.steps))
+    plain = api.solve(g, alg, policy=policy, backend=be, **kw)
+    tel = Telemetry()
+    seen = api.solve(g, alg, policy=policy, backend=be, telemetry=tel, **kw)
+    ps, os_ = ((r.state if isinstance(r.state, dict) else {"x": r.state})
+               for r in (plain, seen))
+    for k in ps:
+        assert torch.equal(ps[k], os_[k]), k
+    assert plain.cost.as_dict() == seen.cost.as_dict()
+    timed = [e for e in tel.events if e["kind"] == "step"]
+    assert len(timed) == seen.steps and all("us" in e for e in timed)
+    assert be.stats["fallback_pull"] == be.stats["fallback_push"] == 0
+
+
+def test_span_covers_the_kernels_it_wraps(cuda):
+    """A span given the card's device ends with a synchronize: its
+    ``dur_us`` is at least the CUDA-event time of the launches inside
+    it, not the time to enqueue them."""
+    from repro_torch.obs import Telemetry
+    g = standin("rca", scale=1 / 4, weighted=True, device=cuda)
+    x = pad_values(torch.rand((g.n, 16), device=cuda))
+    plan = ell_row_plan(g.in_deg, g.n, g.d_ell, 16)
+    ell_spmv(x, g.ell_idx, g.ell_w, "sum", "mul", row_len=g.in_deg,
+             plan=plan)
+    torch.cuda.synchronize()
+    tel = Telemetry()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with tel.span("pull", device=cuda):
+        start.record()
+        for _ in range(20):
+            ell_spmv(x, g.ell_idx, g.ell_w, "sum", "mul", row_len=g.in_deg,
+                     plan=plan)
+        end.record()
+    kernel_us = start.elapsed_time(end) * 1e3
+    (ev,) = tel.events
+    assert kernel_us > 0 and ev["dur_us"] >= kernel_us

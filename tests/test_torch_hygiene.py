@@ -47,7 +47,10 @@ def test_modules_import_without_jax_or_repro():
             "repro_torch.models.attention", "repro_torch.models.transformer",
             "repro_torch.models.recsys", "repro_torch.sparse.embedding",
             "repro_torch.configs.shapes",
-            "repro_torch.configs.archs"} <= set(port_modules())
+            "repro_torch.configs.archs", "repro_torch.obs.trace",
+            "repro_torch.obs.metrics", "repro_torch.obs.export",
+            "repro_torch.obs.report", "repro_torch.resilience.faults",
+            "repro_torch.core.engine"} <= set(port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for name in {port_modules() + ['chip_smoke']!r}:\n"
