@@ -127,6 +127,32 @@ non-zero:
      timed as in 6, beside ``scaled_dot_product_attention`` (causal,
      GQA; the llama layer) and ``torch.einsum`` (the CIN layer, whose
      row adds its 3xTF32 floor beside the f32 bound).
+ 12. Main path of slice 9 (run after 10, before the
+     kernel timings of 6 and the model phases), ``"shard"``: the sharded
+     engine at full size on both graphs, four shards on one card
+     (``make_shard_mesh(4, devices=[cuda] * 4)``; the "wire" is copies
+     in the card's memory, not NVLink), the ``ell_spmv`` kernel inside
+     each shard's pull (``inner="cuda"``): BFS (auto), PageRank (push,
+     pull; 20 iterations) and SSSP (push); ``DistributedBackend`` at
+     P = 4 for BFS and PageRank (push, pull); ``backend="shard"`` on the
+     default mesh (a shard per card; PageRank pull on both graphs, BFS
+     on kron16). Each run once plain (its wall) and, but SSSP (a phase
+     program), once under telemetry (its median step time;
+     bit-identical), and
+     held against the main path's autotuned CUDA run and the dense run:
+     integers, min and max bit for bit, float sums to 1e-5 relative.
+     Then ``predict_comm_bytes`` against the charged bytes of one push
+     and one pull step with the real cut; on kron16 one
+     ``shard.exchange.push`` fault retried to the same bits, and
+     PageRank push with top-k (1 %) and int8 compression, stepped by
+     hand: each step's error carry against the sent message and the
+     delivered sums, the wire bytes against the formula, the distance
+     from the uncompressed ranks. ``ell_spmv`` must launch and no
+     sharded pull may give way to the ELL executor. The card's busy
+     share over one sharded PageRank pull, and ``ell_spmv`` at the
+     shard shape (four [n/4, d_ell] blocks against the gathered vector)
+     at width 1 and the serving width, timed as in 6 beside
+     ``torch.sparse.mm`` on each shard's CSR rows.
 
 Launch counts are zeroed just before each main path and read just after
 it; every kernel of the path must have launched and no step of the graph
@@ -153,6 +179,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core import backend as backend_module  # noqa: E402
+from repro_torch.core.cost_model import Cost  # noqa: E402
+from repro_torch.core.direction import Direction  # noqa: E402
 from repro_torch.graphs import (build_graph, kronecker, standin,  # noqa: E402
                                 star)
 from repro_torch.graphs.structure import pad_values  # noqa: E402
@@ -180,6 +208,7 @@ from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_params, pad_kv_cache,
                                             prefill)
 from repro_torch.service import QueryService  # noqa: E402
+from repro_torch.shard import ShardedBackend  # noqa: E402
 from repro_torch.sparse.segment import (reduce_identity,  # noqa: E402
                                        segment_sum)
 
@@ -600,11 +629,13 @@ def run_kwargs(alg: str, delta: float) -> dict:
             "sssp_delta": {"source": 0, "delta": delta}}[alg]
 
 
-def main_path(graphs: dict) -> tuple[dict, dict]:
+def main_path(graphs: dict) -> tuple[dict, dict, dict]:
     """Slice 1's main path: every solve through the CUDA backend, with
-    the launch counts zeroed just before and read just after."""
+    the launch counts zeroed just before and read just after. Returns
+    the results and their walls (ms), by (graph, alg, policy), and the
+    launch counts."""
     be = api.BACKEND_SHORTHANDS["cuda"]
-    results = {}
+    results, walls = {}, {}
     stats0 = dict(be.stats)
     _build.reset_launch_counts()
     tune.clear_stats()
@@ -618,6 +649,7 @@ def main_path(graphs: dict) -> tuple[dict, dict]:
             wall_ms = (time.perf_counter() - t0) * 1e3
             after = _build.launch_counts()
             results[(gname, alg, policy)] = r
+            walls[(gname, alg, policy)] = wall_ms
             emit({"phase": "solve", "graph": gname, "alg": alg,
                   "policy": policy, "backend": "cuda", "wall_ms": wall_ms,
                   "steps": r.steps, "push_steps": r.push_steps,
@@ -636,7 +668,7 @@ def main_path(graphs: dict) -> tuple[dict, dict]:
     for k in ("fallback_pull", "fallback_push"):
         if stats[k] != 0:
             fail(f"{stats[k]} main-path steps fell back ({k})")
-    return results, counts
+    return results, walls, counts
 
 
 def host_reference(g, alg: str, kw: dict):
@@ -660,12 +692,15 @@ def host_reference(g, alg: str, kw: dict):
     return dijkstra(a, indices=kw["source"])
 
 
-def check_answers(graphs: dict, results: dict) -> None:
-    """Phase 4: the dense backend on the card and a host solver."""
+def check_answers(graphs: dict, results: dict) -> dict:
+    """Phase 4: the dense backend on the card and a host solver. Returns
+    the dense runs, by (graph, alg, policy)."""
+    dense_runs = {}
     for (gname, alg, policy), r in results.items():
         g, delta = graphs[gname]
         kw = run_kwargs(alg, delta)
         dense = api.solve(g, alg, policy=policy, backend="dense", **kw)
+        dense_runs[(gname, alg, policy)] = dense
         got = r.state if isinstance(r.state, dict) else {"rank": r.state}
         want = (dense.state if isinstance(dense.state, dict)
                 else {"rank": dense.state})
@@ -699,6 +734,7 @@ def check_answers(graphs: dict, results: dict) -> None:
         emit({"phase": "check", "graph": gname, "alg": alg,
               "policy": policy, "equal_to_dense": True,
               "equal_to_host_solver": True})
+    return dense_runs
 
 
 # -- the serving path ------------------------------------------------------
@@ -1649,6 +1685,383 @@ def more_kernel_rows(gname: str, g, auto, results: dict,
     torch.cuda.synchronize()
 
 
+# -- slice 9: the sharded engine -------------------------------------------
+SHARDS = 4
+# (algorithm, policy) of the sharded runs, and of the DistributedBackend
+# runs; each is held against the main path's run of the same algorithm
+# (BFS's dist and parent do not depend on the direction: both take the
+# least frontier neighbour)
+SHARD_RUNS = (("bfs", "auto"), ("pagerank", "push"), ("pagerank", "pull"),
+              ("sssp_delta", "push"))
+DIST_RUNS = (("bfs", "push"), ("bfs", "pull"), ("pagerank", "push"),
+             ("pagerank", "pull"))
+MAIN_OF = {("bfs", "push"): ("bfs", "pull")}
+# backend="shard" (a shard per card): PageRank on both graphs, BFS on
+# kron16 (rca's 2,290 host-bound BFS steps add nothing to the check)
+SHORTHAND_RUNS = {"rca": (("pagerank", "pull"),),
+                  "kron16": (("bfs", "auto"), ("pagerank", "pull"))}
+SHARD_COMPRESSION = {"topk": 0.01, "int8": 0.01}
+
+
+def same_answer(got, want, float_sum: bool, what: str) -> None:
+    """Integers, min and max bit for bit; float sums to 1e-5 relative."""
+    ga, wa = state_dict(got), state_dict(want)
+    for k in wa:
+        a, b = ga[k], wa[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{what} {k}: {a.dtype}{tuple(a.shape)} against "
+                 f"{b.dtype}{tuple(b.shape)}")
+        if float_sum:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0,
+                                       msg=lambda m: f"{what} {k}: {m}")
+        elif not torch.equal(a, b):
+            fail(f"{what} {k}: {int((a != b).sum())} entries differ")
+
+
+def shard_solve(g, alg: str, policy: str, backend, delta: float):
+    """One timed solve, then, for a flat program, the same solve under a
+    ``Telemetry`` handle for its step times (bit-identical, else the run
+    fails; a phase program runs whole and has none)."""
+    from repro_torch.obs import Telemetry
+    kw = run_kwargs(alg, delta)
+    r, wall_ms = synced_ms(lambda: api.solve(g, alg, policy=policy,
+                                             backend=backend, **kw))
+    if alg == "sssp_delta":
+        return r, wall_ms, None
+    tel = Telemetry()
+    seen = api.solve(g, alg, policy=policy, backend=backend, telemetry=tel,
+                     **kw)
+    torch.cuda.synchronize()
+    same_answer(seen.state, r.state, False, f"{alg}/{policy} telemetry")
+    if seen.cost.as_dict() != r.cost.as_dict() or seen.steps != r.steps:
+        fail(f"{alg}/{policy}: the telemetry run's Cost or steps differ")
+    us = [e["us"] for e in tel.events_for(tel.last_run, "step")
+          if "us" in e]
+    return r, wall_ms, (statistics.median(us) / 1e3 if us else None)
+
+
+def shard_line(gname: str, alg: str, policy: str, backend, run: tuple,
+               main: dict, kind: str) -> dict:
+    """Check one sharded or distributed run (``run``: result, wall ms,
+    median step ms) against the main path's CudaBackend run and the
+    dense backend (``main``: "cuda", "dense" and "wall_ms", each keyed
+    by (graph, alg, policy)); print its line."""
+    r, wall_ms, step_ms = run
+    main_key = (gname,) + MAIN_OF.get((alg, policy), (alg, policy))
+    float_sum = alg == "pagerank"
+    what = f"{kind} {gname}/{alg}/{policy}"
+    same_answer(r.state, main["cuda"][main_key].state, float_sum,
+                what + " against cuda")
+    same_answer(r.state, main["dense"][main_key].state, float_sum,
+                what + " against dense")
+    line = {"phase": "shard", "kind": kind, "graph": gname, "alg": alg,
+            "policy": policy, "shards": backend.part.num_parts,
+            "wall_ms": wall_ms, "steps": r.steps,
+            "push_steps": r.push_steps, "step_ms_median": step_ms,
+            "single_device_wall_ms": main["wall_ms"][main_key],
+            "single_device_policy": main_key[2],
+            "cut_edges": backend.cut_edges,
+            "collective_bytes": int(r.cost.collective_bytes),
+            "cost": r.cost.as_dict(), "equal_to_cuda": True,
+            "equal_to_dense": True}
+    if isinstance(backend, ShardedBackend):
+        line |= {"inner": backend.inner,
+                 "border_vertices": backend.topo.border_vertices,
+                 "dispatch": dict(backend.stats)}
+    emit(line)
+    return line
+
+
+def predict_check(gname: str, g, sb) -> None:
+    """predict_comm_bytes against the bytes one push step and one pull
+    step charge, on a sparse and a full frontier, for the float32 sum
+    and int32 min payloads of the path."""
+    gen = torch.Generator(device=g.device).manual_seed(3)
+    dev = g.device
+    lines = []
+    for dtype, combine in ((torch.float32, "sum"), (torch.int32, "min")):
+        vals = (torch.rand(g.n, generator=gen, device=dev)
+                if dtype.is_floating_point else
+                torch.randint(0, g.n, (g.n,), generator=gen, device=dev,
+                              dtype=dtype))
+        for name, frontier in (
+                ("sparse", torch.arange(g.n, device=dev) % 97 == 0),
+                ("full", torch.ones(g.n, dtype=torch.bool, device=dev))):
+            pb, lb = sb.predict_comm_bytes(g, vals, frontier)
+            _, cp = sb.push(g, vals, frontier, combine, None,
+                            Cost.zeros(dev))
+            _, cl = sb.pull(g, vals, None, combine, None, Cost.zeros(dev))
+            got = (int(cp.collective_bytes), int(cl.collective_bytes))
+            if got != (int(pb), int(lb)) or 0 in got:
+                fail(f"shard {gname}: predicted wire bytes {int(pb)}, "
+                     f"{int(lb)}; charged {got}")
+            lines.append({"payload": f"{dtype} {combine}",
+                          "frontier": name, "push_bytes": got[0],
+                          "pull_bytes": got[1]})
+    emit({"phase": "shard_predict", "graph": gname, "shards": SHARDS,
+          "cut_edges": sb.cut_edges, "checks": lines,
+          "predicted_equals_charged": True})
+
+
+def compression_check(gname: str, g, mesh, main) -> None:
+    """PageRank push with top-k and int8 compression, stepped by hand so
+    that each step's error feedback can be read: per shard and element,
+    what was sent (``acc + old_err − new_err``, with ``acc`` the remote
+    accumulator recomputed here) is a top-k or int8 message of ``acc +
+    old_err``, and the owners received the local sums plus what every
+    shard sent. The wire bytes equal the formula and the last state
+    equals ``api.solve``'s; its distance from the uncompressed ranks is
+    printed."""
+    from repro_torch.core.algorithms import pagerank_init, pagerank_program
+    from repro_torch.dist import CompressionConfig
+    from repro_torch.dist.collectives import place_edges
+    dev = g.device
+    for kind, frac in SHARD_COMPRESSION.items():
+        cfg = CompressionConfig(kind, frac)
+        sb = ShardedBackend.prepare(g, mesh=mesh, inner="cuda",
+                                    compression=cfg)
+        part, topo = sb.part, sb.topo
+        npad = part.n_padded
+        loc_rows = place_edges(topo.local, (dev,) * SHARDS)
+        prog, iters = pagerank_program(g, iters=20)
+        state, frontier = pagerank_init(g)
+        err = sb.init_exchange_state(g)
+        total = Cost.zeros(dev)
+        worst = 0.0
+        k = max(1, int(frac * npad))
+        for step in range(iters):
+            values = prog.values_fn(g, state, frontier)
+            # one row past n_padded: padding slots name the sentinel n
+            vpad = torch.cat([values, values.new_zeros(npad + 1 - g.n)])
+            fpad = torch.cat([frontier, frontier.new_zeros(npad + 1 - g.n)])
+            out, total, new_err = sb.relax_ex(
+                g, values, frontier, direction=Direction.PUSH,
+                combine="sum", msg_fn=None, cost=total, xstate=err)
+            want = torch.zeros(npad, dtype=torch.float64, device=dev)
+            for e in loc_rows:
+                ok = e.valid & fpad[e.src.long()]
+                want.index_add_(0, e.dst[ok].long(),
+                                vpad[e.src[ok].long()].double())
+            for p, e in enumerate(topo.remote_rows):
+                # the remote accumulator, through the segment sum the
+                # exchange uses (a float32 sum rounds the same way)
+                ok = e.valid & fpad[e.src.long()]
+                acc = segment_sum(torch.where(ok, vpad[e.src.long()], 0.0),
+                                  torch.where(e.valid, e.dst.long(), npad),
+                                  npad)
+                s = acc + err[p]
+                sent = s - new_err[p]
+                if kind == "topk":
+                    kept = sent != 0
+                    if int(kept.sum()) > k or not (
+                            torch.equal(sent[kept], s[kept])
+                            and torch.equal(new_err[p][~kept], s[~kept])):
+                        fail(f"shard {gname} topk step {step} shard {p}: "
+                             "the error carry is not acc + err − sent")
+                else:
+                    scale = float(s.abs().max().clamp(min=1e-12)) / 127
+                    q = sent / scale
+                    if (q - q.round()).abs().max() > 1e-3 or \
+                            q.abs().max() > 127 + 1e-3:
+                        fail(f"shard {gname} int8 step {step} shard {p}: "
+                             "what was sent is not on the int8 grid")
+                want += sent.double()
+            gap = (out.double() - want[:g.n]).abs() / want[:g.n].abs().clamp(
+                min=1e-30)
+            worst = max(worst, float(gap.max()))
+            if worst > 1e-5:
+                fail(f"shard {gname} {kind} step {step}: delivered sums "
+                     f"{worst} from local + sent")
+            state, frontier, _ = prog.update_fn(state, out, step)
+            err = new_err
+        r = api.solve(g, "pagerank", policy="push", backend=sb, iters=iters)
+        same_answer(r.state, state, False, f"shard {gname} {kind} solve")
+        per_dev = k * 8 if kind == "topk" else npad + 4
+        if int(r.cost.collective_bytes) != iters * SHARDS * per_dev or \
+                int(total.collective_bytes) != iters * SHARDS * per_dev:
+            fail(f"shard {gname} {kind}: collective_bytes "
+                 f"{int(r.cost.collective_bytes)}, formula "
+                 f"{iters * SHARDS * per_dev}")
+        ref = main.state
+        emit({"phase": "shard_compression", "graph": gname, "kind": kind,
+              "frac": frac if kind == "topk" else None, "steps": r.steps,
+              "collective_bytes": int(r.cost.collective_bytes),
+              "uncompressed_bytes": iters * SHARDS * npad * 4,
+              "feedback_identity": True,
+              "delivered_rel_gap_max": worst,
+              "l1_from_uncompressed": float((r.state - ref).abs().sum()),
+              "max_rel_from_uncompressed": float(
+                  ((r.state - ref).abs() / ref.abs()).max()),
+              "residual_l1": sum(float(e.abs().sum()) for e in err)})
+
+
+def shard_fault_check(gname: str, g, sb, delta: float) -> None:
+    """One injected ``shard.exchange.push`` fault, retried in place: the
+    solve stays bit-identical."""
+    from repro_torch import resilience
+    kw = run_kwargs("bfs", delta)
+    clean = api.solve(g, "bfs", policy="push", backend=sb, **kw)
+    plan = resilience.FaultPlan(name="shard-push-once", seed=7, specs=(
+        resilience.FaultSpec(site="shard.exchange.push", kind="transient",
+                             every=1 << 30, start=2),))
+    resilience.clear_resilience_stats()
+    with resilience.inject(plan) as inj:
+        r = api.solve(g, "bfs", policy="push", backend=sb, **kw)
+    torch.cuda.synchronize()
+    injected = inj.stats()["injected"].get("shard.exchange.push", 0)
+    retries = resilience.resilience_stats().get(
+        "retry.shard.exchange.push", 0)
+    resilience.drain_events()
+    same_answer(r.state, clean.state, False, f"shard {gname} under a fault")
+    if injected != 1 or retries != 1 or \
+            r.cost.as_dict() != clean.cost.as_dict():
+        fail(f"shard {gname}: {injected} faults, {retries} retries, or "
+             "the Cost moved")
+    emit({"phase": "shard_fault", "graph": gname, "alg": "bfs",
+          "policy": "push", "injected": injected, "retries": retries,
+          "equal_to_fault_free": True})
+
+
+def shard_kernel_rows(gname: str, g, sb, launches: int) -> list:
+    """``ell_spmv`` at the shard shape: each of the four shards' [shard,
+    d_ell] blocks (row_len = in-degree, its own row plan) against the
+    gathered vector [n_padded + 1(, B)] with num_sources = n, as the
+    sharded pull calls it, at width 1 and at the serving width; held
+    against the plain version, then the four launches of one pull step
+    timed together (and each alone), beside the four plain calls and
+    ``torch.sparse.mm`` on each shard's CSR row block. The bound is
+    the full pull's: the step computes the same function."""
+    gen = torch.Generator(device=g.device).manual_seed(5)
+    topo, part = sb.topo, sb.part
+    n, m, d, s, npad = g.n, g.m, g.d_ell, part.shard_size, part.n_padded
+    reps = 20 if n * d < 1e8 else 8
+    ptr = g.in_ptr.long()
+    csr = []
+    for p in range(SHARDS):
+        end = min((p + 1) * s, n)
+        lo, hi = int(ptr[p * s]), int(ptr[end])
+        crow = ptr[p * s:end + 1] - lo
+        crow = torch.cat([crow, crow[-1:].expand(s + 1 - crow.numel())])
+        csr.append(torch.sparse_csr_tensor(
+            crow, g.coo_src[lo:hi].long(),
+            torch.ones(hi - lo, device=g.device), (s, npad)))
+    out = []
+    for width in (1, BATCH[gname]):
+        xp = torch.rand((npad + 1, width) if width > 1 else (npad + 1,),
+                        generator=gen, device=g.device)
+        xp[n:] = 0
+        calls = [(topo.ell_idx[p], topo.ell_w[p], topo.row_plan(p, width))
+                 for p in range(SHARDS)]
+
+        def kernel(xp=xp, calls=calls):
+            return [ell_spmv(xp, i, w, "sum", "copy", num_sources=n,
+                             block_n=min(256, s), plan=pl)
+                    for i, w, pl in calls]
+
+        def plain(xp=xp, calls=calls):
+            return [ell_spmv_plain(xp, i, w, "sum", "copy", num_sources=n,
+                                   row_len=pl.row_len)
+                    for i, w, pl in calls]
+
+        def library(xp=xp):
+            x2 = xp[:npad] if xp.ndim == 2 else xp[:npad, None]
+            return [torch.sparse.mm(a, x2) for a in csr]
+
+        err = max(max_abs_err(a, b, "sum", f"ell_spmv shard {p} at {gname}")
+                  for p, (a, b) in enumerate(zip(kernel(), plain())))
+        per_shard = [time_ms(lambda c=c, xp=xp: ell_spmv(
+            xp, c[0], c[1], "sum", "copy", num_sources=n,
+            block_n=min(256, s), plan=c[2]), reps) for c in calls]
+        out.append(kernel_row(
+            "ell_spmv",
+            f"{SHARDS} shards × idx[{s},{d}] against x f32[{npad + 1}, "
+            f"{width}] num_sources {n} row_len in_deg sum/copy (the "
+            "sharded pull step)", err, kernel, plain, library,
+            nbytes=m * 4 + n * 4 + (2 * n + 1) * width * 4, ops=m * width,
+            reps=reps, path="shard", graph=gname, width=width,
+            launches=launches, per_shard_ms=per_shard,
+            pieces=[c[2].pieces for c in calls]))
+    torch.cuda.synchronize()
+    return out
+
+
+def shard_path(graphs: dict, main: dict) -> tuple[dict, list]:
+    """Slice 9's main path: the sharded engine, four shards on one card
+    (``make_shard_mesh(4, devices=[cuda] * 4)``) with the ``ell_spmv``
+    kernel inside each shard's pull, and ``DistributedBackend`` at P = 4,
+    through ``api.solve`` on both graphs at full size; then
+    ``backend="shard"`` on the default mesh (a shard per card). The launch
+    counts are zeroed just before and read just after. ``main`` holds
+    the single-device runs each answer is held against (see
+    :func:`shard_line`)."""
+    from repro_torch.shard import make_shard_mesh
+    card = next(iter(graphs.values()))[0].device
+    mesh = make_shard_mesh(SHARDS, devices=[card] * SHARDS)
+    prepared = {}
+    for gname, (g, _) in graphs.items():
+        t0 = time.perf_counter()
+        sb = ShardedBackend.prepare(g, mesh=mesh, inner="cuda")
+        db = api.DistributedBackend.prepare(g, mesh=mesh)
+        torch.cuda.synchronize()
+        prepared[gname] = (sb, db)
+        emit({"phase": "shard_prepare", "graph": gname, "shards": SHARDS,
+              "shard_size": sb.part.shard_size,
+              "n_padded": sb.part.n_padded, "cut_edges": sb.cut_edges,
+              "border_vertices": sb.topo.border_vertices,
+              "pull_cap": sb.topo.pull_edges.cap,
+              "remote_cap": sb.topo.remote.cap,
+              "prepare_s": time.perf_counter() - t0})
+    tune.clear_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for gname, (g, delta) in graphs.items():
+        sb, db = prepared[gname]
+        for alg, policy in SHARD_RUNS:
+            shard_line(gname, alg, policy, sb,
+                       shard_solve(g, alg, policy, sb, delta), main,
+                       "sharded")
+        for alg, policy in DIST_RUNS:
+            shard_line(gname, alg, policy, db,
+                       shard_solve(g, alg, policy, db, delta), main,
+                       "distributed")
+        default = api._resolve_backend("shard", g)
+        if default.part.num_parts != torch.cuda.device_count():
+            fail("backend='shard' did not take a shard per card")
+        for alg, policy in SHORTHAND_RUNS[gname]:
+            shard_line(gname, alg, policy, default,
+                       shard_solve(g, alg, policy, "shard", delta), main,
+                       "shorthand")
+        predict_check(gname, g, sb)
+    g, delta = graphs["kron16"]
+    shard_fault_check("kron16", g, prepared["kron16"][0], delta)
+    compression_check("kron16", g, mesh,
+                      main["cuda"][("kron16", "pagerank", "push")])
+    seconds = time.perf_counter() - t0
+    counts = path_launches({k: 0 for k in _build.KERNELS},
+                           probe_lines("shard"))
+    dispatch = {gname: dict(sb.stats) for gname, (sb, _) in prepared.items()}
+    emit({"phase": "shard_path", "seconds": seconds, "launches": counts,
+          "dispatch": dispatch})
+    if counts["ell_spmv"] <= 0:
+        fail("ell_spmv was never launched on the shard path")
+    for gname, st in dispatch.items():
+        if st["fallback_pull"] or st["kernel_pull"] <= 0:
+            fail(f"shard {gname}: {st['kernel_pull']} kernel pulls, "
+                 f"{st['fallback_pull']} fallbacks")
+    # the card's busy share over one sharded PageRank pull
+    for gname, (g, _) in graphs.items():
+        prof = device_profile(lambda g=g: api.solve(
+            g, "pagerank", policy="pull", backend=prepared[gname][0],
+            iters=20))
+        emit({"phase": "shard_profile", "graph": gname, "alg": "pagerank",
+              "policy": "pull", "shards": SHARDS, **prof})
+    rows = []
+    for gname, (g, _) in graphs.items():
+        rows += shard_kernel_rows(gname, g, prepared[gname][0],
+                                  counts["ell_spmv"])
+    return counts, rows
+
+
 # -- kernels at the main path's shapes -------------------------------------
 def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     """Phase 5 on one graph: each kernel at the shape the main path gives
@@ -2250,8 +2663,8 @@ def main() -> int:
             "mxu": api.CudaBackend(push_strategy="mxu"),
             "auto": api.BACKEND_SHORTHANDS["cuda"]}
     tune_phase(graphs, list(ways.values()))
-    results, counts = main_path(graphs)
-    check_answers(graphs, results)
+    results, walls, counts = main_path(graphs)
+    dense = check_answers(graphs, results)
     serving = serving_path(graphs, ways)
     counts = {k: counts[k] + serving[k] for k in counts}
     push_choice_phase(graphs, ways)
@@ -2261,6 +2674,12 @@ def main() -> int:
     check_more(graphs, more, results)
     observed = observe_path(graphs, more)
     counts = {k: counts[k] + observed[k] for k in counts}
+    sharded, shard_rows = shard_path(
+        graphs, {"cuda": results, "dense": dense, "wall_ms": walls})
+    counts = {k: counts[k] + sharded[k] for k in counts}
+    errs["ell_spmv"] = max(errs["ell_spmv"],
+                           *(r["max_abs_err"] for r in shard_rows))
+    del dense
 
     rows = []
     for gname, (g, _) in graphs.items():

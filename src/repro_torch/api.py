@@ -5,8 +5,10 @@ source-parameterized ones in one engine run, each with the reference's
 telemetry (``telemetry=``) and, for ``solve``, its resilience guards
 (``check_finite=``, ``checkpoint_every=``).
 
+    import torch
     from repro_torch import api
     from repro_torch.graphs import kronecker
+    from repro_torch.shard import ShardedBackend
 
     g = kronecker(12, 16, weighted=True)                    # on the card
     r = api.solve(g, "pagerank", iters=20, backend="cuda")  # CUDA kernels
@@ -15,6 +17,10 @@ telemetry (``telemetry=``) and, for ``solve``, its resilience guards
     r = api.solve(g, "mst_boruvka", backend="cuda")         # local steps
     br = api.solve_batch(g, "ppr", sources=[0, 5, 9], backend="cuda")
     br.states[1]["ranks"]          # == solve(g, "ppr", source=5).state
+    r = api.solve(g, "pagerank", backend="shard")  # a shard per card
+    sb = ShardedBackend.prepare(g, devices=[torch.device("cuda")] * 4,
+                                inner="cuda")       # 4 shards, one card
+    r = api.solve(g, "bfs", root=0, policy="auto", backend=sb)
 
     tel = Telemetry()              # repro_torch.obs: step times, counters
     r = api.solve(g, "bfs", root=0, policy="auto", backend="cuda",
@@ -22,7 +28,8 @@ telemetry (``telemetry=``) and, for ``solve``, its resilience guards
 
 ``policy`` picks the direction per step (``"push"``, ``"pull"``,
 ``"gs"``, ``"grs"``, ``"auto"`` or a DirectionPolicy); ``backend`` the
-memory system (``"dense"``, ``"ell"``, ``"cuda"`` or an ExchangeBackend).
+memory system (``"dense"``, ``"ell"``, ``"cuda"``, ``"shard"`` or an
+ExchangeBackend such as ``DistributedBackend.prepare(g)``).
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ from .core.algorithms import (
     pr_delta_program, sssp_delta_finalize, sssp_delta_init,
     sssp_delta_program, triangle_finalize, triangle_init, triangle_program,
     wcc_init, wcc_program)
-from .core.backend import (CudaBackend, DenseBackend, EllBackend,
-                           ExchangeBackend)
+from .core.backend import (CudaBackend, DenseBackend, DistributedBackend,
+                           EllBackend, ExchangeBackend)
 from .core.cost_model import Cost, StepTrace
 from .core.direction import (AutoSwitch, Direction, DirectionPolicy, Fixed,
                              GenericSwitch, GreedySwitch)
@@ -52,7 +59,8 @@ __all__ = ["RunResult", "AlgorithmSpec", "EngineCache", "register",
            "algorithms", "get_spec", "solve", "solve_batch",
            "validate_vertex_indices",
            "POLICY_SHORTHANDS", "BACKEND_SHORTHANDS", "DenseBackend",
-           "EllBackend", "CudaBackend", "ExchangeBackend", "Fixed",
+           "EllBackend", "CudaBackend", "DistributedBackend",
+           "ExchangeBackend", "Fixed",
            "GenericSwitch", "GreedySwitch", "AutoSwitch", "Direction"]
 
 
@@ -80,6 +88,8 @@ class AlgorithmSpec:
     init(g, **kw) -> (init_state, init_frontier).
     finalize(g, state) -> public state.
     runtime_keys: kwargs consumed only by ``init`` (not in the cache key).
+    backends: declared-supported backend names (introspection only; the
+        authoritative check lives in ``build``).
     """
     name: str
     build: Callable
@@ -87,6 +97,7 @@ class AlgorithmSpec:
     finalize: Callable = staticmethod(lambda g, state: state)
     default_policy: DirectionPolicy = GenericSwitch()
     runtime_keys: tuple = ()
+    backends: tuple = ("dense", "ell", "cuda", "distributed", "shard")
     paper: str = ""
 
 
@@ -191,18 +202,47 @@ def _resolve_policy(policy) -> DirectionPolicy:
             "instance)") from None
 
 
-def _resolve_backend(backend) -> ExchangeBackend:
+# graph-specific "shard" backends, one per live graph (keyed by id, with
+# a weakref guard against id reuse after collection)
+_SHARD_BACKENDS: dict[int, tuple] = {}
+
+
+def _shard_backend_for(g: Graph) -> ExchangeBackend:
+    import weakref
+
+    from .shard import ShardedBackend
+    key = id(g)
+    hit = _SHARD_BACKENDS.get(key)
+    if hit is not None and hit[0]() is g:
+        return hit[1]
+    prepared = ShardedBackend.prepare(g)
+    ref = weakref.ref(g, lambda _: _SHARD_BACKENDS.pop(key, None))
+    _SHARD_BACKENDS[key] = (ref, prepared)
+    return prepared
+
+
+def _resolve_backend(backend, g: Optional[Graph] = None) -> ExchangeBackend:
     if backend is None:
         return BACKEND_SHORTHANDS["dense"]
     if not isinstance(backend, str):
         return backend
+    if backend == "shard":
+        # graph-specific: prepared per graph (a shard per visible CUDA
+        # device), not a shared instance like the other shorthands
+        if g is None:
+            raise ValueError(
+                "backend='shard' is graph-specific; pass it through "
+                "solve()/solve_batch(), or prepare an instance with "
+                "repro_torch.shard.ShardedBackend.prepare(g)")
+        return _shard_backend_for(g)
     try:
         return BACKEND_SHORTHANDS[backend]
     except KeyError:
         raise ValueError(
             f"unknown backend shorthand {backend!r}; valid options: "
-            f"{sorted(BACKEND_SHORTHANDS)} (or pass an ExchangeBackend "
-            "instance)") from None
+            f"{sorted(BACKEND_SHORTHANDS) + ['shard']} (or pass an "
+            "ExchangeBackend instance, e.g. "
+            "DistributedBackend.prepare(g))") from None
 
 
 def solve(g: Graph, algorithm: str, *,
@@ -220,7 +260,9 @@ def solve(g: Graph, algorithm: str, *,
         policy: a DirectionPolicy or ``"push"``, ``"pull"``, ``"gs"``,
             ``"grs"``, ``"auto"``; default: the algorithm's own.
         backend: an ExchangeBackend or ``"dense"`` (default), ``"ell"``,
-            ``"cuda"`` (the CUDA kernels; plain versions on CPU tensors).
+            ``"cuda"`` (the CUDA kernels; plain versions on CPU tensors),
+            ``"shard"`` (a ``ShardedBackend`` prepared for ``g``, one
+            shard per visible CUDA device).
         max_steps: per-phase step bound (bounds epochs for phase
             programs).
         trace: StepTrace capacity, or True for 256 slots.
@@ -255,7 +297,7 @@ def solve(g: Graph, algorithm: str, *,
             validate_vertex_indices(g, vkey, kw[vkey])
     policy = (spec.default_policy if policy is None
               else _resolve_policy(policy))
-    backend = _resolve_backend(backend)
+    backend = _resolve_backend(backend, g)
     trace_capacity = (_DEFAULT_TRACE_CAPACITY if trace is True
                       else int(trace))
     if telemetry is not None and trace_capacity == 0:
@@ -436,12 +478,14 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="ppr", build=ppr_program, init=ppr_init, finalize=ppr_finalize,
     default_policy=Fixed(Direction.PULL), runtime_keys=("source",),
+    backends=("dense", "ell", "cuda", "shard"),
     paper="§3.1 (personalized variant; service-layer batching)"))
 
 register(AlgorithmSpec(
     name="sssp_delta", build=sssp_delta_program, init=sssp_delta_init,
     finalize=sssp_delta_finalize, default_policy=Fixed(Direction.PUSH),
-    runtime_keys=("source",), paper="§3.4/§4.4 Alg. 4"))
+    runtime_keys=("source",), backends=("dense", "ell", "cuda", "shard"),
+    paper="§3.4/§4.4 Alg. 4"))
 
 register(AlgorithmSpec(
     name="wcc", build=wcc_program, init=wcc_init,
@@ -455,19 +499,19 @@ register(AlgorithmSpec(
 register(AlgorithmSpec(
     name="betweenness", build=betweenness_program, init=betweenness_init,
     finalize=betweenness_finalize, default_policy=Fixed(Direction.PULL),
-    paper="§3.5/§4.5 Alg. 5"))
+    backends=("dense", "ell", "cuda"), paper="§3.5/§4.5 Alg. 5"))
 
 register(AlgorithmSpec(
     name="coloring", build=coloring_program, init=coloring_init,
     finalize=coloring_finalize, default_policy=Fixed(Direction.PUSH),
-    paper="§3.6/§4.6 Alg. 6"))
+    backends=("dense", "ell", "cuda"), paper="§3.6/§4.6 Alg. 6"))
 
 register(AlgorithmSpec(
     name="mst_boruvka", build=mst_program, init=mst_init,
     finalize=mst_finalize, default_policy=Fixed(Direction.PULL),
-    paper="§3.7/§4.7 Alg. 7"))
+    backends=("dense", "ell", "cuda"), paper="§3.7/§4.7 Alg. 7"))
 
 register(AlgorithmSpec(
     name="triangle_count", build=triangle_program, init=triangle_init,
     finalize=triangle_finalize, default_policy=Fixed(Direction.PULL),
-    paper="§3.2/§4.2 Alg. 2"))
+    backends=("dense", "ell", "cuda"), paper="§3.2/§4.2 Alg. 2"))

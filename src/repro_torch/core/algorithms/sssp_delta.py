@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ...graphs.structure import Graph
+from ...shard.backend import ShardedBackend
 from ..backend import DenseBackend, EllBackend, require_backend
 from ..engine import Phase, PhaseProgram, VertexProgram
 
@@ -48,7 +49,8 @@ def sssp_delta_program(g: Graph, delta: float = 2.0, max_inner: int = 64,
     Wire values are the distances of current-bucket sources (∞
     elsewhere); combine=min with msg = d + w. Pull touches the unsettled
     set (d ≥ bΔ)."""
-    require_backend("sssp_delta", backend, DenseBackend, EllBackend)
+    require_backend("sssp_delta", backend, DenseBackend, EllBackend,
+                    ShardedBackend)
     delta = float(delta)
 
     def enter(g_, state, frontier, epoch):

@@ -1,5 +1,5 @@
 """ExchangeBackend — pluggable k-relaxation execution (paper §4, §7).
-PyTorch port of ``repro.core.backend`` (single-device backends).
+PyTorch port of ``repro.core.backend``.
 
 A backend answers one question — "given wire values and a frontier,
 combine messages per destination" — and charges the §4 counters:
@@ -13,6 +13,12 @@ combine messages per destination" — and charges the §4 counters:
     ``ell_spmv``, frontier ``ell_pull_frontier`` and binned ``coo_push``
     ("scan" or the one-hot "mxu" reduce), with block sizes and the push
     strategy from the autotuner (``kernels/tune.py``).
+  * ``DistributedBackend`` — the paper's §6 DM setting: a 1D partition
+    and the PA edge split over a shard mesh; local edges are plain
+    per-owner writes, remote edges go through ``dist.collectives``
+    (combined-alltoall push or all_gather pull), with their bytes
+    charged to the Cost. (``repro_torch.shard.ShardedBackend`` runs the
+    whole step shard by shard.)
 
 The engine's host loop decides the direction before it calls a backend,
 so ``relax`` dispatches on a concrete :class:`Direction`.
@@ -42,7 +48,8 @@ from .primitives import (combine_identity, frontier_in_edges,
                          pull_relax_ell, push_relax)
 
 __all__ = ["ExchangeBackend", "DenseBackend", "EllBackend", "CudaBackend",
-           "require_backend", "classify_msg_fn"]
+           "DistributedBackend", "require_backend", "classify_msg_fn",
+           "KERNEL_DTYPES"]
 
 
 def require_backend(algorithm: str, backend, *allowed) -> None:
@@ -87,9 +94,31 @@ class ExchangeBackend:
             return self.push(g, values, frontier, combine, msg_fn, cost)
         return self.pull(g, values, touched, combine, msg_fn, cost)
 
+    # -- cross-step exchange state (sharded, compressed backends) --------
+    def init_exchange_state(self, g: Graph):
+        """Initial exchange-carried state for a run on ``g``. Backends
+        whose exchange is stateful *across steps* (the sharded push's
+        error-feedback accumulator) return a tree of tensors; the engine
+        carries it through the loop and hands it to every
+        :meth:`relax_ex` call. Default: ``()``, stateless."""
+        return ()
+
+    def relax_ex(self, g: Graph, values, frontier, *, direction: Direction,
+                 combine: str = "sum", msg_fn: Optional[Callable] = None,
+                 touched=None, cost: Optional[Cost] = None, xstate=()):
+        """``relax`` with the exchange state: returns ``(combined_msgs,
+        cost, new_xstate)``. The default forwards to :meth:`relax` and
+        passes ``xstate`` through; the engine always calls this
+        surface."""
+        out, cost = self.relax(g, values, frontier, direction=direction,
+                               combine=combine, msg_fn=msg_fn,
+                               touched=touched, cost=cost)
+        return out, cost, xstate
+
     def predict_comm_bytes(self, g: Graph, values, frontier) -> tuple:
-        """Predicted inter-device bytes of a (push, pull) step: none on
-        one device."""
+        """Predicted inter-device wire bytes of one (push, pull) step,
+        exactly what ``push``/``pull`` then charge to
+        ``Cost.collective_bytes``: none on one device."""
         return counter(0, g.device), counter(0, g.device)
 
     def predict_pull_scan(self, g: Graph, touched, values=None,
@@ -182,7 +211,7 @@ def classify_msg_fn(msg_fn: Optional[Callable]) -> Optional[str]:
     return mode
 
 
-_KERNEL_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
+KERNEL_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -252,7 +281,7 @@ class CudaBackend(EllBackend):
     def _mode(self, values, combine, msg_fn) -> Optional[str]:
         if combine not in ("sum", "max", "min"):
             return None
-        if values.ndim not in (1, 2) or values.dtype not in _KERNEL_DTYPES:
+        if values.ndim not in (1, 2) or values.dtype not in KERNEL_DTYPES:
             return None
         return classify_msg_fn(msg_fn)
 
@@ -427,3 +456,123 @@ class CudaBackend(EllBackend):
         cost = cost.charge(reads=k * width).charge_combining_writes(
             k * width, float_data=values.dtype.is_floating_point)
         return out, cost
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DistributedBackend(ExchangeBackend):
+    """DM k-relaxation over a 1D partition + PA split (paper §6).
+
+    Local edges (both endpoints owned) are plain segment writes on the
+    graph's device; only the cut crosses shards, by the combined-alltoall
+    push or the all_gather pull over the mesh (``dist.collectives``).
+    Build with :meth:`prepare`; the instance is graph-specific. ``n``
+    need not divide by the shard count: the partition pads.
+
+    Restriction: messages must be a function of the *wire value only*
+    (``msg_fn(v, w)`` with masked sources carrying the combine identity),
+    which holds for every algorithm in ``repro_torch.api``.
+    """
+    mesh: object = None
+    part: object = None
+    local: object = None          # edges grouped by owner (src==dst owner)
+    remote_by_src: object = None  # cut edges grouped by src owner (push)
+    remote_by_dst: object = None  # cut edges grouped by dst owner (pull)
+    cut_edges: int = 0
+    axis: str = "data"
+    # the two cut groupings' rows on the shards' devices
+    placed_src: tuple = ()
+    placed_dst: tuple = ()
+
+    # identity hash/eq: instances hold graph-sized tensors, and the
+    # engine cache keys on the backend
+    __hash__ = object.__hash__
+
+    def __eq__(self, other):
+        return self is other
+
+    @classmethod
+    def prepare(cls, g: Graph, mesh=None, num_parts: Optional[int] = None,
+                axis: str = "data", devices=None) -> "DistributedBackend":
+        """Partition ``g`` over ``mesh`` (default: ``make_shard_mesh(
+        None, axis, devices)``, every CUDA device unless ``devices``
+        lists others)."""
+        from ..dist.collectives import place_edges
+        from ..graphs.partition import (pa_regroup_by_dst, pa_split,
+                                        partition_1d)
+        from ..shard.mesh import make_shard_mesh
+        if mesh is None:
+            mesh = make_shard_mesh(None, axis=axis, devices=devices)
+        if num_parts is None:
+            num_parts = mesh.shape[axis]
+        if num_parts != mesh.shape[axis]:
+            raise ValueError(
+                f"num_parts={num_parts} must equal the mesh '{axis}' axis "
+                f"size ({mesh.shape[axis]}): the exchanges map partitions "
+                "to mesh shards 1:1.")
+        part = partition_1d(g.n, num_parts)
+        local, remote_src, stats = pa_split(g, part)
+        # only the cut needs the pull grouping; the local set and stats
+        # are grouping-independent (local edges share one owner)
+        remote_dst = pa_regroup_by_dst(part, remote_src, g.n)
+        return cls(mesh=mesh, part=part, local=local,
+                   remote_by_src=remote_src, remote_by_dst=remote_dst,
+                   cut_edges=int(stats["cut_edges"]), axis=axis,
+                   placed_src=place_edges(remote_src, mesh.devices),
+                   placed_dst=place_edges(remote_dst, mesh.devices))
+
+    # -- helpers -----------------------------------------------------------
+    def _wire_msg_fn(self, msg_fn):
+        # primitives treat msg_fn=None as "value, unweighted"; the
+        # collectives default to value*weight — normalize
+        return msg_fn if msg_fn is not None else (lambda v, w: v)
+
+    # -- ExchangeBackend ---------------------------------------------------
+    def push(self, g, values, frontier, combine, msg_fn, cost):
+        from ..dist.collectives import pa_exchange, pad_rows
+        ident = combine_identity(combine, values.dtype)
+        fb = frontier.reshape((-1,) + (1,) * (values.ndim - 1))
+        vpad = pad_rows(torch.where(fb, values, ident), self.part.n_padded,
+                        ident)
+        out, nbytes = pa_exchange(
+            self.mesh, self.part, self.local, self.placed_src, vpad,
+            direction="push", msg_fn=self._wire_msg_fn(msg_fn),
+            combine=combine, axis=self.axis)
+        k = frontier_out_edges(g, frontier)
+        kc = torch.minimum(k, counter(self.cut_edges, g.device))
+        cost = cost.charge(reads=k).charge_combining_writes(
+            kc, float_data=values.dtype.is_floating_point)
+        cost = cost.charge(messages=kc,
+                           collective_bytes=nbytes * self.part.num_parts)
+        return out[:g.n], cost
+
+    def pull(self, g, values, touched, combine, msg_fn, cost):
+        from ..dist.collectives import pa_exchange, pad_rows
+        ident = combine_identity(combine, values.dtype)
+        vpad = pad_rows(values, self.part.n_padded, ident)
+        out, nbytes = pa_exchange(
+            self.mesh, self.part, self.local, self.placed_dst, vpad,
+            direction="pull", msg_fn=self._wire_msg_fn(msg_fn),
+            combine=combine, axis=self.axis)
+        out = out[:g.n]
+        if touched is not None:
+            out = mask_untouched(out, touched, combine)
+            k = frontier_in_edges(g, touched)
+            wr = touched.to(COUNTER).sum()
+        else:
+            k = counter(g.m, g.device)
+            wr = counter(g.n, g.device)
+        cost = cost.charge(reads=k, writes=wr,
+                           collective_bytes=nbytes * self.part.num_parts)
+        return out, cost
+
+    def predict_comm_bytes(self, g, values, frontier):
+        # exactly what push/pull charge: the combined alltoall moves
+        # n_padded·itemsize per device, the all_gather
+        # n_padded·itemsize·(P-1)/P, both times P devices
+        Pn = self.part.num_parts
+        npad = self.part.n_padded
+        item = values.element_size()
+        push_b = counter(npad * item, g.device) * Pn
+        pull_b = counter(npad * item * (Pn - 1) // max(Pn, 1),
+                         g.device) * Pn
+        return push_b, pull_b

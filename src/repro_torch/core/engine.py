@@ -51,8 +51,8 @@ __all__ = ["VertexProgram", "Phase", "PhaseProgram", "PushPullEngine",
 
 
 class Checkpoint(NamedTuple):
-    """A stepwise solve's resumable snapshot: the loop carry after
-    ``step`` completed steps. The carry is a copy (every tensor cloned),
+    """A stepwise solve's resumable snapshot: the loop carry (the
+    backend's exchange state included) after ``step`` completed steps. The carry is a copy (every tensor cloned),
     since later steps write the trace and may write state in place;
     resuming copies it again and re-enters the same step function, so a
     resumed run is bit-identical to an uninterrupted one."""
@@ -118,6 +118,9 @@ class EngineResult(NamedTuple):
     converged: bool = True
     epochs: int = 1
     trace: Optional[StepTrace] = None
+    # the backend's final exchange-carried state (the sharded push's
+    # error-feedback accumulator); () for stateless backends
+    xstate: Any = ()
 
 
 @dataclasses.dataclass
@@ -129,6 +132,7 @@ class _Carry:
     steps: int
     pushes: int
     trace: StepTrace
+    xstate: Any = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +148,8 @@ class _Loop:
     pushes: int
     last_push: bool
     trace: StepTrace
+    # the backend's exchange-carried state; () for stateless backends
+    xstate: Any = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,7 +274,7 @@ class PushPullEngine:
         st = _Loop(state=c.state, frontier=c.frontier, visited=c.frontier,
                    converged=not bool(c.frontier.any()), handoff=False,
                    step=0, cost=c.cost, pushes=0, last_push=False,
-                   trace=c.trace)
+                   trace=c.trace, xstate=c.xstate)
         return ph, st
 
     def _step(self, g: Graph, ph: _PhaseRun, st: _Loop) -> _Loop:
@@ -297,15 +303,16 @@ class PushPullEngine:
         else:
             do_push = bool(self.policy.decide(g, frontier, stats))
         cost0 = st.cost
+        xstate = st.xstate
         if prog.local_fn is not None:
             state, new_frontier, conv, cost = prog.local_fn(
                 g, st.state, frontier, step, do_push, cost0)
         else:
-            msgs, cost = self.backend.relax(
+            msgs, cost, xstate = self.backend.relax_ex(
                 g, values, frontier,
                 direction=Direction.PUSH if do_push else Direction.PULL,
                 combine=prog.combine, msg_fn=prog.msg_fn, touched=touched,
-                cost=cost0)
+                cost=cost0, xstate=xstate)
             state, new_frontier, conv = prog.update_fn(st.state, msgs, step)
             if prog.k_filter_push and do_push:
                 # push produced a sparse updated set -> k-filter
@@ -332,7 +339,7 @@ class PushPullEngine:
                      visited=st.visited | new_frontier,
                      converged=bool(conv), handoff=handoff, step=step + 1,
                      cost=cost, pushes=st.pushes + int(do_push),
-                     last_push=do_push, trace=trace)
+                     last_push=do_push, trace=trace, xstate=xstate)
 
     def _loop(self, g: Graph, ph: _PhaseRun, st: _Loop,
               watch: Optional[_Watch] = None) -> _Loop:
@@ -355,8 +362,8 @@ class PushPullEngine:
         """Greedy tail hand-off and ``exit_fn``; folds the phase into
         ``c`` and returns the phase's converged flag."""
         prog = ph.phase.program
-        c.state, c.frontier, c.cost, c.trace = (st.state, st.frontier,
-                                                st.cost, st.trace)
+        c.state, c.frontier, c.cost, c.trace, c.xstate = (
+            st.state, st.frontier, st.cost, st.trace, st.xstate)
         converged = st.converged
         if ph.greedy and st.handoff:
             c.state, c.cost = prog.tail_fn(g, c.state, c.frontier, c.cost)
@@ -371,14 +378,16 @@ class PushPullEngine:
     def _carry(self, g: Graph, init_state, init_frontier) -> _Carry:
         return _Carry(state=init_state, frontier=init_frontier,
                       cost=Cost.zeros(g.device), steps=0, pushes=0,
-                      trace=StepTrace.empty(self.trace_capacity, g.device))
+                      trace=StepTrace.empty(self.trace_capacity, g.device),
+                      xstate=self.backend.init_exchange_state(g))
 
     def _result(self, c: _Carry, converged: bool,
                 epochs: int) -> EngineResult:
         return EngineResult(
             state=c.state, cost=c.cost, steps=c.steps, push_steps=c.pushes,
             converged=converged, epochs=epochs,
-            trace=c.trace if self.trace_capacity > 0 else None)
+            trace=c.trace if self.trace_capacity > 0 else None,
+            xstate=c.xstate)
 
     def run(self, g: Graph, init_state: Any,
             init_frontier: torch.Tensor) -> EngineResult:

@@ -66,6 +66,15 @@ class MetricRegistry:
         return f"MetricRegistry({self._vals!r})"
 
 
+def _residual_l1(xstate: Any) -> float | None:
+    """Total |error feedback| left in a compression exchange state."""
+    from ..models.common import tree_leaves
+    leaves = [x for x in tree_leaves(xstate) if x.dtype.is_floating_point]
+    if not leaves:
+        return None
+    return float(sum(float(x.abs().sum()) for x in leaves))
+
+
 def record_solve(tel, *, algorithm: str, policy, backend, result,
                  run: int | None = None,
                  step_times: Mapping[int, float] | None = None,
@@ -121,6 +130,10 @@ def record_solve(tel, *, algorithm: str, policy, backend, result,
     c.add("engine.push_steps", pushes)
     c.add("engine.pull_steps", steps - pushes)
     c.add("engine.trace_overflow", overflow)
+
+    residual = _residual_l1(getattr(result, "xstate", ()))
+    if residual is not None:
+        c.add("backend.shard.compression_residual_l1", residual)
     collect_backend(tel, backend)
     return run
 

@@ -24,9 +24,10 @@ schedules leave the next invocation clean, so retry loops recover.
 Not every site has a seam here. ``pallas.pull`` and ``pallas.push``
 guard the JAX package's kernel dispatch, whose only use is to give way
 quietly from a failing kernel to the plain path; the port's
-``CudaBackend`` raises instead, so those sites (and the sharded
-``shard.exchange.*``, not ported yet) never fire. They stay in
-:data:`SITES` so that every plan loads.
+``CudaBackend`` raises instead, so those two sites never fire, by
+design. They stay in :data:`SITES` so that every plan loads. The
+sharded engine's ``shard.exchange.push`` and ``shard.exchange.pull``
+wrap each exchange in :func:`resilient_call`, as the JAX package's do.
 
 Recovery bookkeeping lives here too: seams report what they did about
 a failure (:func:`note`), and :func:`resilience_stats` and
@@ -60,8 +61,8 @@ SITES = (
     "tune.probe",           # autotuner probe
     "tune.cache.load",      # tune.json disk read
     "tune.cache.write",     # tune.json disk write
-    "shard.exchange.push",  # sharded push (not ported yet: no seam)
-    "shard.exchange.pull",  # sharded pull (not ported yet: no seam)
+    "shard.exchange.push",  # sharded push exchange (resilient_call)
+    "shard.exchange.pull",  # sharded pull exchange (resilient_call)
     "service.chunk",        # QueryService chunk / unbatchable solve
     "service.cache.get",    # ResultCache lookup
     "service.cache.put",    # ResultCache store

@@ -85,7 +85,7 @@ def _resolve(g: Graph, algorithm: str, sources, policy, backend, kw):
         api.validate_vertex_indices(g, "sources", sources)
     policy = (spec.default_policy if policy is None
               else api._resolve_policy(policy))
-    backend = api._resolve_backend(backend)
+    backend = api._resolve_backend(backend, g)
     static_kw = {k: v for k, v in kw.items()
                  if k not in bspec.runtime_keys}
     return bspec, policy, backend, static_kw

@@ -36,6 +36,7 @@ import torch
 from ..core.backend import DenseBackend, EllBackend, require_backend
 from ..core.engine import Phase, PhaseProgram, VertexProgram
 from ..graphs.structure import Graph
+from ..shard.backend import ShardedBackend
 
 __all__ = ["BatchSpec", "register_batch", "batchable", "get_batch_spec"]
 
@@ -117,7 +118,11 @@ def bfs_batch_program(g: Graph, batch: int, policy=None, backend=None
     the ``>n`` sentinel that min-combine ignores; the per-query level
     lives in the state, so a run resumed from a carried state keeps
     assigning correct distances."""
-    require_backend("bfs (batched)", backend, DenseBackend, EllBackend)
+    # DistributedBackend charges width-blind counters, which would break
+    # the batch-aware predictor's exactness: batching runs on the dense
+    # and ELL layouts or the width-aware sharded backend
+    require_backend("bfs (batched)", backend, DenseBackend, EllBackend,
+                    ShardedBackend)
     n = g.n
 
     def values_fn(g_, state, frontier):
@@ -212,7 +217,8 @@ def ppr_batch_program(g: Graph, batch: int, iters: int = 100,
     """B personalized power iterations sharing one graph scan per step.
     A column stops updating the moment its residual drops below
     ``tol``, exactly where its single-query run stops."""
-    require_backend("ppr (batched)", backend, DenseBackend, EllBackend)
+    require_backend("ppr (batched)", backend, DenseBackend, EllBackend,
+                    ShardedBackend)
     n = g.n
     damp_t = _f32(damp, "cpu")
     tol = float(tol)
@@ -300,7 +306,8 @@ def sssp_batch_program(g: Graph, batch: int, delta: float = 2.0,
     boundary ``hi``, skipping empty buckets, so a run resumed from a
     carried state continues where it stopped, and an admitted query
     (``hi`` = 0) re-walks only its own buckets."""
-    require_backend("sssp_delta", backend, DenseBackend, EllBackend)
+    require_backend("sssp_delta", backend, DenseBackend, EllBackend,
+                    ShardedBackend)
     delta_t = _f32(delta, g.device)
 
     def _guard(state):

@@ -608,3 +608,34 @@ def test_span_covers_the_kernels_it_wraps(cuda):
     kernel_us = start.elapsed_time(end) * 1e3
     (ev,) = tel.events
     assert kernel_us > 0 and ev["dur_us"] >= kernel_us
+
+
+@pytest.mark.parametrize("alg,policy,kw", [
+    ("bfs", "auto", {"root": 0}), ("pagerank", "pull", {"iters": 10}),
+    ("pagerank", "push", {"iters": 10}),
+    ("sssp_delta", "push", {"source": 0, "delta": 2.0})])
+def test_sharded_solve_equals_cuda_backend(cuda, alg, policy, kw):
+    """Four shards on one card (slice 9), with ``ell_spmv`` inside each
+    shard's pull: the answer equals the single-device CUDA backend's
+    (integers and min bit for bit, float sums to 1e-5 relative), and the
+    sharded pull launches the kernel with no fallback."""
+    from repro_torch.graphs import kronecker
+    from repro_torch.shard import ShardedBackend
+    g = kronecker(12, edge_factor=16, seed=0, weighted=True, device=cuda)
+    sb = ShardedBackend.prepare(g, devices=[cuda] * 4, inner="cuda")
+    want = api.solve(g, alg, policy=policy, backend=api.CudaBackend(), **kw)
+    _build.reset_launch_counts()
+    got = api.solve(g, alg, policy=policy, backend=sb, **kw)
+    launched = _build.launch_counts()["ell_spmv"]
+    sw, sg = ((r.state if isinstance(r.state, dict) else {"x": r.state})
+              for r in (want, got))
+    for k in sw:
+        if alg == "pagerank":
+            torch.testing.assert_close(sg[k], sw[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(sg[k], sw[k]), k
+    assert sb.stats["fallback_pull"] == 0
+    pulls = got.steps - got.push_steps
+    assert launched == sb.stats["kernel_pull"] == 4 * pulls
+    if policy == "pull":
+        assert launched > 0

@@ -37,7 +37,7 @@ def port_modules() -> list[str]:
 
 
 def test_modules_import_without_jax_or_repro():
-    # the serving slices' modules are among those checked
+    # the serving, model and sharded slices' modules are among those checked
     assert {"repro_torch.service.scheduler", "repro_torch.service.batch",
             "repro_torch.service.cache", "repro_torch.service.programs",
             "repro_torch.resilience.errors", "repro_torch.kernels.tune",
@@ -50,7 +50,10 @@ def test_modules_import_without_jax_or_repro():
             "repro_torch.configs.archs", "repro_torch.obs.trace",
             "repro_torch.obs.metrics", "repro_torch.obs.export",
             "repro_torch.obs.report", "repro_torch.resilience.faults",
-            "repro_torch.core.engine"} <= set(port_modules())
+            "repro_torch.core.engine", "repro_torch.shard.mesh",
+            "repro_torch.shard.topology", "repro_torch.shard.exchange",
+            "repro_torch.shard.backend", "repro_torch.dist.collectives",
+            "repro_torch.dist.compression"} <= set(port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for name in {port_modules() + ['chip_smoke']!r}:\n"
