@@ -154,6 +154,34 @@ non-zero:
      at width 1 and the serving width, timed as in 6 beside
      ``torch.sparse.mm`` on each shard's CSR rows.
 
+ 13. Main path of slice 10 (run after 11), ``"train"``: llama3.2-1b at
+     full width through ``TrainLoop`` (8 × 4,096 in 4 microbatches,
+     AdamW, 5 steps, per-layer remat; a checkpoint at step 3 written by
+     ``save_async``, the step-5 directory removed as a crash before its
+     commit would leave it, and a fresh loop on the directory resuming
+     at 3 and running to 5: its losses against the uninterrupted run's,
+     bit for bit or within 2e-3); gemma2-9b at full width, 2 layers,
+     1 × 4,096, 3 steps (softcap and window through the backward);
+     xDeepFM at full width through ``launch.train.main`` at train_batch
+     (B = 65,536, BCE, 5 steps). One line per run: step ms, tokens/s or
+     rows/s, model FLOPs against the bf16 peak, peak memory, the
+     attention's forward launches and backward calls, the CIN's
+     forward, backward launches and ``dw`` GEMMs, a profiled step's
+     busy share, the card's name and power limit, ``reduced``.
+     ``flash_attention`` and ``cin`` must launch. Then
+     ``"train_check"``: llama at full width, 2 layers, bf16 and f32,
+     every gradient with the kernel against ``attn_impl="naive"``
+     (‖Δg‖/‖g‖ ≤ 5e-2 bf16, 1e-4 f32); xDeepFM's gradients on 4,096
+     rows against the loss on ``cin_layer_plain`` (1e-4), and the CIN
+     kernel after an in-place AdamW step against the plain layer on the
+     updated weights. ``"train_grad"`` lines: each Function's gradients
+     at the layer shapes (llama, gemma2 local at T = 8,192 where the
+     window binds, gemma2 global; CIN at serve_p99 and train_batch)
+     against autograd through the plain versions (relative to the
+     largest entry: flash 1e-2 bf16, 1e-4 f32; CIN 1e-4), the backward
+     timed beside the plain autograd backward, SDPA's backward where it
+     computes the same function, and the bound.
+
 Launch counts are zeroed just before each main path and read just after
 it; every kernel of the path must have launched and no step of the graph
 paths may have fallen back to the plain primitives. The line before the last is
@@ -185,7 +213,10 @@ from repro_torch.graphs import (build_graph, kronecker, standin,  # noqa: E402
                                 star)
 from repro_torch.graphs.structure import pad_values  # noqa: E402
 from repro_torch.configs.archs import full_config  # noqa: E402
+from repro_torch.data import recsys_batches, token_batches  # noqa: E402
+from repro_torch.dist.overlap import value_and_grad  # noqa: E402
 from repro_torch.kernels import _build, tune  # noqa: E402
+from repro_torch.kernels import cin as cin_module  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.cin import cin_layer, cin_layer_plain  # noqa: E402
 from repro_torch.kernels.coo_push import (build_push_plan,  # noqa: E402
@@ -197,20 +228,29 @@ from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
 from repro_torch.kernels.ell_spmv import (  # noqa: E402
     _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain)
 from repro_torch.kernels.roofline import (  # noqa: E402
-    BF16_OPS_PER_S, F32_OPS_PER_S, bound, cin_tf32_floor_ms, flash_work,
-    onehot_floor_ms, push_bytes, time_ms)
+    BF16_OPS_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, bound, cin_tf32_floor_ms,
+    flash_work, onehot_floor_ms, push_bytes, time_ms)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_plain_gqa)
-from repro_torch.models.common import tree_size_bytes  # noqa: E402
+    GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_bwd,
+    flash_attention_plain_gqa)
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models.common import (param_count,  # noqa: E402
+                                       tree_leaves, tree_size_bytes)
 from repro_torch.models.recsys import (  # noqa: E402
     cin_apply, retrieval_score, xdeepfm_apply, xdeepfm_init)
-from repro_torch.models.transformer import (decode_step,  # noqa: E402
-                                            init_params, pad_kv_cache,
-                                            prefill)
+from repro_torch.models.transformer import (decay_mask,  # noqa: E402
+                                            decode_step, init_params,
+                                            lm_loss, pad_kv_cache, prefill)
 from repro_torch.service import QueryService  # noqa: E402
 from repro_torch.shard import ShardedBackend  # noqa: E402
 from repro_torch.sparse.segment import (reduce_identity,  # noqa: E402
                                        segment_sum)
+from repro_torch.train import (LoopConfig, OptConfig,  # noqa: E402
+                               TrainLoop, apply_updates, init_opt)
+from repro_torch.train.losses import bce_with_logits  # noqa: E402
+
+# the module (the package exports its function under the same name)
+flash_module = sys.modules["repro_torch.kernels.flash_attention"]
 
 KERNEL_INFO = {
     "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -2625,6 +2665,437 @@ def model_kernel_rows(lms: dict, rec: dict) -> list:
     return rows
 
 
+# -- slice 10: training ----------------------------------------------------
+# the training runs: global batch, sequence, microbatches, steps, the step
+# the resumed run restarts from, and the layers kept
+TRAIN_LM = {
+    "llama3.2-1b": {"B": 8, "T": 4096, "micro": 4, "steps": 5,
+                    "ckpt_at": 3, "layers": None,
+                    "reduced": {"global_batch": "8 sequences of 4,096 in 4 "
+                                                "microbatches of 2, not "
+                                                "train_4k's 256",
+                                "steps": "5 (a checkpoint at 3; a fresh "
+                                         "loop resumes there and runs to 5)",
+                                "why": "the smoke's time limit"}},
+    "gemma2-9b": {"B": 1, "T": 4096, "micro": 1, "steps": 3,
+                  "ckpt_at": None, "layers": 2,
+                  "reduced": {"layers": "2 (one local, one global), not 42",
+                              "global_batch": "1 × 4,096, not train_4k's "
+                                              "256 × 4,096",
+                              "steps": "3",
+                              "window": "4,096 masks no key at T = 4,096; "
+                                        "the gradient check of the layer "
+                                        "runs T = 8,192, where it binds",
+                              "why": "the smoke's time limit"}},
+}
+TRAIN_XDEEPFM = {"B": 65536, "steps": 5,
+                 "reduced": {"steps": "5", "why": "the smoke's time limit"}}
+TRAIN_LR = 1e-4
+# kernel path against plain path, ‖g_kernel − g_plain‖ / ‖g_plain‖ per
+# parameter: f32 sums in other orders; bf16 as LM_TOL (the kernel's bf16
+# P, activations rounding at 2^-8, over 2 layers)
+LM_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+XDEEPFM_GRAD_TOL = 1e-4
+# the Functions' gradients against autograd through the plain versions,
+# relative to the largest |entry|: the same formulas summed in other
+# orders (f32), and one bf16 rounding of each gradient (bf16)
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+CIN_GRAD_TOL = 1e-4
+# resumed losses against the uninterrupted run's, relative, where they
+# are not equal bit for bit
+RESUME_TOL = 2e-3
+
+
+def on_device(batch: dict, device) -> dict:
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def lm_train_flops(cfg, params: dict, B: int, T: int) -> float:
+    """6 · N · tokens (N without the input embedding, a gather) plus the
+    attention's products three times over (forward, and the backward's
+    two), as model FLOPs count them: the remat recompute is not
+    counted."""
+    n = param_count(params) - params["embed"].numel()
+    attn = sum(flash_work(B, T, cfg.n_heads, cfg.n_kv_heads, cfg.hd, w, 2)[1]
+               for w in cfg.window_array(T))
+    return 6.0 * n * B * T + 3.0 * attn
+
+
+def lm_train(arch: str, device, fwd: CallTimer, bwd: CallTimer) -> dict:
+    """``TrainLoop`` on the full-width config, AdamW, synthetic tokens;
+    for llama a checkpoint at ``ckpt_at`` and a fresh loop resuming
+    from it."""
+    run = TRAIN_LM[arch]
+    cfg = full_config(arch)
+    if run["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    B, T, steps = run["B"], run["T"], run["steps"]
+    params = init_params(cfg, seed=0, device=device)
+    stream = token_batches(B, T, cfg.vocab, seed=0)
+    batches = [next(stream) for _ in range(steps)]
+
+    def loss_fn(p, b):
+        return lm_loss(p, cfg, b["tokens"], b["labels"])
+
+    ckpt_dir = None
+    if run["ckpt_at"]:
+        ckpt_dir = str(_build.BUILD_DIR.parent
+                       / f"train_ckpt-{os.getpid()}-{time.time_ns()}")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps)
+    loop_cfg = LoopConfig(total_steps=steps,
+                          ckpt_every=run["ckpt_at"] or steps + 1,
+                          ckpt_dir=ckpt_dir, log_every=1,
+                          num_micro=run["micro"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd.take_ms(), bwd.take_ms()
+    loop = TrainLoop(loss_fn, params, opt, loop_cfg,
+                     decay=decay_mask(params))
+    t0 = time.perf_counter()
+    res = loop.run(iter(batches))
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms, bwd_ms = fwd.take_ms(), bwd.take_ms()
+    losses = [h["loss"] for h in res["history"]]
+    dts = [h["dt"] * 1e3 for h in res["history"]]
+    step_ms = statistics.median(dts[1:])
+    flops = lm_train_flops(cfg, params, B, T)
+    if not all(np.isfinite(losses)):
+        fail(f"{arch}: non-finite training losses {losses}")
+    calls = steps * run["micro"] * cfg.n_layers
+    line = {"phase": "train", "arch": arch, "B": B, "T": T,
+            "microbatches": run["micro"], "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": param_count(params),
+            "optimizer": "adamw", "losses": losses, "step_ms": dts,
+            "step_ms_median_2_on": step_ms,
+            "tokens_per_s": B * T / step_ms * 1e3,
+            "model_flops_per_step": flops,
+            "bf16_peak_share": flops / (step_ms / 1e3) / BF16_OPS_PER_S,
+            "peak_memory_gb": peak_gb, "run_s": run_s,
+            "flash_fwd_ms_per_call": statistics.median(fwd_ms),
+            "flash_fwd_calls": len(fwd_ms),
+            "attn_bwd_ms_per_call": statistics.median(bwd_ms),
+            "attn_bwd_calls": len(bwd_ms),
+            "attn_ms_per_step": (sum(fwd_ms) + sum(bwd_ms)) / steps,
+            "attn_share": (sum(fwd_ms) + sum(bwd_ms)) / sum(dts),
+            "remat_recompute": len(fwd_ms) == 2 * calls,
+            "profile": device_profile(
+                lambda: loop._step(on_device(batches[0], device))),
+            "reduced": run["reduced"]}
+    fwd.take_ms(), bwd.take_ms()
+    del loop
+    if ckpt_dir:
+        line["resume"] = lm_resume(loss_fn, params, opt, loop_cfg,
+                                   batches, losses, run["ckpt_at"])
+    emit(line | {"card": card_line()})
+    if ckpt_dir:
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    return line
+
+
+def lm_resume(loss_fn, params, opt, loop_cfg, batches, losses,
+              at: int) -> dict:
+    """A crash after step ``at``'s checkpoint and before the last one
+    committed: the last step's directory goes, and a fresh loop on the
+    same directory resumes at ``at`` and runs to the end. Its losses
+    against the uninterrupted run's."""
+    import shutil
+    d = loop_cfg.ckpt_dir
+    last = os.path.join(d, f"step_{loop_cfg.total_steps:09d}")
+    shutil.rmtree(last)
+    t0 = time.perf_counter()
+    loop = TrainLoop(loss_fn, params, opt, loop_cfg,
+                     decay=decay_mask(params))
+    restore_s = time.perf_counter() - t0
+    if loop.start_step != at:
+        fail(f"resumed at step {loop.start_step}, not {at}")
+    t0 = time.perf_counter()
+    res = loop.run(iter(batches[at:]))
+    run_s = time.perf_counter() - t0
+    got = [h["loss"] for h in res["history"]]
+    want = losses[at:]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    bitwise = got == want
+    out = {"from_step": at, "losses": got, "uninterrupted": want,
+           "bitwise": bitwise, "relative_gap": max(gaps), "tol": RESUME_TOL,
+           "restore_s": restore_s, "run_s": run_s,
+           "checkpoint_gb": sum(os.path.getsize(os.path.join(r, f))
+                                for r, _, fs in os.walk(d) for f in fs)
+           / 1e9}
+    if len(got) != len(want) or not (bitwise or max(gaps) <= RESUME_TOL):
+        fail(f"resumed losses {got} against {want}")
+    return out
+
+
+def xdeepfm_train(device, fwd: CallTimer, bwd: CallTimer,
+                  dw: CallTimer) -> dict:
+    """``launch.train.main`` on the full xDeepFM config at train_batch
+    (BCE, AdamW): its step time, and the CIN layers' forward launches,
+    backward launches and dw GEMMs in it."""
+    import contextlib
+    import io
+    B, steps = TRAIN_XDEEPFM["B"], TRAIN_XDEEPFM["steps"]
+    for t in (fwd, bwd, dw):
+        t.take_ms()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--arch", "xdeepfm", "--full", "--batch",
+                                str(B), "--steps", str(steps),
+                                "--device", str(device)])
+    run_s = time.perf_counter() - t0
+    text = out.getvalue().strip()
+    m = re.search(r"step=(\d+) loss=(\S+) median_step=([\d.]+)ms", text)
+    if rc != 0 or not m or int(m.group(1)) != steps or \
+            not np.isfinite(float(m.group(2))):
+        fail(f"xdeepfm training: rc {rc}, {text!r}")
+    step_ms = float(m.group(3))
+    f_ms, b_ms, w_ms = fwd.take_ms(), bwd.take_ms(), dw.take_ms()
+    nl = len(full_config("xdeepfm").cin_layers)
+    cin_ms = (sum(f_ms) + sum(b_ms) + sum(w_ms)) / steps
+    line = {"phase": "train", "arch": "xdeepfm", "B": B, "steps": steps,
+            "launcher": text, "step_ms_median": step_ms,
+            "rows_per_s": B / step_ms * 1e3, "run_s": run_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cin_fwd_ms_per_layer": [statistics.median(f_ms[i::nl])
+                                     for i in range(nl)],
+            "cin_bwd_launch_ms": statistics.median(b_ms),
+            "cin_bwd_launches": len(b_ms),
+            "cin_dw_ms_per_layer": [statistics.median(w_ms[i::nl])
+                                    for i in range(nl)],
+            "cin_ms_per_step": cin_ms, "cin_share": cin_ms / step_ms,
+            "reduced": TRAIN_XDEEPFM["reduced"], "card": card_line()}
+    emit(line)
+    return line
+
+
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    """‖got − want‖ / ‖want‖ in f64."""
+    w = want.double()
+    return float(torch.linalg.vector_norm(got.double() - w)
+                 / torch.linalg.vector_norm(w).clamp(min=1e-300))
+
+
+def worst_leaf(got, want) -> float:
+    return max(rel_norm(a, b) for a, b in zip(tree_leaves(got),
+                                              tree_leaves(want)))
+
+
+def lm_grad_check(device) -> dict:
+    """llama3.2-1b at full width, 2 layers, bf16 and f32: every
+    parameter's gradient with the kernel (``attn_impl="blockwise"``)
+    against the plain path (``"naive"``), on one 4,096-token sequence."""
+    gaps = {}
+    batch = on_device(next(token_batches(1, 4096, 128256, seed=1)), device)
+    for dt, name in ((torch.bfloat16, "bfloat16"), (torch.float32,
+                                                    "float32")):
+        cfg = dataclasses.replace(full_config("llama3.2-1b"), n_layers=2,
+                                  dtype=name)
+        params = init_params(cfg, seed=1, device=device)
+        grads = {}
+        for impl in ("blockwise", "naive"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            grads[impl] = value_and_grad(
+                lambda p, b, c=c: lm_loss(p, c, b["tokens"], b["labels"]),
+                params, batch)
+        gaps[name] = {"loss": abs(float(grads["blockwise"][0])
+                                  - float(grads["naive"][0])),
+                      "worst_grad": worst_leaf(grads["blockwise"][1],
+                                               grads["naive"][1]),
+                      "tol": LM_GRAD_TOL[dt]}
+        del params, grads
+        if not gaps[name]["worst_grad"] <= LM_GRAD_TOL[dt]:
+            fail(f"llama {name} gradients: {gaps[name]}")
+    return gaps
+
+
+def xdeepfm_grad_check(device) -> dict:
+    """xDeepFM at full width: one step's gradients through the CIN
+    Function against the same loss on ``cin_layer_plain``, on 4,096
+    rows; then the packing cache: after an in-place AdamW step, the
+    kernel on the updated weights equals the plain layer on them."""
+    cfg = full_config("xdeepfm")
+    params = xdeepfm_init(cfg, seed=3, device=device)
+    batch = on_device(next(recsys_batches(4096, cfg.n_fields,
+                                          cfg.vocab_per_field, seed=3)),
+                      device)
+
+    def loss_fn(p, b):
+        return bce_with_logits(xdeepfm_apply(p, cfg, b["ids"]),
+                               b["labels"])
+
+    loss_k, g_k = value_and_grad(loss_fn, params, batch)
+    real = kernel_ops.cin_layer
+    kernel_ops.cin_layer = cin_layer_plain
+    try:
+        loss_p, g_p = value_and_grad(loss_fn, params, batch)
+    finally:
+        kernel_ops.cin_layer = real
+    out = {"loss": abs(float(loss_k) - float(loss_p)),
+           "worst_grad": worst_leaf(g_k, g_p), "tol": XDEEPFM_GRAD_TOL}
+    if not out["worst_grad"] <= XDEEPFM_GRAD_TOL:
+        fail(f"xdeepfm gradients: {out}")
+    # the packing cache follows an in-place update
+    gen = torch.Generator(device=device).manual_seed(4)
+    w = params["cin"][1]
+    xk = normal((512, w.shape[1], cfg.embed_dim), gen)
+    x0 = normal((512, cfg.n_fields, cfg.embed_dim), gen)
+    before = kernel_ops.cin_layer(xk, x0, w)          # packs w
+    version = w._version
+    apply_updates(params, g_k, init_opt(params, OptConfig(warmup_steps=0)),
+                  OptConfig(warmup_steps=0))
+    after = kernel_ops.cin_layer(xk, x0, w)
+    out["pack_cache"] = {
+        "version_moved": w._version > version,
+        "changed": float((after - before).abs().max()),
+        "max_abs_err": close_to(after, cin_layer_plain(xk, x0, w),
+                                CIN_TOL[torch.float32],
+                                "cin after an optimizer step")}
+    if not out["pack_cache"]["changed"] > 0:
+        fail("the optimizer step left the CIN output as it was")
+    return out
+
+
+def flash_grad_row(name: str, shape: dict, device) -> dict:
+    """The Function's (dq, dk, dv) at a layer's shape against autograd
+    through ``flash_attention_plain_gqa``; the backward timed beside the
+    plain autograd backward, SDPA's backward where SDPA computes the
+    same function, and the bound of its four products."""
+    B, T, H, Hk, d = shape["B"], shape["T"], shape["H"], shape["Hk"], \
+        shape["d"]
+    window, cap, dt = shape["window"], shape["cap"], shape["dtype"]
+    gen = torch.Generator(device=device).manual_seed(T + d)
+    q, k, v = (normal((B, T, h, d), gen, dt).requires_grad_()
+               for h in (H, Hk, Hk))
+    dout = normal((B, T, H, d), gen, dt)
+    got = torch.autograd.grad(flash_attention(q, k, v, window, cap),
+                              (q, k, v), dout)
+    plain_out = flash_attention_plain_gqa(q, k, v, window, cap)
+    want = torch.autograd.grad(plain_out, (q, k, v), dout,
+                               retain_graph=True)
+    err = max(rel_gap(a, b) for a, b in zip(got, want))
+    if not err <= FLASH_GRAD_TOL[dt]:
+        fail(f"flash gradients {name}: {err} above {FLASH_GRAD_TOL[dt]}")
+    del got, want
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    bwd_ms = time_ms(lambda: flash_attention_bwd(qd, kd, vd, dout, window,
+                                                 cap), 3)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        plain_out, (q, k, v), dout, retain_graph=True), 3)
+    del plain_out
+    lib_ms = None
+    if window >= T and cap == 0.0:
+        sd = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            sd, (q, k, v), dout, retain_graph=True), 10)
+    nbytes, ops_ = flash_work(B, T, H, Hk, d, window, q.element_size())
+    b_ms, b_by = bound(2 * nbytes, 2 * ops_, BF16_OPS_PER_S
+                       if dt == torch.bfloat16 else F32_OPS_PER_S)
+    row = {"phase": "train_grad", "kernel": "flash_attention",
+           "shape": name, "max_rel_err": err, "tol": FLASH_GRAD_TOL[dt],
+           "bwd_ms": bwd_ms, "plain_autograd_ms": plain_ms,
+           "library_bwd_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    return row
+
+
+def cin_grad_row(name: str, B: int, Hp: int, F: int, H: int, D: int,
+                 device) -> dict:
+    """The Function's (dxk, dx0, dw) at a CIN layer's shape against
+    autograd through ``cin_layer_plain``; the backward's two launches
+    and its dw GEMM timed beside the bound of their three products at
+    the TF32 rate."""
+    gen = torch.Generator(device=device).manual_seed(B + Hp)
+    xk = normal((B, Hp, D), gen).requires_grad_()
+    x0 = normal((B, F, D), gen).requires_grad_()
+    w = (normal((H, Hp, F), gen) * (2.0 / (Hp * F)) ** 0.5).requires_grad_()
+    g = normal((B, H, D), gen)
+    got = torch.autograd.grad(cin_layer(xk, x0, w), (xk, x0, w), g)
+    want = torch.autograd.grad(cin_layer_plain(xk, x0, w), (xk, x0, w), g)
+    errs = {k: rel_gap(a, b) for k, a, b in zip(("dxk", "dx0", "dw"), got,
+                                                 want)}
+    err = max(errs.values())
+    if not err <= CIN_GRAD_TOL:
+        fail(f"CIN gradients {name}: {err} above {CIN_GRAD_TOL}")
+    del got, want
+    xk, x0, w = xk.detach(), x0.detach(), w.detach()
+    dxk_ms = time_ms(lambda: cin_layer(g, x0, w.permute(1, 0, 2)), 5)
+    dx0_ms = time_ms(lambda: cin_layer(g, xk, w.permute(2, 0, 1)), 5)
+    dw_ms = time_ms(lambda: cin_module.cin_weight_grad(g, xk, x0), 3)
+    pack_ms = time_ms(lambda: cin_module.kernel_weights(
+        w.permute(2, 0, 1)), 10)
+    ops_ = 3 * 2 * B * H * Hp * F * D
+    nbytes = 2 * (B * Hp * D + B * F * D + H * Hp * F + B * H * D) * 4
+    b_ms, b_by = bound(nbytes, ops_, TF32_OPS_PER_S)
+    row = {"phase": "train_grad", "kernel": "cin", "shape": name,
+           "max_rel_err": err, "rel_err": errs, "tol": CIN_GRAD_TOL,
+           "bwd_ms": dxk_ms + dx0_ms + dw_ms, "dxk_ms": dxk_ms,
+           "dx0_ms": dx0_ms, "dw_gemm_ms": dw_ms,
+           "permuted_pack_ms": pack_ms, "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    return row
+
+
+FLASH_GRAD_SHAPES = {
+    "llama3.2-1b layer, bf16 [2, 4096, 32, 64], kv 8, causal":
+        {"B": 2, "T": 4096, "H": 32, "Hk": 8, "d": 64,
+         "window": GLOBAL_WINDOW, "cap": 0.0, "dtype": torch.bfloat16},
+    "gemma2-9b local layer, bf16 [1, 8192, 16, 256], kv 8, window 4096, "
+    "softcap 50":
+        {"B": 1, "T": 8192, "H": 16, "Hk": 8, "d": 256, "window": 4096,
+         "cap": 50.0, "dtype": torch.bfloat16},
+    "gemma2-9b global layer, bf16 [1, 4096, 16, 256], softcap 50":
+        {"B": 1, "T": 4096, "H": 16, "Hk": 8, "d": 256,
+         "window": GLOBAL_WINDOW, "cap": 50.0, "dtype": torch.bfloat16},
+    "llama3.2-1b layer, f32 [1, 1024, 32, 64], kv 8, causal":
+        {"B": 1, "T": 1024, "H": 32, "Hk": 8, "d": 64,
+         "window": GLOBAL_WINDOW, "cap": 0.0, "dtype": torch.float32},
+}
+# (B, Hp, F, H, D): serve_p99's two layer shapes, train_batch's Hp = 200
+CIN_GRAD_SHAPES = {"serve_p99 layer 0": (512, 39, 39, 200, 10),
+                   "serve_p99 layer 1": (512, 200, 39, 200, 10),
+                   "train_batch layer 1": (65536, 200, 39, 200, 10)}
+
+
+def train_path(device) -> dict:
+    """Slice 10's main path: llama3.2-1b and gemma2-9b through
+    ``TrainLoop`` and xDeepFM through ``launch.train.main``, with the
+    launch counts zeroed just before and read just after; then the
+    gradient checks."""
+    with CallTimer(kernel_ops, "flash_attention") as fwd, \
+            CallTimer(flash_module, "flash_attention_bwd") as bwd, \
+            CallTimer(kernel_ops, "cin_layer") as cin_fwd, \
+            CallTimer(cin_module, "cin_layer") as cin_bwd, \
+            CallTimer(cin_module, "cin_weight_grad") as cin_dw:
+        _build.reset_launch_counts()
+        lines = {arch: lm_train(arch, device, fwd, bwd) for arch in TRAIN_LM}
+        torch.cuda.empty_cache()
+        lines["xdeepfm"] = xdeepfm_train(device, cin_fwd, cin_bwd, cin_dw)
+        counts = _build.launch_counts()
+    emit({"phase": "train_path", "launches": counts})
+    for name in ("flash_attention", "cin"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched on the training path")
+    torch.cuda.empty_cache()
+    checks = {"llama": lm_grad_check(device)}
+    torch.cuda.empty_cache()
+    checks["xdeepfm"] = xdeepfm_grad_check(device)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_check", **checks, "ok": True})
+    for name, shape in FLASH_GRAD_SHAPES.items():
+        flash_grad_row(name, shape, device)
+        torch.cuda.empty_cache()
+    for name, shp in CIN_GRAD_SHAPES.items():
+        cin_grad_row(name, *shp, device)
+        torch.cuda.empty_cache()
+    return counts
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2693,6 +3164,9 @@ def main() -> int:
     counts = {k: counts[k] + model_counts[k] for k in counts}
     model_rows = model_kernel_rows(lms, rec)
     del lms, rec
+    torch.cuda.empty_cache()
+    train_counts = train_path(device)
+    counts = {k: counts[k] + train_counts[k] for k in counts}
     kernels = []
     for row in rows:
         # one row per kernel: the road graph, at width 1 where the kernel

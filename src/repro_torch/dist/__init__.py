@@ -1,17 +1,21 @@
-"""Distributed-memory layer (paper §6), graph side: the PA exchanges and
-their collectives, and compression with error feedback. PyTorch port of
-the graph side of ``repro.dist``.
+"""Distributed-memory layer (paper §6): the PA exchanges and their
+collectives, compression with error feedback, and the overlap
+primitives. PyTorch port of ``repro.dist`` but its sharding rules.
 
 The graph side consumes ``collectives`` through
 ``repro_torch.core.backend.DistributedBackend`` and the sharded engine
 (``repro_torch.shard``), which also compresses its push with
-``compression``. The JAX package's training-side ``sharding`` and
-``overlap`` belong with the training loop and are not ported yet.
+``compression``; the training side consumes ``compression`` and
+``overlap`` through ``repro_torch.train.loop``. The JAX package's
+``sharding`` (activation sharding hints) waits with the MoE models
+(ROADMAP queue 1).
 """
 
 from .compression import (CompressionConfig, compress_tree,
                           compressed_bytes, init_error_state)
-from . import collectives, compression
+from .overlap import microbatch_grads, ring_allreduce_psum
+from . import collectives, compression, overlap
 
 __all__ = ["CompressionConfig", "compress_tree", "compressed_bytes",
-           "init_error_state", "collectives", "compression"]
+           "init_error_state", "microbatch_grads", "ring_allreduce_psum",
+           "collectives", "compression", "overlap"]

@@ -12,7 +12,20 @@ what the kernel is checked against on the card.
 
 The kernel reads w as :func:`kernel_weights` packs it (split into TF32
 hi and lo parts, laid out as its tensor cores read it), packed once per
-weight tensor and version by :func:`packed_weights`.
+weight tensor and version by :func:`packed_weights`: a weight updated in
+place (``copy_``, ``add_``, ...) moves its version and is packed anew.
+
+Gradients: when grad is enabled and an input requires it,
+:func:`cin_layer` runs through :class:`CinLayer`. With g = dL/dout, two
+of the three gradients are CIN layers themselves, launched on permuted
+weights (each a view, packed anew per call):
+
+    dxk = cin_layer(g, x0, w.permute(1, 0, 2))     # [B, Hp, D]
+    dx0 = cin_layer(g, xk, w.permute(2, 0, 1))     # [B, F, D]
+
+and dw[h, i, j] = Σ_{b,d} g[b,h,d]·xk[b,i,d]·x0[b,j,d] is a plain GEMM
+over batch chunks (:func:`cin_weight_grad`), as the JAX package's is
+plain XLA: no [B, Hp, F, D] tensor exists beyond one chunk.
 """
 
 from __future__ import annotations
@@ -23,8 +36,9 @@ import torch
 
 from ._build import check_status, load, zeroed_counters
 
-__all__ = ["cin_layer", "cin_layer_plain", "kernel_weights",
-           "packed_weights", "cin_tile", "cin_splits", "DTYPE_CODES"]
+__all__ = ["cin_layer", "cin_layer_plain", "cin_weight_grad", "CinLayer",
+           "kernel_weights", "packed_weights", "cin_tile", "cin_splits",
+           "max_fields", "DTYPE_CODES"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's product widths N (csrc/cin.cu): a width of the configs is
@@ -36,6 +50,17 @@ K_TILE = 32           # K (= i * Fp + j) per pipeline stage
 TILE_COLS = 128       # columns c = b * D + d per CTA
 # a K split leaves each CTA at least this many K tiles
 MIN_SPLIT_TILES = 8
+# and at most this many: the forward's longest K (Hp = 200 by Fp = 40,
+# 250 tiles) in one CTA. The tensor cores' f32 accumulation loses more
+# the longer it runs (about K · 3e-9 of the result), so the backward's
+# dx0, whose K = H · Hp is 40,000, is cut into ranges no longer than
+# that and their partials summed in f32 on the CUDA cores
+MAX_SPLIT_TILES = 256
+# the kernel's shared memory (csrc/cin.cu smem_bytes): at least two
+# stages of packed weights and the CTA's x0 rows, within an H100 CTA's
+# opt-in
+SMEM_MAX = 232448
+MIN_STAGES = 2
 
 # bound on outer-product entries per chunk of the plain version (memory)
 _PLAIN_CHUNK = 1 << 27
@@ -61,6 +86,25 @@ def _round_up(x: int, q: int) -> int:
     return -(-x // q) * q
 
 
+def cin_weight_grad(g: torch.Tensor, xk: torch.Tensor,
+                    x0: torch.Tensor) -> torch.Tensor:
+    """dw [H, Hp, F] in f32 of one layer from its output gradient g
+    [B, H, D]: Σ_{b,d} g[b,h,d]·xk[b,i,d]·x0[b,j,d], one GEMM per chunk
+    of batch rows, gᵀ [H, (b, d)] times z [(b, d), (i, j)] with z formed
+    for the chunk only (at most ``_PLAIN_CHUNK`` entries)."""
+    B, H, D = g.shape
+    Hp, F = xk.shape[1], x0.shape[1]
+    dw = torch.zeros((H, Hp * F), dtype=torch.float32, device=g.device)
+    step = max(1, _PLAIN_CHUNK // max(1, Hp * F * D))
+    for lo in range(0, B, step):
+        xt = xk[lo:lo + step].float().transpose(1, 2).contiguous()
+        x0t = x0[lo:lo + step].float().transpose(1, 2).contiguous()
+        z = (xt[..., :, None] * x0t[..., None, :]).reshape(-1, Hp * F)
+        gt = g[lo:lo + step].float().transpose(1, 2).reshape(-1, H)
+        dw.addmm_(gt.t(), z)
+    return dw.view(H, Hp, F)
+
+
 def cin_tile(H: int) -> int:
     """The kernel's product width N for H output rows: round_up(H, 8)
     where the kernel has that width, else the general width (H in tiles
@@ -69,13 +113,23 @@ def cin_tile(H: int) -> int:
     return n if n in FITTED_WIDTHS else GENERAL_WIDTH
 
 
+def max_fields(H: int) -> int:
+    """The most x0 rows F the kernel takes for H output rows: its CTA
+    stages 128 columns of x0 rows (F padded to a multiple of 8, plus 4)
+    in shared memory beside at least two stages of packed weights."""
+    nb = cin_tile(H)
+    weights = MIN_STAGES * 2 * nb * K_TILE * 4 + 2 * 4 * 8
+    return ((SMEM_MAX - weights) // (TILE_COLS * 4) - 4) // 8 * 8
+
+
 def cin_splits(cols: int, h_tiles: int, k_tiles: int, sms: int) -> int:
     """Ranges K is split into, so that a batch of few columns still
     gives the card's ``sms`` SMs a CTA each: as many as fit in one wave
     beside the column and h tiles, each of at least MIN_SPLIT_TILES K
-    tiles."""
+    tiles; and so that no range is longer than MAX_SPLIT_TILES."""
     tiles = -(-cols // TILE_COLS) * h_tiles
-    return max(1, min(sms // max(tiles, 1), k_tiles // MIN_SPLIT_TILES))
+    fill = min(sms // max(tiles, 1), k_tiles // MIN_SPLIT_TILES)
+    return max(1, fill, -(-k_tiles // MAX_SPLIT_TILES))
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -142,11 +196,45 @@ def _check(xk, x0, w):
         raise ValueError(f"tensors on different devices: {devs}")
 
 
+class CinLayer(torch.autograd.Function):
+    """:func:`cin_layer` with a gradient: the forward is the kernel
+    launch (the plain version on the CPU); the backward launches the
+    layer twice on permuted weights for dxk and dx0 and runs
+    :func:`cin_weight_grad` for dw."""
+
+    @staticmethod
+    def forward(ctx, xk, x0, w):
+        ctx.save_for_backward(xk, x0, w)
+        return _forward(xk, x0, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        xk, x0, w = ctx.saved_tensors
+        need_xk, need_x0, need_w = ctx.needs_input_grad
+        g = g.contiguous()
+        dxk = cin_layer(g, x0, w.permute(1, 0, 2)) if need_xk else None
+        dx0 = cin_layer(g, xk, w.permute(2, 0, 1)) if need_x0 else None
+        dw = cin_weight_grad(g, xk, x0).to(w.dtype) if need_w else None
+        return dxk, dx0, dw
+
+
 def cin_layer(xk: torch.Tensor, x0: torch.Tensor,
               w: torch.Tensor) -> torch.Tensor:
     """xk: [B, Hp, D]; x0: [B, F, D]; w: [H, Hp, F] -> [B, H, D] in xk's
-    dtype, summed in f32. On the card: f32 or bf16."""
+    dtype, summed in f32. On the card: f32 or bf16, F at most
+    :func:`max_fields` (H). When grad is enabled and an input requires
+    it, the output carries :class:`CinLayer`'s gradient."""
     _check(xk, x0, w)
+    if torch.is_grad_enabled() and (xk.requires_grad or x0.requires_grad
+                                    or w.requires_grad):
+        return CinLayer.apply(xk, x0, w)
+    return _forward(xk, x0, w)
+
+
+def _forward(xk: torch.Tensor, x0: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """The launch on a card tensor, the plain version on a CPU one (no
+    gradient: :class:`CinLayer` wraps it)."""
     if xk.device.type == "cpu":
         return cin_layer_plain(xk, x0, w)
     if xk.device.type != "cuda":
@@ -155,6 +243,10 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor,
         raise ValueError(f"the kernel takes f32 or bf16, not {xk.dtype}")
     B, Hp, D = xk.shape
     F, H = x0.shape[1], w.shape[0]
+    if F > max_fields(H):
+        raise ValueError(f"the kernel stages at most {max_fields(H)} x0 "
+                         f"rows for H = {H} in shared memory; x0 has "
+                         f"F = {F}")
     xk, x0 = xk.contiguous(), x0.contiguous()
     out = torch.empty((B, H, D), dtype=xk.dtype, device=xk.device)
     if out.numel() == 0:

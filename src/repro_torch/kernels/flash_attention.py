@@ -13,6 +13,15 @@ Semantics (both versions): scores ``q.k * scale`` in f32 (scale
 ``softcap > 0``, then the causal / sliding-window mask (key s is seen by
 query t when ``t - window < s <= t``) with masked scores ``-1e30``, a
 softmax over keys and the product with V; the output has q's dtype.
+
+Gradients: when grad is enabled and an input requires it,
+:func:`flash_attention` runs through :class:`FlashAttention`, whose
+forward is the same launch (the plain version on the CPU) and whose
+backward, :func:`flash_attention_bwd`, is plain PyTorch: it recomputes
+the plain attention one block of queries at a time (only the keys the
+block's causal window reaches) and applies the softmax's gradient, so
+the [T, T] scores never exist at once. The JAX package has no backward
+kernel either: it differentiates its plain ``blockwise_sdpa``.
 """
 
 from __future__ import annotations
@@ -24,14 +33,17 @@ import torch
 from ._build import check_status, load
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "flash_attention_plain_gqa", "GLOBAL_WINDOW", "HEAD_DIMS",
-           "DTYPE_CODES"]
+           "flash_attention_plain_gqa", "flash_attention_bwd",
+           "FlashAttention", "GLOBAL_WINDOW", "HEAD_DIMS", "DTYPE_CODES",
+           "BWD_Q_CHUNK"]
 
 # a window no sequence reaches: causal attention over every earlier key
 GLOBAL_WINDOW = 1 << 30
 # head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# queries per block of the backward's recompute
+BWD_Q_CHUNK = 512
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -95,10 +107,81 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor,
+                        causal_window: int = GLOBAL_WINDOW,
+                        softcap: float = 0.0,
+                        scale: Optional[float] = None,
+                        q_chunk: int = BWD_Q_CHUNK
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_plain_gqa` for the output
+    gradient ``dout`` ([B, T, H, d]), in the inputs' dtypes, summed in
+    f32. Blocks of ``q_chunk`` queries recompute their probabilities P
+    against the keys their window reaches, then dV += Pᵀ·dO, dP = dO·Vᵀ,
+    dS = P ∘ (dP − rowsum(P ∘ dP)) (times 1 − tanh² under a softcap),
+    dQ = dS·K·scale and dK += dSᵀ·Q·scale, KV heads shared by their
+    group of query heads."""
+    B, T, H, d = q.shape
+    Hk = k.shape[2]
+    group = H // Hk
+    sc = d ** -0.5 if scale is None else float(scale)
+    window = int(causal_window)
+    qc = max(1, min(int(q_chunk), T))
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((B, T, H, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, T, Hk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, T, Hk, d), dtype=torch.float32, device=q.device)
+    for lo in range(0, T, qc):
+        hi = min(lo + qc, T)
+        k_lo = max(0, lo - window + 1)         # first key the block sees
+        qb = q[:, lo:hi].float().reshape(B, hi - lo, Hk, group, d)
+        dob = dout[:, lo:hi].float().reshape(B, hi - lo, Hk, group, d)
+        kb, vb = kf[:, k_lo:hi], vf[:, k_lo:hi]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb).mul_(sc)
+        t = None
+        if softcap > 0:
+            t = s.div_(softcap).tanh_()
+            s = t * softcap
+        q_pos = torch.arange(lo, hi, device=q.device)[:, None]
+        k_pos = torch.arange(k_lo, hi, device=q.device)[None, :]
+        seen = (k_pos <= q_pos) & (k_pos > q_pos - window)
+        p = torch.softmax(s.masked_fill_(~seen, -1e30), dim=-1)
+        del s
+        dv[:, k_lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
+        ds = dp.sub_((p * dp).sum(dim=-1, keepdim=True)).mul_(p)
+        del p
+        if t is not None:
+            ds.mul_(t.mul_(t).neg_().add_(1.0))
+        dq[:, lo:hi] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kb).reshape(
+            B, hi - lo, H, d).mul_(sc)
+        dk[:, k_lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb).mul_(sc)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward is the kernel
+    launch (the plain version on the CPU), the backward
+    :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal_window, softcap, scale, q_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal_window, softcap, scale, q_chunk)
+        return _forward(q, k, v, causal_window, softcap, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal_window: int = GLOBAL_WINDOW,
                     softcap: float = 0.0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    bwd_q_chunk: int = BWD_Q_CHUNK) -> torch.Tensor:
     """Causal attention with grouped-query heads.
 
     q: [B, T, H, d]; k, v: [B, T, Hk, d] with H a multiple of Hk (query
@@ -106,15 +189,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype. ``causal_window`` (default: global) keeps keys
     ``t - window < s <= t``; ``softcap > 0`` caps the scores; ``scale``
     defaults to ``d ** -0.5``. On the card: bf16 or f32, d in
-    :data:`HEAD_DIMS`.
+    :data:`HEAD_DIMS`. When grad is enabled and an input requires it,
+    the output carries :class:`FlashAttention`'s gradient, whose
+    recompute takes ``bwd_q_chunk`` queries at a time.
     """
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, int(causal_window),
+                                    float(softcap), scale, int(bwd_q_chunk))
+    return _forward(q, k, v, int(causal_window), float(softcap), scale)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int, softcap: float,
+             scale: Optional[float]) -> torch.Tensor:
+    """The launch on a card tensor, the plain version on a CPU one (no
+    gradient: :class:`FlashAttention` wraps it)."""
     B, T, H, d = q.shape
     Hk = k.shape[2]
-    window = int(causal_window)
     if q.device.type == "cpu":
-        return flash_attention_plain_gqa(q, k, v, window, float(softcap),
-                                         scale)
+        return flash_attention_plain_gqa(q, k, v, window, softcap, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")

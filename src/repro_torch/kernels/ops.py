@@ -44,18 +44,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """GQA-aware flash attention. q: [B, T, H, d]; k, v: [B, T, Hk, d]
     (query head h reads KV head h // (H // Hk), in place). Returns
-    [B, T, H, d]. ``block_q`` and ``block_k`` are the TPU kernel's tile
+    [B, T, H, d], with a gradient when grad is enabled and an input
+    requires it. ``block_q`` and ``block_k`` are the TPU kernel's tile
     sizes, kept for the reference's signature: the CUDA kernel's tiles
-    are fixed, and no tile size changes the result. ``scale`` defaults
-    to d ** -0.5."""
+    are fixed, and no tile size changes the result; ``block_q`` is also
+    the query block of the backward's recompute. ``scale`` defaults to
+    d ** -0.5."""
     if block_q <= 0 or block_k <= 0:
         raise ValueError(f"block sizes must be positive: {block_q}, "
                          f"{block_k}")
-    return _flash_attention(q, k, v, causal_window, softcap, scale)
+    return _flash_attention(q, k, v, causal_window, softcap, scale,
+                            bwd_q_chunk=block_q)
 
 
 def cin_layer(xk: torch.Tensor, x0: torch.Tensor,
               w: torch.Tensor) -> torch.Tensor:
     """One CIN layer: xk [B, Hp, D], x0 [B, F, D], w [H, Hp, F] ->
-    [B, H, D]."""
+    [B, H, D], with a gradient when grad is enabled and an input
+    requires it."""
     return _cin_layer(xk, x0, w)

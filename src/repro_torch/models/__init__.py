@@ -1,2 +1,2 @@
-"""Serving models (port of ``repro.models``, dense archs): the
-transformer LM (prefill, decode) and xDeepFM."""
+"""Models (port of ``repro.models``, dense archs): the transformer LM
+(prefill, decode, ``lm_loss``) and xDeepFM, for serving and training."""

@@ -4,10 +4,12 @@ decode over KV caches (plain, int8-quantized, sliding-window ring).
 
 Shapes: activations [B, T, D]; heads split as [B, T, H, Dh].
 
-:func:`blockwise_sdpa` is the prefill attention. On a card tensor it is
-the flash-attention kernel (``kernels.ops.flash_attention``); on a CPU
-tensor it is the plain streaming version below, the reference's
-``blockwise_sdpa``. :func:`_sdpa` is the plain materialized-scores core
+:func:`blockwise_sdpa` is the prefill and training attention. On a card
+tensor it is the flash-attention kernel (``kernels.ops.flash_attention``,
+with a gradient under autograd); on a CPU tensor it is the plain
+streaming version below, the reference's ``blockwise_sdpa``, or under
+autograd the kernel's ``autograd.Function`` over the plain version.
+:func:`_sdpa` is the plain materialized-scores core
 (``attn_impl="naive"`` and decode). Decode attention has no kernel in
 the JAX package and stays plain PyTorch here.
 """
@@ -121,15 +123,21 @@ def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, T, Hk, Dh].
 
     On the card this is the flash-attention kernel (the chunk sizes then
-    do not apply: the kernel's tiles are its own, and no tile changes the
-    result). On the CPU: scores q.k in f32, scaled, soft-capped, masked;
-    P enters P·V in v's dtype, as in the reference.
+    do not apply to the forward: the kernel's tiles are its own, and no
+    tile changes the result). Under autograd (grad enabled, an input
+    requiring it) it is the kernel's ``autograd.Function`` on either
+    device: the forward kernel (on the CPU its plain version), and a
+    backward that recomputes the plain attention ``q_chunk`` queries at
+    a time. Otherwise, on the CPU: scores q.k in f32, scaled,
+    soft-capped, masked; P enters P·V in v's dtype, as in the reference.
     """
     cap = cfg.logit_softcap
-    if q.device.type == "cuda":
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if q.device.type == "cuda" or grad:
         return ops.flash_attention(q, k, v, causal_window=int(window),
                                    softcap=0.0 if cap is None else cap,
-                                   scale=cfg.scale)
+                                   block_q=q_chunk, scale=cfg.scale)
     B, T, H, Dh = q.shape
     Hk = k.shape[2]
     group = H // Hk

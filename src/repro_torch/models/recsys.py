@@ -1,5 +1,5 @@
-"""xDeepFM serving (port of ``repro.models.recsys``): CIN + DNN + linear
-over per-field embedding tables.
+"""xDeepFM (port of ``repro.models.recsys``): CIN + DNN + linear over
+per-field embedding tables, for serving and training.
 
 The embedding lookup is a pull: each (row, field) gathers one row of its
 field's table. CIN (Compressed Interaction Network), xDeepFM eq. (6):
@@ -7,8 +7,9 @@ field's table. CIN (Compressed Interaction Network), xDeepFM eq. (6):
     X^k[b, h, d] = sum_{i, j} W^k[h, i, j] * X^{k-1}[b, i, d] * X^0[b, j, d]
 
 one call of ``kernels.ops.cin_layer`` per layer (on the card the CUDA
-kernel, which never forms the outer product), each layer's output pooled
-over d.
+kernel, which never forms the outer product; under autograd its
+``CinLayer`` Function, whose backward launches the kernel twice more),
+each layer's output pooled over d.
 """
 
 from __future__ import annotations

@@ -1,26 +1,38 @@
-"""Decoder-only transformer LM for serving (port of
-``repro.models.transformer``, dense archs).
+"""Decoder-only transformer LM (port of ``repro.models.transformer``,
+dense archs): serving and training.
 
 The serving path: :func:`prefill` runs a prompt and returns the
 last-position logits and a KV cache laid out as :func:`init_kv_cache`
 and :func:`decode_step` expect; :func:`decode_step` adds one token.
-:func:`forward` returns the final hidden states.
+:func:`forward` returns the final hidden states and :func:`lm_loss` the
+sequence-chunked cross entropy that training differentiates.
 
 Differences from the reference, none of which changes a result:
 
   * layers are a list of per-layer dicts and the layer loop runs on the
     host, each layer's window a Python int (the reference stacks layers
-    on a leading axis for ``jax.lax.scan`` and remat, which serving does
-    not need); :func:`params_from_arrays` takes the reference's stacked
-    tree as numpy arrays;
-  * with ``attn_impl="blockwise"`` (the default) prefill attention on
-    the card is the flash-attention kernel; ``"naive"`` runs the plain
-    materialized-scores ``_sdpa``;
+    on a leading axis for ``jax.lax.scan``); :func:`params_from_arrays`
+    takes the reference's stacked tree as numpy arrays (and carries its
+    gradients and optimizer moments across the same way), and
+    :func:`decay_mask` marks the leaves the reference's AdamW decays;
+  * with ``remat`` (the default) and grad enabled, :func:`forward`
+    checkpoints each layer (``torch.utils.checkpoint``, non-reentrant),
+    as the reference's ``jax.checkpoint`` does: the backward pass runs
+    the layer again, the flash-attention kernel included;
+  * with ``attn_impl="blockwise"`` (the default) attention on the card
+    is the flash-attention kernel, with a gradient
+    (``kernels.flash_attention.FlashAttention``); ``"naive"`` runs the
+    plain materialized-scores ``_sdpa``;
+  * :func:`lm_loss` casts the unembed to f32 once per call (the
+    reference casts it inside each chunk of its scan, where XLA keeps
+    one copy; eager autograd would keep one per chunk) and picks the
+    label's logit with a gather (the reference's iota mask keeps the
+    vocab axis sharded; the value is the same);
   * :func:`decode_step` writes the new token into the cache in place;
   * the reference's sharding hints have no counterpart on one card.
 
-MoE layers (``models/moe.py``), ``lm_loss`` and training are not ported
-yet (ROADMAP queue 1): a config with ``moe`` set raises.
+MoE layers (``models/moe.py``) are not ported yet (ROADMAP queue 1): a
+config with ``moe`` set raises.
 """
 
 from __future__ import annotations
@@ -30,17 +42,19 @@ from typing import Any, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..graphs.structure import resolve_device
 from ..kernels.flash_attention import GLOBAL_WINDOW
 from .attention import (AttnConfig, _sdpa, attn_init, blockwise_sdpa,
                         decode_attn_apply, quantize_kv, rope)
 from .common import (dense_apply, dense_init, embed_init, rms_norm, silu,
-                     softcap, tree_from_arrays, tree_map)
+                     softcap, tree_from_arrays, tree_leaves, tree_map)
 
 __all__ = ["TransformerConfig", "init_params", "params_from_arrays",
-           "forward", "prefill", "decode_step", "init_kv_cache",
-           "pad_kv_cache", "quantize_kv_tree", "GLOBAL_WINDOW"]
+           "decay_mask", "forward", "lm_loss", "prefill", "decode_step",
+           "init_kv_cache", "pad_kv_cache", "quantize_kv_tree",
+           "GLOBAL_WINDOW"]
 
 ATTN_IMPLS = ("blockwise", "naive")
 CACHE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -145,6 +159,17 @@ def params_from_arrays(tree: dict, device=None) -> dict:
     return out
 
 
+def decay_mask(params: dict) -> dict:
+    """Which leaves the reference's AdamW decays (``ndim >= 2`` on its
+    tree): the embeddings, and every per-layer leaf, since the
+    reference stacks layers on a leading [L] axis (its norm scales and
+    biases are [L, D] there); not the final norm."""
+    out = tree_map(lambda p: p.ndim >= 2,
+                   {k: v for k, v in params.items() if k != "layers"})
+    out["layers"] = tree_map(lambda p: True, params["layers"])
+    return out
+
+
 def _embed(params: dict, cfg: TransformerConfig,
            tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens]
@@ -185,16 +210,53 @@ def _layer_apply(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
     return x + _ffn(lp, rms_norm(x, lp["ln2"])), (k, v)
 
 
+def _layer_out(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
+               window: int, positions: torch.Tensor) -> torch.Tensor:
+    return _layer_apply(cfg, lp, x, window, positions)[0]
+
+
 def forward(params: dict, cfg: TransformerConfig,
             tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, T] -> final hidden states [B, T, D]."""
+    """tokens [B, T] -> final hidden states [B, T, D]. Under autograd
+    with ``cfg.remat``, each layer is checkpointed."""
     _check(cfg)
     T = tokens.shape[1]
     x = _embed(params, cfg, tokens)
     positions = torch.arange(T, device=x.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
     for lp, window in zip(params["layers"], cfg.window_array(T)):
-        x, _ = _layer_apply(cfg, lp, x, window, positions)
+        if remat:
+            x = checkpoint(_layer_out, cfg, lp, x, window, positions,
+                           use_reentrant=False)
+        else:
+            x = _layer_out(cfg, lp, x, window, positions)
     return rms_norm(x, params["final_ln"])
+
+
+def lm_loss(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Sequence-chunked cross entropy, the mean over tokens whose label
+    is not negative: the logits exist for ``cfg.loss_chunk`` positions
+    at a time, never at [B, T, V]. tokens, labels: int [B, T]."""
+    T = tokens.shape[1]
+    x = forward(params, cfg, tokens)                   # [B, T, D]
+    chunk = min(cfg.loss_chunk, T)
+    w = params["unembed"]["w"].float()                 # once per call
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, T, chunk):
+        logits = x[:, lo:lo + chunk].float() @ w       # [B, chunk, V]
+        if cfg.final_softcap is not None:
+            logits = softcap(logits, cfg.final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        lc = labels[:, lo:lo + chunk].long()
+        picked = torch.gather(logits, -1,
+                              torch.clamp(lc, min=0)[..., None])[..., 0]
+        valid = lc >= 0
+        total = total + torch.where(valid, lse - picked, 0.0).sum()
+        count = count + valid.sum()
+    return total / torch.clamp(count, min=1).to(torch.float32)
 
 
 def _logits(params: dict, cfg: TransformerConfig,

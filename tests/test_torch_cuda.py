@@ -639,3 +639,115 @@ def test_sharded_solve_equals_cuda_backend(cuda, alg, policy, kw):
     assert launched == sb.stats["kernel_pull"] == 4 * pulls
     if policy == "pull":
         assert launched > 0
+
+
+# -- slice 10: gradients through the model kernels ---------------------------
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32), ids=str)
+@pytest.mark.parametrize("T,group,window,softcap,d", [
+    (300, 4, GLOBAL_WINDOW, 0.0, 64), (130, 2, 17, 50.0, 256),
+    (200, 8, 64, 30.0, 32)])
+def test_flash_attention_gradients_match_plain(cuda, dtype, T, group,
+                                               window, softcap, d):
+    """The ``FlashAttention`` Function (the kernel forward, the q-chunked
+    plain backward at blocks of 64 here) against autograd through the
+    plain version: each gradient within ``chip_smoke.FLASH_GRAD_TOL``
+    (f32 1e-4, bf16 1e-2) of its largest entry."""
+    B, Hk = 2, 2
+    q = normal((B, T, Hk * group, d), 1, cuda, dtype).requires_grad_()
+    k = normal((B, T, Hk, d), 2, cuda, dtype).requires_grad_()
+    v = normal((B, T, Hk, d), 3, cuda, dtype).requires_grad_()
+    dout = normal((B, T, Hk * group, d), 4, cuda, dtype)
+    _build.reset_launch_counts()
+    out = flash_attention(q, k, v, window, softcap, None, 64)
+    assert out.grad_fn is not None
+    assert _build.launch_counts()["flash_attention"] == 1
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(flash_attention_plain_gqa(q, k, v, window,
+                                                         softcap),
+                               (q, k, v), dout)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert rel_gap(a, b) <= cs.FLASH_GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("B,Hp,F,H,D", [(37, 39, 39, 200, 10),
+                                        (37, 200, 39, 200, 10),
+                                        (300, 13, 9, 37, 3)])
+def test_cin_layer_gradients_match_plain(cuda, B, Hp, F, H, D):
+    """The ``CinLayer`` Function (dxk and dx0 as kernel launches on
+    permuted weights, dw as the chunked GEMM) against autograd through
+    the plain version, f32: each within ``chip_smoke.CIN_GRAD_TOL``
+    (1e-4) of its largest entry; three launches, none plain."""
+    xk = normal((B, Hp, D), 4, cuda).requires_grad_()
+    x0 = normal((B, F, D), 5, cuda).requires_grad_()
+    w = (normal((H, Hp, F), 6, cuda) * (2.0 / (Hp * F)) ** 0.5
+         ).requires_grad_()
+    g = normal((B, H, D), 7, cuda)
+    _build.reset_launch_counts()
+    out = cin_layer(xk, x0, w)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (xk, x0, w), g)
+    assert _build.launch_counts()["cin"] == 3
+    want = torch.autograd.grad(cin_layer_plain(xk, x0, w), (xk, x0, w), g)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert rel_gap(a, b) <= cs.CIN_GRAD_TOL
+
+
+def test_cin_packing_follows_an_in_place_optimizer_step(cuda):
+    """After ``apply_updates`` writes w in place, the kernel packs it
+    anew: its output equals the plain layer on the updated w."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt
+    xk = normal((64, 39, 10), 8, cuda)
+    w = (normal((200, 39, 39), 9, cuda) * 0.03)
+    before = cin_layer(xk, xk, w)
+    params = {"w": w}
+    cfg = OptConfig(warmup_steps=0, lr=1e-2)
+    apply_updates(params, {"w": normal(w.shape, 10, cuda)},
+                  init_opt(params, cfg), cfg)
+    assert params["w"] is w
+    after = cin_layer(xk, xk, w)
+    assert not torch.equal(after, before)
+    torch.testing.assert_close(after, cin_layer_plain(xk, xk, w), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_cin_layer_refuses_more_fields_than_it_stages(cuda):
+    from repro_torch.kernels.cin import max_fields
+    F = max_fields(200) + 1
+    x0 = torch.zeros((2, F, 4), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cin_layer(torch.zeros((2, 3, 4), device=cuda), x0,
+                  torch.zeros((200, 3, F), device=cuda))
+
+
+def test_lm_loss_gradients_kernel_against_naive(cuda):
+    """A small f32 llama (head dim 32) on the card: every parameter's
+    gradient through the flash kernel's Function (remat on) against the
+    plain ``"naive"`` attention, ‖Δg‖ / ‖g‖ within
+    ``chip_smoke.LM_GRAD_TOL`` (f32: 1e-4)."""
+    import dataclasses
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.dist.overlap import value_and_grad
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(smoke_config("llama3.2-1b"), d_model=128,
+                              n_heads=4, n_kv_heads=2, q_chunk=16)
+    params = tf.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 97), generator=gen, device=cuda)
+    grads = {}
+    for impl in ("blockwise", "naive"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        _build.reset_launch_counts()
+        grads[impl] = value_and_grad(
+            lambda p, b, c=c: tf.lm_loss(p, c, b[:, :-1], b[:, 1:]), params,
+            toks)[1]
+        launched = _build.launch_counts()["flash_attention"]
+        assert launched == (2 * cfg.n_layers if impl == "blockwise" else 0)
+    assert cs.worst_leaf(grads["blockwise"], grads["naive"]) <= \
+        cs.LM_GRAD_TOL[torch.float32]

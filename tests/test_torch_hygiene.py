@@ -37,7 +37,8 @@ def port_modules() -> list[str]:
 
 
 def test_modules_import_without_jax_or_repro():
-    # the serving, model and sharded slices' modules are among those checked
+    # the serving, model, sharded and training slices' modules are among
+    # those checked
     assert {"repro_torch.service.scheduler", "repro_torch.service.batch",
             "repro_torch.service.cache", "repro_torch.service.programs",
             "repro_torch.resilience.errors", "repro_torch.kernels.tune",
@@ -53,7 +54,12 @@ def test_modules_import_without_jax_or_repro():
             "repro_torch.core.engine", "repro_torch.shard.mesh",
             "repro_torch.shard.topology", "repro_torch.shard.exchange",
             "repro_torch.shard.backend", "repro_torch.dist.collectives",
-            "repro_torch.dist.compression"} <= set(port_modules())
+            "repro_torch.dist.compression", "repro_torch.dist.overlap",
+            "repro_torch.train", "repro_torch.train.losses",
+            "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+            "repro_torch.train.loop", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.launch",
+            "repro_torch.launch.train"} <= set(port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for name in {port_modules() + ['chip_smoke']!r}:\n"

@@ -233,3 +233,14 @@ def test_cin_splits_fill_the_card():
     assert cin_splits(10, 1, 250, 132) == 31
     assert cin_splits(10, 1, 7, 132) == 1
     assert cin_splits(370, 2, 3, 132) == 1
+
+
+def test_cin_splits_bound_each_range():
+    """No CTA accumulates more than 256 K tiles: the backward's dx0 at
+    train_batch (K = 200 · 200, 1,250 tiles, 5,120 column tiles) splits
+    in 5, at serve_p99 in 5 rather than 3; the forward's longest K (250
+    tiles) stays whole at a bulk batch."""
+    assert cin_splits(655_360, 1, 1250, 132) == 5
+    assert cin_splits(5120, 1, 1250, 132) == 5
+    assert cin_splits(2_621_440, 1, 250, 132) == 1
+    assert cin_splits(655_360, 1, 257, 132) == 2
