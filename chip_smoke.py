@@ -180,7 +180,47 @@ non-zero:
      against autograd through the plain versions (relative to the
      largest entry: flash 1e-2 bf16, 1e-4 f32; CIN 1e-4), the backward
      timed beside the plain autograd backward, SDPA's backward where it
-     computes the same function, and the bound.
+     computes the same function, and the bound. Then the CIN layer at
+     train_batch's shapes (B = 65,536) beside ``einsum``.
+ 14. Main path of slice 11, the GNN family (run after 13), ``"gnn"``:
+     EGNN, GIN, GraphSAGE and GraphCast at full width (``full_config``,
+     the reference's cell widths: d_in the shape's features, d_out its
+     classes, 1 for molecule, graphcast's 227 variables) train 3 AdamW
+     steps each under ``direction`` "pull" and "push" through
+     ``TrainLoop``, with the reference cell's losses, on full_graph_sm
+     (``erdos_renyi`` at 2,708 nodes and ~10,556 edges) and molecule
+     (128 graphs of 30 atoms), uncut; on minibatch_lg's sampled subgraph
+     (1,024 seeds, fanout (15, 10): 169,984 nodes, 168,960 edges,
+     ``sample_blocks`` on the full 232,965-node, ~114.6 M-edge graph) and
+     on ogb_products (2.45 M nodes, ~61.9 M edges; GIN and GraphSAGE).
+     The two large graphs are built on the card (uniform pairs, both
+     directions, no self loops or duplicates). One line per run: step
+     ms, peak memory, losses. Checks: push equals pull; at full_graph_sm
+     and molecule the card's forward equals the port's CPU forward in
+     float64; every loss is finite. ``"gnn_blocks"``: GraphSAGE through
+     ``sage_apply_blocks`` on blocks sampled from the full minibatch_lg
+     graph each step; ``"gnn_mp"``: ``gin_apply_mp`` on four shards on
+     one card against ``gin_apply`` at full_graph_sm and ogb_products.
+     The path reaches no kernel of the repo (its sums are
+     ``segment_sum``'s float64 ``index_add_``, chunked).
+ 15. Main path of slice 11, the MoE family, ``"moe"``: deepseek-moe-16b
+     at full depth (28 layers, bf16) prefills 1 × 4,096 with the flash
+     kernel and decodes 16 tokens, moonshot-v1-16b-a3b the same at 4 of
+     48 layers (``"lm_prefill"``/``"lm_decode"`` lines with ``"path":
+     "moe"``: tokens/s, ms a step, busy share, top kernels); then
+     deepseek-moe-16b trains at 4 layers, 1 × 4,096, 3 steps through
+     ``TrainLoop``. Checks, with the routers' expert choices pinned
+     (``RoutePin``: two bf16 runs see router logits ~1e-2 apart, and
+     near-tied experts flip; the unpinned flipped share is printed):
+     prefill with the kernel against ``attn_impl="naive"`` and the first
+     decode step against a prefill one token longer (at a capacity that
+     drops nothing), within LM_TOL scaled to depth past 16 layers; the
+     first layer's MoE FFN with push against pull dispatch; the flash
+     kernel at deepseek's layer shape timed beside SDPA;
+     ``moe_apply_ep`` on four shards on one card ("psum" with f32 and
+     bf16 combine, "a2a") against ``moe_apply`` at S = 4,096 in bf16
+     and f32; the gradients at 2 layers with the kernel against the
+     plain path (bf16 5e-2, f32 1e-4).
 
 Launch counts are zeroed just before each main path and read just after
 it; every kernel of the path must have launched and no step of the graph
@@ -209,11 +249,16 @@ from repro_torch import api  # noqa: E402
 from repro_torch.core import backend as backend_module  # noqa: E402
 from repro_torch.core.cost_model import Cost  # noqa: E402
 from repro_torch.core.direction import Direction  # noqa: E402
-from repro_torch.graphs import (build_graph, kronecker, standin,  # noqa: E402
-                                star)
+from repro_torch.graphs import (GRAPH_ARRAYS, Graph,  # noqa: E402
+                                SampledBlocks, build_graph, erdos_renyi,
+                                graph_from_arrays, kronecker, sample_blocks,
+                                standin, star)
 from repro_torch.graphs.structure import pad_values  # noqa: E402
 from repro_torch.configs.archs import full_config  # noqa: E402
-from repro_torch.data import recsys_batches, token_batches  # noqa: E402
+from repro_torch.configs.shapes import GNN_SHAPES  # noqa: E402
+from repro_torch.data import (molecule_batches, recsys_batches,  # noqa: E402
+                              token_batches)
+from repro_torch.dist.sharding import set_activation_mesh  # noqa: E402
 from repro_torch.dist.overlap import value_and_grad  # noqa: E402
 from repro_torch.kernels import _build, tune  # noqa: E402
 from repro_torch.kernels import cin as cin_module  # noqa: E402
@@ -234,20 +279,25 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_plain_gqa)
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import gnn as gnn_module  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models import transformer as transformer_module  # noqa: E402
 from repro_torch.models.common import (param_count,  # noqa: E402
-                                       tree_leaves, tree_size_bytes)
+                                       tree_leaves, tree_map,
+                                       tree_size_bytes)
 from repro_torch.models.recsys import (  # noqa: E402
     cin_apply, retrieval_score, xdeepfm_apply, xdeepfm_init)
 from repro_torch.models.transformer import (decay_mask,  # noqa: E402
                                             decode_step, init_params,
                                             lm_loss, pad_kv_cache, prefill)
 from repro_torch.service import QueryService  # noqa: E402
-from repro_torch.shard import ShardedBackend  # noqa: E402
+from repro_torch.shard import ShardedBackend, make_shard_mesh  # noqa: E402
 from repro_torch.sparse.segment import (reduce_identity,  # noqa: E402
                                        segment_sum)
 from repro_torch.train import (LoopConfig, OptConfig,  # noqa: E402
                                TrainLoop, apply_updates, init_opt)
-from repro_torch.train.losses import bce_with_logits  # noqa: E402
+from repro_torch.train.losses import (bce_with_logits, mse,  # noqa: E402
+                                      softmax_xent_dense)
 
 # the module (the package exports its function under the same name)
 flash_module = sys.modules["repro_torch.kernels.flash_attention"]
@@ -2286,6 +2336,12 @@ CIN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # path and decode against prefill. Activations round at 2^-8 in bf16
 # and the kernel's bf16 P adds ~2^-9 per layer, over up to 16 layers.
 LM_TOL = 5e-2
+
+
+def lm_tol(cfg) -> float:
+    """LM_TOL for up to 16 layers, scaled with depth past them (2^-9 of
+    the kernel's bf16 P a layer): deepseek-moe-16b's 28 layers, 8.75e-2."""
+    return LM_TOL * max(1.0, cfg.n_layers / 16)
 # xDeepFM (f32), kernel CIN against plain CIN: rtol, atol
 XDEEPFM_TOL = (1e-4, 1e-6)
 # the serving runs: prompt batch and length, decode steps, layers kept
@@ -2407,10 +2463,13 @@ def device_profile(fn, top: int = 6) -> dict:
                     for k, ms, n in kernels[:top]]}
 
 
-def lm_serve(arch: str, device, flash: CallTimer) -> dict:
+def lm_serve(arch: str, device, flash: CallTimer, run: dict | None = None,
+             path: str = "model", keep: tuple = ()) -> dict:
     """Prefill a seeded prompt through ``prefill`` (bf16 cache), then
-    ``decode_step`` token by token on the grown cache."""
-    run = LM_RUNS[arch]
+    ``decode_step`` token by token on the grown cache. ``run``: the
+    arch's entry of ``LM_RUNS`` unless given; ``keep``: more CallTimers
+    that keep the cold prefill's arguments, as ``flash`` does."""
+    run = run or LM_RUNS[arch]
     cfg = full_config(arch)
     if run["layers"]:
         cfg = dataclasses.replace(cfg, n_layers=run["layers"])
@@ -2420,9 +2479,11 @@ def lm_serve(arch: str, device, flash: CallTimer) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (B, T + steps), generator=gen,
                          device=device)
-    flash.keep = True
+    for timer in (flash, *keep):
+        timer.keep = True
     _, cold_ms = synced_ms(lambda: prefill(params, cfg, toks[:, :T], "bf16"))
-    flash.keep = False
+    for timer in (flash, *keep):
+        timer.keep = False
     kept = flash.kept[-cfg.n_layers:]
     flash.take_ms()
     # the second prefill is the steady state (the first pays the GEMM
@@ -2431,7 +2492,8 @@ def lm_serve(arch: str, device, flash: CallTimer) -> dict:
         lambda: prefill(params, cfg, toks[:, :T], "bf16"))
     layer_ms = flash.take_ms()
     windows = cfg.window_array(T)
-    emit({"phase": "lm_prefill", "arch": arch, "B": B, "T": T,
+    emit({"phase": "lm_prefill", "path": path, "arch": arch, "B": B,
+          "T": T,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd],
           "param_gb": tree_size_bytes(params) / 1e9, "init_ms": init_ms,
@@ -2454,7 +2516,8 @@ def lm_serve(arch: str, device, flash: CallTimer) -> dict:
             first = lg
     if not (torch.isfinite(logits).all() and torch.isfinite(lg).all()):
         fail(f"{arch}: non-finite logits")
-    emit({"phase": "lm_decode", "arch": arch, "B": B, "cache_len": T + steps,
+    emit({"phase": "lm_decode", "path": path, "arch": arch, "B": B,
+          "cache_len": T + steps,
           "steps": steps, "ms_per_step_median": statistics.median(step_ms),
           "ms_per_step": step_ms,
           "profile": device_profile(lambda: decode_step(
@@ -2466,7 +2529,7 @@ def lm_serve(arch: str, device, flash: CallTimer) -> dict:
             "flash_args": kept}
 
 
-def lm_check(arch: str, st: dict) -> None:
+def lm_check(arch: str, st: dict, path: str = "model") -> None:
     """Kernel path against the plain path (``attn_impl="naive"``) on the
     same weights, and the first decode step against a prefill one token
     longer."""
@@ -2482,7 +2545,8 @@ def lm_check(arch: str, st: dict) -> None:
     longer, _ = prefill(params, cfg, toks[:, :T + 1], "bf16")
     gaps["decode_vs_prefill"] = rel_gap(st["first_decode"], longer)
     bad = {k: v for k, v in gaps.items() if not v <= LM_TOL}
-    emit({"phase": "lm_check", "arch": arch, "relative_gap": gaps,
+    emit({"phase": "lm_check", "path": path, "arch": arch,
+          "relative_gap": gaps,
           "tol": LM_TOL, "ok": not bad})
     if bad:
         fail(f"{arch}: {bad} above {LM_TOL} of the largest value")
@@ -2601,7 +2665,8 @@ def model_path(device) -> tuple[dict, dict, dict]:
     return lms, rec, counts
 
 
-def model_kernel_rows(lms: dict, rec: dict) -> list:
+def model_kernel_rows(lms: dict, rec: dict | None, path: str = "model"
+                      ) -> list:
     """Each model kernel at its path's shapes, on the path's own inputs:
     held against its plain version, then timed with CUDA events (L2
     flushed before each launch) beside the plain version, the bound of
@@ -2637,7 +2702,7 @@ def model_kernel_rows(lms: dict, rec: dict) -> list:
                    f"{arch} layer {li}: q {q.dtype} [{B}, {T}, {H}, {d}], "
                    f"kv [{B}, {T}, {Hk}, {d}], window {min(window, T)}, "
                    f"softcap {cap}",
-                   {"arch": arch, "layer": li},
+                   {"arch": arch, "layer": li, "path": path},
                    lambda q=q, k=k, v=v, w=window, c=cap, s=scale:
                    kernel_ops.flash_attention(q, k, v, w, c, scale=s),
                    lambda q=q, k=k, v=v, w=window, c=cap:
@@ -2646,12 +2711,12 @@ def model_kernel_rows(lms: dict, rec: dict) -> list:
                    nbytes=nbytes, ops_=ops_,
                    rate=(BF16_OPS_PER_S if q.dtype == torch.bfloat16
                          else F32_OPS_PER_S), reps=10)
-    for li, ((xk, x0, w), _) in enumerate(rec["cin_args"]):
+    for li, ((xk, x0, w), _) in enumerate(rec["cin_args"] if rec else ()):
         B, Hp, D = xk.shape
         F, H = x0.shape[1], w.shape[0]
         record("cin", f"serve_p99 layer {li}: xk f32 [{B}, {Hp}, {D}], x0 "
                f"[{B}, {F}, {D}], w [{H}, {Hp}, {F}]",
-               {"layer": li,
+               {"layer": li, "path": path,
                 "tf32_floor_ms": cin_tf32_floor_ms(B, H, Hp, F, D)},
                lambda xk=xk, x0=x0, w=w: kernel_ops.cin_layer(xk, x0, w),
                lambda xk=xk, x0=x0, w=w: cin_layer_plain(xk, x0, w),
@@ -2711,21 +2776,27 @@ def on_device(batch: dict, device) -> dict:
 
 
 def lm_train_flops(cfg, params: dict, B: int, T: int) -> float:
-    """6 · N · tokens (N without the input embedding, a gather) plus the
-    attention's products three times over (forward, and the backward's
-    two), as model FLOPs count them: the remat recompute is not
-    counted."""
+    """6 · N · tokens (N the parameters a token uses: without the input
+    embedding, a gather, and of a MoE layer's routed experts only the
+    top k) plus the attention's products three times over (forward, and
+    the backward's two), as model FLOPs count them: the remat recompute
+    is not counted."""
     n = param_count(params) - params["embed"].numel()
+    if cfg.moe is not None:
+        routed = sum(param_count(lp["moe"]["experts"])
+                     for lp in params["layers"])
+        n -= routed * (1 - cfg.moe.top_k / cfg.moe.n_experts)
     attn = sum(flash_work(B, T, cfg.n_heads, cfg.n_kv_heads, cfg.hd, w, 2)[1]
                for w in cfg.window_array(T))
     return 6.0 * n * B * T + 3.0 * attn
 
 
-def lm_train(arch: str, device, fwd: CallTimer, bwd: CallTimer) -> dict:
+def lm_train(arch: str, device, fwd: CallTimer, bwd: CallTimer,
+             run: dict | None = None, path: str = "train") -> dict:
     """``TrainLoop`` on the full-width config, AdamW, synthetic tokens;
     for llama a checkpoint at ``ckpt_at`` and a fresh loop resuming
-    from it."""
-    run = TRAIN_LM[arch]
+    from it. ``run``: the arch's entry of ``TRAIN_LM`` unless given."""
+    run = run or TRAIN_LM[arch]
     cfg = full_config(arch)
     if run["layers"]:
         cfg = dataclasses.replace(cfg, n_layers=run["layers"])
@@ -2763,7 +2834,7 @@ def lm_train(arch: str, device, fwd: CallTimer, bwd: CallTimer) -> dict:
     if not all(np.isfinite(losses)):
         fail(f"{arch}: non-finite training losses {losses}")
     calls = steps * run["micro"] * cfg.n_layers
-    line = {"phase": "train", "arch": arch, "B": B, "T": T,
+    line = {"phase": "train", "path": path, "arch": arch, "B": B, "T": T,
             "microbatches": run["micro"], "layers": cfg.n_layers,
             "d_model": cfg.d_model, "params": param_count(params),
             "optimizer": "adamw", "losses": losses, "step_ms": dts,
@@ -2884,23 +2955,38 @@ def worst_leaf(got, want) -> float:
                                               tree_leaves(want)))
 
 
-def lm_grad_check(device) -> dict:
-    """llama3.2-1b at full width, 2 layers, bf16 and f32: every
-    parameter's gradient with the kernel (``attn_impl="blockwise"``)
-    against the plain path (``"naive"``), on one 4,096-token sequence."""
+def lm_grad_check(device, arch: str = "llama3.2-1b",
+                  pin: "RoutePin | None" = None) -> dict:
+    """``arch`` at full width, 2 layers, bf16 and f32: every parameter's
+    gradient with the kernel (``attn_impl="blockwise"``) against the
+    plain path (``"naive"``), on one 4,096-token sequence. A MoE arch
+    passes ``pin``: the kernel run's expert choices (the forward's and
+    the remat recompute's, in call order) are replayed in the plain
+    run."""
     gaps = {}
-    batch = on_device(next(token_batches(1, 4096, 128256, seed=1)), device)
+    vocab = full_config(arch).vocab
+    batch = on_device(next(token_batches(1, 4096, vocab, seed=1)), device)
     for dt, name in ((torch.bfloat16, "bfloat16"), (torch.float32,
                                                     "float32")):
-        cfg = dataclasses.replace(full_config("llama3.2-1b"), n_layers=2,
+        cfg = dataclasses.replace(full_config(arch), n_layers=2,
                                   dtype=name)
         params = init_params(cfg, seed=1, device=device)
         grads = {}
         for impl in ("blockwise", "naive"):
             c = dataclasses.replace(cfg, attn_impl=impl)
+            if pin is not None:
+                pin.record = impl == "blockwise"
+                pin.replay = None if pin.record else list(route)
             grads[impl] = value_and_grad(
                 lambda p, b, c=c: lm_loss(p, c, b["tokens"], b["labels"]),
                 params, batch)
+            if pin is not None and impl == "blockwise":
+                route = pin.take()
+        if pin is not None:
+            if pin.replay:
+                fail(f"{arch}: the plain run routed fewer times than the "
+                     "kernel run")
+            pin.record, pin.replay = False, None
         gaps[name] = {"loss": abs(float(grads["blockwise"][0])
                                   - float(grads["naive"][0])),
                       "worst_grad": worst_leaf(grads["blockwise"][1],
@@ -2908,7 +2994,7 @@ def lm_grad_check(device) -> dict:
                       "tol": LM_GRAD_TOL[dt]}
         del params, grads
         if not gaps[name]["worst_grad"] <= LM_GRAD_TOL[dt]:
-            fail(f"llama {name} gradients: {gaps[name]}")
+            fail(f"{arch} {name} gradients: {gaps[name]}")
     return gaps
 
 
@@ -3093,7 +3179,771 @@ def train_path(device) -> dict:
     for name, shp in CIN_GRAD_SHAPES.items():
         cin_grad_row(name, *shp, device)
         torch.cuda.empty_cache()
+    cin_train_rows(device)
+    torch.cuda.empty_cache()
     return counts
+
+
+def cin_train_rows(device) -> list:
+    """The CIN layer at train_batch's two layer shapes (B = 65,536; Hp =
+    39 and 200) on seeded inputs, held against its plain version within
+    CIN_TOL of the largest output, then timed as in 11 beside
+    ``einsum``, the f32 bound and the 3xTF32 floor."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    rows = []
+    for li, Hp in enumerate((39, 200)):
+        B, F, H, D = TRAIN_XDEEPFM["B"], 39, 200, 10
+        xk, x0 = normal((B, Hp, D), gen), normal((B, F, D), gen)
+        w = normal((H, Hp, F), gen) * (2.0 / (Hp * F)) ** 0.5
+        # held relative to the largest |output|, as the train_grad rows
+        # hold the Function: of 131 M outputs of unit-normal inputs, some
+        # cancel to near 0 and keep the 3xTF32 error of their terms
+        got, want = kernel_ops.cin_layer(xk, x0, w), cin_layer_plain(xk, x0,
+                                                                     w)
+        if not rel_gap(got, want) <= CIN_TOL[torch.float32]:
+            fail(f"cin train_batch layer {li}: {rel_gap(got, want)} of the "
+                 f"largest output, above {CIN_TOL[torch.float32]}")
+        err = float((got - want).abs().max())
+        del got, want
+        rows.append(kernel_row(
+            "cin", f"train_batch layer {li}: xk f32 [{B}, {Hp}, {D}], x0 "
+            f"[{B}, {F}, {D}], w [{H}, {Hp}, {F}]", err,
+            lambda xk=xk, x0=x0, w=w: kernel_ops.cin_layer(xk, x0, w),
+            lambda xk=xk, x0=x0, w=w: cin_layer_plain(xk, x0, w),
+            lambda xk=xk, x0=x0, w=w: torch.einsum("hij,bid,bjd->bhd", w,
+                                                   xk, x0),
+            (B * Hp * D + B * F * D + H * Hp * F + B * H * D) * 4,
+            2 * B * H * Hp * F * D, 5, rate=F32_OPS_PER_S, plain_reps=2,
+            path="train", layer=li,
+            tf32_floor_ms=cin_tf32_floor_ms(B, H, Hp, F, D)))
+        del xk, x0, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- slice 11: the GNN family ----------------------------------------------
+GNN_ARCHS = ("egnn", "gin-tu", "graphsage-reddit", "graphcast")
+GNN_INIT = {"egnn": gnn_module.egnn_init, "gin-tu": gnn_module.gin_init,
+            "graphsage-reddit": gnn_module.sage_init,
+            "graphcast": gnn_module.graphcast_init}
+# the archs each shape trains; ogb_products cuts EGNN and graphcast
+GNN_SHAPE_ARCHS = {"full_graph_sm": GNN_ARCHS, "molecule": GNN_ARCHS,
+                   "minibatch_lg": GNN_ARCHS,
+                   "ogb_products": ("gin-tu", "graphsage-reddit")}
+GNN_STEPS = 3
+GNN_OPT = OptConfig(lr=1e-3, warmup_steps=1, total_steps=GNN_STEPS)
+# the reference's molecule cells: 16 synthetic atom features a node
+GNN_ATOM_FEATS = 16
+GNN_SHARDS = 4
+# push against pull on the card, relative to the largest |output|: the
+# same float32 math over the edges in another order (sums in float64)
+GNN_DIR_TOL = 1e-5
+# four shards against one device: the same sums, grouped by shard
+GNN_MP_TOL = 1e-5
+# the card's float32 forward against the port's CPU forward in float64
+# (its layer norms compute in float32, as the reference's do), relative
+# to the largest |output|: float32 roundings through up to 16 layers
+GNN_F64_TOL = 1e-3
+GNN_REDUCED = {
+    "steps": f"{GNN_STEPS} AdamW steps (lr 1e-3), not a training run",
+    "why": "the smoke's time limit"}
+GNN_CARD_GRAPH = ("built on the card (uniform pairs, both directions, self "
+                  "loops and duplicates dropped), not by erdos_renyi's "
+                  "numpy code, which takes ~2 min on the host at these "
+                  "sizes")
+# graphcast keeps ~5.9 GB of activations a layer at minibatch_lg's
+# 169,984 nodes and 168,960 edges (4.3 GB peak for 13,254 rows at
+# full_graph_sm): 16 layers would need ~95 GB
+GNN_DEPTH_CUT = {("minibatch_lg", "graphcast"): 8}
+GNN_OGB_CUT = {"egnn": "EGNN's edge MLP keeps ~450 floats an edge, ~111 GB "
+                       "at 61.9 M edges",
+               "graphcast": "graphcast's [m, 3·512] edge input alone is "
+                            "380 GB at 61.9 M edges"}
+
+
+def pair_weights(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A weight in [1, 10) per undirected pair, the same both ways: a hash
+    of the pair (erdos_renyi draws one per pair)."""
+    lo, hi = torch.minimum(a, b).long(), torch.maximum(a, b).long()
+    h = (lo * 2654435761 + hi * 40503) % 1000003
+    return (1.0 + 9.0 * h.double() / 1000003).float()
+
+
+def card_erdos_renyi(n: int, m: int, seed: int, device) -> "Graph":
+    """An Erdős–Rényi graph of n vertices and about m directed edges,
+    every view of ``build_graph`` built on the card: m / 2 uniform pairs
+    without self loops, both directions, duplicates dropped; pull-major
+    rows sorted by source."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randint(0, n, (m // 2,), generator=gen, device=device)
+    b = torch.randint(0, n, (m // 2,), generator=gen, device=device)
+    keep = a != b
+    a, b = a[keep], b[keep]
+    key = torch.unique(torch.cat([a * n + b, b * n + a]))    # push-major
+    del a, b, keep
+    q_src, q_dst = key // n, key % n
+    del key
+    key = torch.sort(q_dst * n + q_src).values               # pull-major
+    p_dst, p_src = key // n, key % n
+    del key
+    in_deg = torch.bincount(p_dst, minlength=n)
+    out_deg = torch.bincount(q_src, minlength=n)
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    in_ptr = torch.cat([zero, in_deg.cumsum(0)])
+    out_ptr = torch.cat([zero, out_deg.cumsum(0)])
+    d_ell = max(8, -(-int(in_deg.max()) // 8) * 8)
+    within = torch.arange(p_src.numel(), device=device) - in_ptr[p_dst]
+    p_w, q_w = pair_weights(p_src, p_dst), pair_weights(q_src, q_dst)
+    ell_idx = torch.full((n, d_ell), n, dtype=torch.int32, device=device)
+    ell_idx[p_dst, within] = p_src.to(torch.int32)
+    ell_w = torch.zeros((n, d_ell), device=device)
+    ell_w[p_dst, within] = p_w
+    i32 = (lambda t: t.to(torch.int32))
+    return Graph(coo_src=i32(p_src), coo_dst=i32(p_dst), coo_w=p_w,
+                 in_ptr=i32(in_ptr), push_src=i32(q_src),
+                 push_dst=i32(q_dst), push_w=q_w, out_ptr=i32(out_ptr),
+                 ell_idx=ell_idx, ell_w=ell_w, in_deg=i32(in_deg),
+                 out_deg=i32(out_deg), n=n, m=int(p_src.numel()),
+                 d_ell=d_ell)
+
+
+def sampled_graph(blocks, device):
+    """The sampled blocks as one graph over their nodes, hop 0 first (the
+    reference's minibatch_lg cell): an edge from each valid child to its
+    parent. Returns (graph, the nodes' ids in the full graph)."""
+    sizes = [ids.numel() for ids in blocks.node_ids]
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    src, dst, ok = [], [], []
+    for k in range(1, len(sizes)):
+        i = torch.arange(sizes[k], device=device)
+        src.append(offs[k] + i)
+        dst.append(offs[k - 1] + i // blocks.fanouts[k - 1])
+        ok.append(blocks.valid[k])
+    ok = torch.cat(ok)
+    src, dst = torch.cat(src)[ok], torch.cat(dst)[ok]
+    ids = torch.cat(blocks.node_ids).long()
+    w = pair_weights(ids[src], ids[dst])
+    g = build_graph(src.cpu().numpy(), dst.cpu().numpy(), n=int(offs[-1]),
+                    weights=w.cpu().numpy(), device=device)
+    return g, ids
+
+
+def gnn_config(arch: str, shape: str, direction: str):
+    """The reference's cell config: d_in the shape's features, d_out its
+    classes (1 for molecule's graph regression; 0 for graphcast, which
+    reads and predicts its variables)."""
+    p = GNN_SHAPES[shape].params
+    d_in = GNN_ATOM_FEATS if shape == "molecule" else p["d_feat"]
+    d_out = (0 if arch == "graphcast" else 1 if shape == "molecule"
+             else p["n_classes"])
+    cfg = full_config(arch)
+    return dataclasses.replace(
+        cfg, d_in=d_in, d_out=d_out, direction=direction,
+        n_layers=GNN_DEPTH_CUT.get((shape, arch), cfg.n_layers))
+
+
+def gnn_forward(arch: str, p, cfg, g, b: dict, n_graphs: int):
+    if arch == "egnn":
+        return gnn_module.egnn_apply(p, cfg, g, b["feats"], b["coords"])[0]
+    if arch == "gin-tu":
+        return gnn_module.gin_apply(p, cfg, g, b["feats"],
+                                    graph_ids=b.get("graph_ids"),
+                                    num_graphs=n_graphs)
+    if arch == "graphsage-reddit":
+        return gnn_module.sage_apply(p, cfg, g, b["feats"])
+    return gnn_module.graphcast_apply(p, cfg, g, b["vars"])
+
+
+def gnn_loss(arch: str, shape: str, cfg, g, labeled: int, n_graphs: int):
+    """The reference cell's loss: softmax cross entropy on the labeled
+    rows, MSE on graph-pooled outputs (molecule), MSE on the variables
+    (graphcast)."""
+    def loss_fn(p, b):
+        out = gnn_forward(arch, p, cfg, g, b, n_graphs)
+        if arch == "graphcast":
+            return mse(out, b["target"])
+        if shape == "molecule":
+            if out.shape[0] != n_graphs:          # per-node output: pool
+                out = segment_sum(out, b["graph_ids"], n_graphs)
+            return mse(out[:, 0], b["labels"])
+        return softmax_xent_dense(out[:labeled], b["labels"][:labeled])
+    return loss_fn
+
+
+def gnn_batch(arch: str, shape: str, n: int, gen, device,
+              feats=None, graph_ids=None, labels=None) -> dict:
+    """Seeded inputs on the card: node features (``feats`` if given),
+    coordinates (EGNN), labels; graphcast's variables and target."""
+    if arch == "graphcast":             # reads and predicts its variables
+        n_vars = full_config(arch).n_vars
+        return {"vars": normal((n, n_vars), gen),
+                "target": normal((n, n_vars), gen)}
+    p = GNN_SHAPES[shape].params
+    b = {"feats": feats if feats is not None else normal(
+        (n, p["d_feat"]), gen)}
+    if arch == "egnn":
+        b["coords"] = normal((n, 3), gen)
+    if graph_ids is not None:
+        b["graph_ids"] = graph_ids
+    b["labels"] = labels if labels is not None else torch.randint(
+        0, p["n_classes"], (n,), generator=gen, device=device)
+    return b
+
+
+def gnn_train(arch: str, shape: str, direction: str, g, batch: dict,
+              labeled: int, n_graphs: int, device, reduced: dict) -> tuple:
+    """``TrainLoop`` (AdamW) on the arch's full-width cell; one line with
+    the step times, peak memory and losses. Returns the forward at the
+    initial weights and the weights."""
+    cfg = gnn_config(arch, shape, direction)
+    params = GNN_INIT[arch](cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(gnn_loss(arch, shape, cfg, g, labeled, n_graphs),
+                     params, GNN_OPT,
+                     LoopConfig(total_steps=GNN_STEPS, log_every=1))
+    res = loop.run(iter([batch] * GNN_STEPS))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del loop
+    losses = [h["loss"] for h in res["history"]]
+    dts = [h["dt"] * 1e3 for h in res["history"]]
+    if not all(np.isfinite(losses)):
+        fail(f"gnn {arch} {shape} {direction}: non-finite losses {losses}")
+    with torch.no_grad():
+        out = gnn_forward(arch, params, cfg, g, batch, n_graphs)
+    emit({"phase": "gnn", "shape": shape, "arch": arch,
+          "direction": direction, "n": g.n, "m": g.m,
+          "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+          "d_in": cfg.d_in, "d_out": cfg.d_out,
+          "params": param_count(params), "losses": losses, "step_ms": dts,
+          "step_ms_median_2_3": statistics.median(dts[1:]),
+          "peak_memory_gb": peak_gb,
+          "reduced": reduced | ({"layers": f"{cfg.n_layers} of "
+                                           f"{full_config(arch).n_layers}: "
+                                           "~5.9 GB of activations a layer"}
+                               if (shape, arch) in GNN_DEPTH_CUT else {})})
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def cpu_float64_forward(arch: str, cfg, params, g, batch: dict,
+                        n_graphs: int) -> torch.Tensor:
+    """The port's forward on the CPU in float64, on the same graph,
+    weights and inputs."""
+    cpu = torch.device("cpu")
+    g64 = graph_from_arrays({f: getattr(g, f).cpu().numpy()
+                             for f in GRAPH_ARRAYS}, n=g.n, m=g.m,
+                            d_ell=g.d_ell, device=cpu)
+    p64 = tree_map(lambda t: t.detach().to(cpu, torch.float64), params)
+    b64 = {k: v.to(cpu, torch.float64) if v.is_floating_point()
+           else v.to(cpu) for k, v in batch.items()}
+    with torch.no_grad():
+        return gnn_forward(arch, p64, dataclasses.replace(
+            cfg, dtype="float64"), g64, b64, n_graphs)
+
+
+def gnn_shape(shape: str, g, batches: dict, labeled: int, n_graphs: int,
+              device, reduced: dict, f64_check: bool) -> None:
+    """Every arch of the shape, pull then push: push equals pull, and
+    (``f64_check``) the card's forward equals the CPU's in float64."""
+    for arch in GNN_SHAPE_ARCHS[shape]:
+        outs = {}
+        for direction in ("pull", "push"):
+            outs[direction], params = gnn_train(
+                arch, shape, direction, g, batches[arch], labeled, n_graphs,
+                device, reduced)
+        check = {"push_vs_pull": rel_gap(outs["push"], outs["pull"]),
+                 "tol": GNN_DIR_TOL}
+        if not check["push_vs_pull"] <= GNN_DIR_TOL:
+            fail(f"gnn {arch} {shape}: push against pull {check}")
+        if f64_check:
+            cfg = gnn_config(arch, shape, "pull")
+            want = cpu_float64_forward(arch, cfg, params, g, batches[arch],
+                                       n_graphs)
+            check["card_vs_cpu_float64"] = rel_gap(outs["pull"].cpu(), want)
+            check["f64_tol"] = GNN_F64_TOL
+            if not check["card_vs_cpu_float64"] <= GNN_F64_TOL:
+                fail(f"gnn {arch} {shape}: card against CPU float64 {check}")
+        emit({"phase": "gnn_check", "shape": shape, "arch": arch, **check,
+              "ok": True})
+        del outs, params
+        torch.cuda.empty_cache()
+
+
+def edges_by_owner(src: torch.Tensor, dst: torch.Tensor, n: int,
+                   P: int) -> tuple:
+    """[P, cap] rows of the edges each destination shard owns (n / P rows
+    a shard), sentinel-padded with n: ``gin_apply_mp``'s layout."""
+    owner = dst.long() // (n // P)
+    order = torch.argsort(owner, stable=True)
+    owner = owner[order]
+    counts = torch.bincount(owner, minlength=P)
+    cap = max(8, -(-int(counts.max()) // 8) * 8)
+    start = torch.cat([counts.new_zeros(1), counts.cumsum(0)[:-1]])
+    pos = torch.arange(owner.numel(), device=src.device) - start[owner]
+    e_src = torch.full((P, cap), n, dtype=torch.int32, device=src.device)
+    e_dst = torch.full_like(e_src, n)
+    e_src[owner, pos] = src[order].to(torch.int32)
+    e_dst[owner, pos] = dst[order].to(torch.int32)
+    return e_src, e_dst
+
+
+def gin_mp_check(shape: str, g, feats: torch.Tensor, device) -> dict:
+    """``gin_apply_mp`` on four shards on one card against ``gin_apply``
+    (forward, the arch's full width): rows padded to a multiple of 4
+    with zero features and no edges; both timed (the second call)."""
+    cfg = gnn_config("gin-tu", shape, "pull")
+    params = gnn_module.gin_init(cfg, seed=0, device=device)
+    n_pad = -(-g.n // GNN_SHARDS) * GNN_SHARDS
+    h = torch.cat([feats, feats.new_zeros((n_pad - g.n, feats.shape[1]))])
+    e_src, e_dst = edges_by_owner(g.coo_src, g.coo_dst, n_pad, GNN_SHARDS)
+    mesh = make_shard_mesh(GNN_SHARDS, devices=[device] * GNN_SHARDS)
+    with torch.no_grad():
+        runs = {}
+        for name, fn in (
+                ("mp", lambda: gnn_module.gin_apply_mp(params, cfg, h, e_src,
+                                                       e_dst, mesh)[:g.n]),
+                ("single", lambda: gnn_module.gin_apply(params, cfg, g,
+                                                        feats))):
+            fn()
+            runs[name] = synced_ms(fn)
+    line = {"phase": "gnn_mp", "shape": shape, "shards": GNN_SHARDS,
+            "devices": "one card, four shards", "n": g.n, "n_padded": n_pad,
+            "edge_rows_cap": e_src.shape[1],
+            "forward_ms_mp": runs["mp"][1],
+            "forward_ms_single": runs["single"][1],
+            "mp_vs_single": rel_gap(runs["mp"][0], runs["single"][0]),
+            "tol": GNN_MP_TOL}
+    emit(line)
+    if not line["mp_vs_single"] <= GNN_MP_TOL:
+        fail(f"gin_apply_mp {shape}: {line}")
+    del runs
+    torch.cuda.empty_cache()
+    return line
+
+
+def sage_blocks_train(g, feats: torch.Tensor, labels: torch.Tensor,
+                      device) -> dict:
+    """``sage_apply_blocks`` on blocks sampled from the full graph each
+    step (1,024 seeds, the shape's fanouts), AdamW: step and sampling
+    times beside each other."""
+    p = GNN_SHAPES["minibatch_lg"].params
+    fanouts = tuple(p["fanout"])
+    cfg = dataclasses.replace(gnn_config("graphsage-reddit", "minibatch_lg",
+                                         "pull"), fanouts=fanouts)
+    params = gnn_module.sage_init(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    padded = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+    sample_ms = []
+
+    def batches():
+        while True:
+            seeds = torch.randint(0, g.n, (p["batch_nodes"],),
+                                  generator=gen, device=device)
+            blocks, ms = synced_ms(lambda: sample_blocks(g, seeds, fanouts,
+                                                         gen=gen))
+            sample_ms.append(ms)
+            yield {"ids": list(blocks.node_ids),
+                   "valid": list(blocks.valid),
+                   "feats": [padded[torch.clamp(ids.long(), max=g.n)]
+                             for ids in blocks.node_ids],
+                   "labels": labels[seeds]}
+
+    def loss_fn(prm, b):
+        blocks = SampledBlocks(node_ids=tuple(b["ids"]),
+                               valid=tuple(b["valid"]), fanouts=fanouts,
+                               sentinel=g.n)
+        return softmax_xent_dense(gnn_module.sage_apply_blocks(
+            prm, cfg, blocks, b["feats"]), b["labels"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(loss_fn, params, GNN_OPT,
+                     LoopConfig(total_steps=GNN_STEPS, log_every=1))
+    res = loop.run(batches())
+    losses = [h["loss"] for h in res["history"]]
+    dts = [h["dt"] * 1e3 for h in res["history"]]
+    if not all(np.isfinite(losses)):
+        fail(f"sage_apply_blocks: non-finite losses {losses}")
+    line = {"phase": "gnn_blocks", "shape": "minibatch_lg",
+            "arch": "graphsage-reddit", "seeds": p["batch_nodes"],
+            "fanouts": list(fanouts), "graph_n": g.n, "graph_m": g.m,
+            "losses": losses, "step_ms": dts,
+            "step_ms_median_2_3": statistics.median(dts[1:]),
+            "sample_ms": sample_ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reduced": GNN_REDUCED | {"graph": GNN_CARD_GRAPH}}
+    emit(line)
+    return line
+
+
+def gnn_path(device) -> dict:
+    """Slice 11's GNN path: the four archs train (AdamW, full width, pull
+    and push) on the reference's cells: full_graph_sm and molecule
+    uncut, minibatch_lg's sampled subgraph, ogb_products (GIN and
+    GraphSAGE); ``sage_apply_blocks`` on blocks sampled from the full
+    minibatch_lg graph; ``gin_apply_mp`` on four shards on one card. The
+    launch counts are zeroed before and read after: the GNN path reaches
+    no kernel of the repo (its reductions are ``segment_sum``, as the
+    reference's are)."""
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    # full_graph_sm: the port's erdos_renyi at the shape's n and m
+    p = GNN_SHAPES["full_graph_sm"].params
+    g = erdos_renyi(p["n_nodes"], p["n_edges"] / (2 * p["n_nodes"]), seed=0,
+                    weighted=True, device=device)
+    feats = normal((g.n, p["d_feat"]), gen)
+    labels = torch.randint(0, p["n_classes"], (g.n,), generator=gen,
+                           device=device)
+    batches = {a: gnn_batch(a, "full_graph_sm", g.n, gen, device, feats=feats,
+                            labels=labels) for a in GNN_ARCHS}
+    gnn_shape("full_graph_sm", g, batches, g.n, 1, device, GNN_REDUCED, True)
+    gin_mp_check("full_graph_sm", g, feats, device)
+
+    # molecule: 128 graphs of 30 atoms, 64 edges each
+    p = GNN_SHAPES["molecule"].params
+    mol = next(molecule_batches(p["batch"], p["n_nodes"], p["n_edges"],
+                                GNN_ATOM_FEATS, seed=0))
+    g = build_graph(mol["src"].numpy(), mol["dst"].numpy(),
+                    n=p["batch"] * p["n_nodes"], device=device)
+    mol = on_device(mol, device)
+    batches = {a: gnn_batch(a, "molecule", g.n, gen, device,
+                            feats=mol["feats"], graph_ids=mol["graph_ids"],
+                            labels=mol["labels"]) for a in GNN_ARCHS}
+    batches["egnn"]["coords"] = mol["coords"]
+    gnn_shape("molecule", g, batches, 0, p["batch"], device, GNN_REDUCED,
+              True)
+
+    # minibatch_lg: the full graph on the card, then the reference's
+    # sampled subgraph (1,024 seeds, fanout (15, 10))
+    p = GNN_SHAPES["minibatch_lg"].params
+    (full, build_ms) = synced_ms(lambda: card_erdos_renyi(
+        p["n_nodes"], p["n_edges"], 1, device))
+    emit({"phase": "gnn_graph", "shape": "minibatch_lg", "n": full.n,
+          "m": full.m, "d_ell": full.d_ell, "build_ms": build_ms,
+          "how": GNN_CARD_GRAPH})
+    feats = normal((full.n, p["d_feat"]), gen)
+    labels = torch.randint(0, p["n_classes"], (full.n,), generator=gen,
+                           device=device)
+    sage_blocks_train(full, feats, labels, device)
+    seeds = torch.randint(0, full.n, (p["batch_nodes"],), generator=gen,
+                          device=device)
+    blocks = sample_blocks(full, seeds, tuple(p["fanout"]), gen=gen)
+    g, ids = sampled_graph(blocks, device)
+    sub_feats = torch.cat([feats, feats.new_zeros((1, p["d_feat"]))])[
+        torch.clamp(ids, max=full.n)]
+    sub_labels = labels[torch.clamp(ids, max=full.n - 1)]
+    del full, feats, labels, blocks
+    torch.cuda.empty_cache()
+    batches = {a: gnn_batch(a, "minibatch_lg", g.n, gen, device,
+                            feats=sub_feats, labels=sub_labels)
+               for a in GNN_ARCHS}
+    gnn_shape("minibatch_lg", g, batches, p["batch_nodes"], 1, device,
+              GNN_REDUCED | {"graph": GNN_CARD_GRAPH}, False)
+    del batches, g, sub_feats, sub_labels
+    torch.cuda.empty_cache()
+
+    # ogb_products: GIN and GraphSAGE on the full graph
+    p = GNN_SHAPES["ogb_products"].params
+    (g, build_ms) = synced_ms(lambda: card_erdos_renyi(
+        p["n_nodes"], p["n_edges"], 2, device))
+    emit({"phase": "gnn_graph", "shape": "ogb_products", "n": g.n, "m": g.m,
+          "d_ell": g.d_ell, "build_ms": build_ms, "how": GNN_CARD_GRAPH})
+    feats = normal((g.n, p["d_feat"]), gen)
+    labels = torch.randint(0, p["n_classes"], (g.n,), generator=gen,
+                           device=device)
+    batches = {a: gnn_batch(a, "ogb_products", g.n, gen, device,
+                            feats=feats, labels=labels)
+               for a in GNN_SHAPE_ARCHS["ogb_products"]}
+    gnn_shape("ogb_products", g, batches, g.n, 1, device,
+              GNN_REDUCED | {"graph": GNN_CARD_GRAPH,
+                             "archs": GNN_OGB_CUT}, False)
+    del batches
+    torch.cuda.empty_cache()
+    gin_mp_check("ogb_products", g, feats, device)
+    del g, feats, labels
+    torch.cuda.empty_cache()
+    counts = _build.launch_counts()
+    emit({"phase": "gnn_path", "launches": counts,
+          "seconds": time.perf_counter() - t0,
+          "note": "no kernel of the repo on this path: the reductions are "
+                  "segment_sum (float64 index_add_ on the card)"})
+    return counts
+
+
+# -- slice 11: the MoE family ----------------------------------------------
+MOE_LM_RUNS = {
+    "deepseek-moe-16b": {
+        "B": 1, "T": 4096, "steps": 16, "layers": None,
+        "reduced": {"batch": "1, not prefill_32k's 32",
+                    "seq_len": "4,096, not 32,768",
+                    "decode": "16 steps against a 4,112-slot cache, not "
+                              "decode_32k's 128 rows at 32,768",
+                    "why": "the smoke's time limit"}},
+    "moonshot-v1-16b-a3b": {
+        "B": 1, "T": 4096, "steps": 16, "layers": 4,
+        "reduced": {"layers": "4 of 48 (full depth holds 57.8 GB of bf16 "
+                              "weights; it differs from deepseek-moe-16b, "
+                              "which runs at full depth, only in depth and "
+                              "vocab)",
+                    "batch": "1, not prefill_32k's 32",
+                    "seq_len": "4,096, not 32,768", "decode": "16 steps",
+                    "why": "the smoke's time limit"}},
+}
+MOE_TRAIN = {
+    "deepseek-moe-16b": {
+        "B": 1, "T": 4096, "micro": 1, "steps": 3, "ckpt_at": None,
+        "layers": 4,
+        "reduced": {"layers": "4 of 28 (~2.8 B parameters, ~34 GB with "
+                              "AdamW's f32 moments; 28 layers do not fit in "
+                              "80 GB)",
+                    "global_batch": "1 × 4,096, not train_4k's 256 × 4,096",
+                    "steps": "3", "why": "the smoke's time limit"}}}
+MOE_EP_TOKENS = 4096
+MOE_EP_SHARDS = 4
+# a capacity that drops no token: cap = int(11 · S · 6 / 64) > S, and in
+# the a2a schedule int(11 · S/4 · 6 / 64) > S/4 per (rank, expert)
+MOE_EP_CAPACITY = 11.0
+# the same routing (pinned, below), outputs relative to the largest
+# |output|: f32 sums in other orders; bf16 as LM_TOL's per-op rounding,
+# two more bf16 roundings of partial outputs
+MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+class RoutePin:
+    """Pins the experts the router picks (``models.moe._route``): while
+    ``record`` is set each call's expert ids are kept; while ``replay``
+    holds a list, each call takes the next ids from it (rows as the
+    call's tokens) and its gates from its own router probabilities. Two
+    runs of one MoE model in bf16 (the flash kernel against plain
+    attention, say) see router logits ~1e-2 apart, and a token whose
+    k-th and (k+1)-th experts lie that close flips; pinned, they compute
+    the same function and can be held to a rounding tolerance. The flips
+    are counted, not hidden: see ``flips``."""
+
+    def __init__(self):
+        self.record, self.replay, self.kept = False, None, []
+        self._real = moe_module._route
+
+    def __enter__(self):
+        def route(router, cfg, xf):
+            probs, gate_vals, gate_idx = self._real(router, cfg, xf)
+            if self.replay is not None:
+                gate_idx = self.replay.pop(0)
+                gate_vals = probs.gather(-1, gate_idx)
+                gate_vals = gate_vals / torch.clamp(
+                    gate_vals.sum(-1, keepdim=True), min=1e-9)
+            elif self.record:
+                self.kept.append(gate_idx)
+            return probs, gate_vals, gate_idx
+        moe_module._route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_module._route = self._real
+
+    def take(self) -> list:
+        out, self.kept = self.kept, []
+        return out
+
+
+def flips(a: list, b: list) -> float:
+    """Share of (call, token) expert sets that differ between two runs."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    return diff / max(1, sum(x.shape[0] for x in a))
+
+
+def moe_lm_check(arch: str, st: dict) -> dict:
+    """lm_check for a MoE LM with its routing pinned: the kernel prefill
+    (recorded) against ``attn_impl="naive"`` (replayed) on logits and
+    cache; then, at a capacity that drops no token, the first decode
+    step against a prefill one token longer (replaying the shorter
+    prefill's and the step's routing), since a prefill drops the last
+    tokens of a full expert queue and a decode step never does. Each
+    within ``lm_tol`` of the largest value (LM_TOL scaled past 16
+    layers). The naive prefill also runs unpinned: its share of flipped
+    expert sets is printed."""
+    cfg, params, toks, T = st["cfg"], st["params"], st["toks"], st["T"]
+    naive = dataclasses.replace(cfg, attn_impl="naive")
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k + 1))
+    with RoutePin() as pin:
+        pin.record = True
+        logits, cache = prefill(params, cfg, toks[:, :T], "bf16")
+        rec_t = pin.take()
+        prefill(params, naive, toks[:, :T], "bf16")
+        free = pin.take()
+        _, cache_w = prefill(params, wide, toks[:, :T], "bf16")
+        rec_w = pin.take()
+        first, _ = decode_step(params, wide, toks[:, T:T + 1],
+                               pad_kv_cache(cache_w, T + 1), T)
+        rec_d = pin.take()
+        pin.record = False
+        pin.replay = list(rec_t)
+        logits_n, cache_n = prefill(params, naive, toks[:, :T], "bf16")
+        pin.replay = [torch.cat([a, b]) for a, b in zip(rec_w, rec_d)]
+        longer, _ = prefill(params, wide, toks[:, :T + 1], "bf16")
+    gaps = {"logits": rel_gap(logits, logits_n),
+            "decode_vs_prefill": rel_gap(first, longer)}
+    for name, buf in cache.items():
+        gaps["cache." + name] = rel_gap(buf, cache_n[name])
+    tol = lm_tol(cfg)
+    bad = {k: v for k, v in gaps.items() if not v <= tol}
+    line = {"phase": "lm_check", "path": "moe", "arch": arch,
+            "relative_gap": gaps, "tol": tol, "routing": "pinned",
+            "decode_capacity_factor": wide.moe.capacity_factor,
+            "unpinned_flipped_share": flips(rec_t, free), "ok": not bad}
+    emit(line)
+    if bad:
+        fail(f"{arch}: {bad} above {tol} of the largest value")
+    return line
+
+
+def moe_dispatch_check(arch: str, st: dict) -> dict:
+    """The first layer's MoE FFN on its prefill input, push dispatch
+    against pull (bf16, the model's weights), both timed."""
+    (lp, mcfg, h), _ = st["moe_args"]
+    ys = {}
+    for dispatch in ("pull", "push"):
+        c = dataclasses.replace(mcfg, dispatch=dispatch)
+        with torch.no_grad():
+            ys[dispatch] = moe_module.moe_apply(lp, c, h)
+            ms = [synced_ms(lambda c=c: moe_module.moe_apply(lp, c, h))[1]
+                  for _ in range(3)]
+        ys[dispatch + "_ms"] = statistics.median(ms)
+    line = {"phase": "moe_dispatch", "arch": arch, "layer": 0,
+            "tokens": h.shape[0] * h.shape[1], "dtype": str(h.dtype),
+            "pull_ms": ys["pull_ms"], "push_ms": ys["push_ms"],
+            "push_vs_pull": rel_gap(ys["push"], ys["pull"]),
+            "tol": MOE_TOL[h.dtype]}
+    emit(line)
+    if not line["push_vs_pull"] <= MOE_TOL[h.dtype]:
+        fail(f"{arch} MoE push against pull: {line}")
+    return line
+
+
+def moe_ep_check(device) -> list:
+    """``moe_apply_ep`` at deepseek-moe-16b's width (one layer, S =
+    4,096, a capacity that drops nothing) on four shards on one card,
+    "psum" with f32 and bf16 combine and "a2a", against ``moe_apply``,
+    in bf16 (the model's dtype) and f32, all timed. Each is run once
+    with its own routing (the flipped share is printed: the a2a shards'
+    router GEMMs over their slices round otherwise than one over all
+    tokens), then with ``moe_apply``'s routing pinned and compared."""
+    arch = "deepseek-moe-16b"
+    base = dataclasses.replace(full_config(arch).moe,
+                               capacity_factor=MOE_EP_CAPACITY)
+    gen = torch.Generator(device=device).manual_seed(9)
+    params = moe_module.moe_init(gen, base, torch.bfloat16)
+    x16 = normal((1, MOE_EP_TOKENS, base.d_model), gen, torch.bfloat16)
+    mesh = make_shard_mesh(MOE_EP_SHARDS, axis="model",
+                           devices=[device] * MOE_EP_SHARDS)
+    lines = []
+    for dt in (torch.bfloat16, torch.float32):
+        p = tree_map(lambda t: t.to(dt) if t.dtype == torch.bfloat16 else t,
+                     params)
+        x = x16.to(dt)
+        with torch.no_grad(), RoutePin() as pin:
+            pin.record = True
+            want = moe_module.moe_apply(p, base, x)
+            (route,) = pin.take()
+            pin.record = False
+            plain_ms = statistics.median(
+                synced_ms(lambda: moe_module.moe_apply(p, base, x))[1]
+                for _ in range(3))
+            for mode, comb in (("psum", "f32"), ("psum", "bf16"),
+                               ("a2a", "f32")):
+                cfg = dataclasses.replace(base, ep_mode=mode,
+                                          combine_dtype=comb)
+                rows = ([route] * MOE_EP_SHARDS if mode == "psum" else
+                        list(route.split(MOE_EP_TOKENS // MOE_EP_SHARDS)))
+                set_activation_mesh(mesh)
+                try:
+                    pin.record = True
+                    moe_module.moe_apply_ep(p, cfg, x)
+                    flipped = flips(rows, pin.take())
+                    pin.record = False
+                    ms = []
+                    for _ in range(3):
+                        pin.replay = list(rows)
+                        got, t = synced_ms(
+                            lambda: moe_module.moe_apply_ep(p, cfg, x))
+                        ms.append(t)
+                finally:
+                    set_activation_mesh(None)
+                    pin.replay = None
+                tol = MOE_TOL[torch.bfloat16 if comb == "bf16" else dt]
+                line = {"phase": "moe_ep", "arch": arch, "dtype": str(dt),
+                        "tokens": MOE_EP_TOKENS, "shards": MOE_EP_SHARDS,
+                        "devices": "one card, four shards", "ep_mode": mode,
+                        "combine_dtype": comb,
+                        "capacity_factor": MOE_EP_CAPACITY,
+                        "ep_ms": statistics.median(ms),
+                        "moe_apply_ms": plain_ms,
+                        "vs_moe_apply": rel_gap(got, want), "tol": tol,
+                        "unpinned_flipped_share": flipped}
+                emit(line)
+                lines.append(line)
+                if not line["vs_moe_apply"] <= tol:
+                    fail(f"moe_apply_ep {mode}/{comb} {dt}: {line}")
+        del p, x
+    return lines
+
+
+def moe_path(device) -> dict:
+    """Slice 11's MoE path: deepseek-moe-16b serves at full depth (prefill
+    1 × 4,096 with the flash kernel, 16 decode steps) and
+    moonshot-v1-16b-a3b at 4 layers, then deepseek-moe-16b trains at 4
+    layers through ``TrainLoop``; the launch counts are zeroed before
+    each and read after it, and the serving checks run between the two:
+    pinned-routing lm_check, the first layer's push against pull
+    dispatch, the flash kernel at deepseek's layer shape. Then
+    ``moe_apply_ep`` on four shards and the gradients with the kernel
+    against the plain path."""
+    t0 = time.perf_counter()
+    with CallTimer(kernel_ops, "flash_attention") as flash, \
+            CallTimer(flash_module, "flash_attention_bwd") as bwd, \
+            CallTimer(transformer_module, "moe_apply_ep") as moe_t:
+        _build.reset_launch_counts()
+        lms = {}
+        for arch, run in MOE_LM_RUNS.items():
+            lms[arch] = lm_serve(arch, device, flash, run=run, path="moe",
+                                 keep=(moe_t,))
+            lms[arch]["moe_args"] = moe_t.kept[0]
+            moe_t.kept = []
+            moe_t.take_ms()
+        counts = _build.launch_counts()
+        for arch, st in lms.items():
+            moe_lm_check(arch, st)
+        deepseek = lms["deepseek-moe-16b"]
+        moe_dispatch_check("deepseek-moe-16b", deepseek)
+        rows = model_kernel_rows({"deepseek-moe-16b": deepseek}, None,
+                                 path="moe")
+        flash.take_ms()
+        del lms, deepseek
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        train = {arch: lm_train(arch, device, flash, bwd, run=run,
+                                path="moe")
+                 for arch, run in MOE_TRAIN.items()}
+        trained = _build.launch_counts()
+    counts = {k: counts[k] + trained[k] for k in counts}
+    emit({"phase": "moe_path", "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if counts["flash_attention"] <= 0 or trained["flash_attention"] <= 0:
+        fail("kernel flash_attention was not launched on the MoE path")
+    torch.cuda.empty_cache()
+    moe_ep_check(device)
+    torch.cuda.empty_cache()
+    with RoutePin() as pin:
+        grads = lm_grad_check(device, "deepseek-moe-16b", pin)
+    emit({"phase": "moe_check", "grads": grads, "routing": "pinned",
+          "ok": True})
+    torch.cuda.empty_cache()
+    return {"counts": counts, "rows": rows, "train": train}
 
 
 def card_line() -> str:
@@ -3167,6 +4017,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts = train_path(device)
     counts = {k: counts[k] + train_counts[k] for k in counts}
+    torch.cuda.empty_cache()
+    gnn_counts = gnn_path(device)
+    counts = {k: counts[k] + gnn_counts[k] for k in counts}
+    torch.cuda.empty_cache()
+    moe = moe_path(device)
+    counts = {k: counts[k] + moe["counts"][k] for k in counts}
+    model_rows += moe["rows"]
     kernels = []
     for row in rows:
         # one row per kernel: the road graph, at width 1 where the kernel
@@ -3184,7 +4041,8 @@ def main() -> int:
                        | {"launches": counts[name], "max_abs_err": worst})
     for row in model_rows:
         # one row per kernel: llama3.2-1b's prefill layer and the CIN
-        # layer of Hp = 200 at serve_p99
+        # layer of Hp = 200 at serve_p99 (the MoE path's flash rows add
+        # their errors only)
         if row.get("arch", "llama3.2-1b") != "llama3.2-1b" or (
                 row["name"] == "cin" and row["layer"] != 1):
             continue
@@ -3192,7 +4050,8 @@ def main() -> int:
         worst = max(errs[name], *(r["max_abs_err"] for r in model_rows
                                   if r["name"] == name))
         kernels.append({k: v for k, v in row.items()
-                        if k not in ("arch", "layer", "tf32_floor_ms")}
+                        if k not in ("arch", "layer", "tf32_floor_ms",
+                                     "path")}
                        | {"launches": counts[name], "max_abs_err": worst})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

@@ -6,16 +6,16 @@ The graph side consumes ``collectives`` through
 ``repro_torch.core.backend.DistributedBackend`` and the sharded engine
 (``repro_torch.shard``), which also compresses its push with
 ``compression``; the training side consumes ``compression`` and
-``overlap`` through ``repro_torch.train.loop``. The JAX package's
-``sharding`` (activation sharding hints) waits with the MoE models
-(ROADMAP queue 1).
+``overlap`` through ``repro_torch.train.loop``; the models read the
+activation mesh of ``sharding`` (``models.moe``'s expert parallelism).
+The JAX package's parameter sharding specs wait for the cell registry.
 """
 
 from .compression import (CompressionConfig, compress_tree,
                           compressed_bytes, init_error_state)
 from .overlap import microbatch_grads, ring_allreduce_psum
-from . import collectives, compression, overlap
+from . import collectives, compression, overlap, sharding
 
 __all__ = ["CompressionConfig", "compress_tree", "compressed_bytes",
            "init_error_state", "microbatch_grads", "ring_allreduce_psum",
-           "collectives", "compression", "overlap"]
+           "collectives", "compression", "overlap", "sharding"]

@@ -31,8 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["Graph", "build_graph", "graph_from_arrays", "pad_values",
-           "resolve_device", "GRAPH_ARRAYS"]
+__all__ = ["Graph", "EdgeView", "build_graph", "graph_from_arrays",
+           "pad_values", "resolve_device", "GRAPH_ARRAYS"]
 
 # the 12 tensor views, in field order
 GRAPH_ARRAYS = ("coo_src", "coo_dst", "coo_w", "in_ptr", "push_src",
@@ -207,3 +207,40 @@ def pad_values(x: torch.Tensor) -> torch.Tensor:
     """Append a zero row/scalar at index ``n`` so ELL sentinel gathers
     read zeros. Works for [n] vectors and [n, d] matrices."""
     return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))], dim=0)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EdgeView:
+    """Duck-typed Graph stand-in for GNN layers: one edge order, shared by
+    both directions (the provider chooses pull- or push-major order).
+    Used for sampled subgraphs and edge sets built for training, where
+    the full multi-layout :class:`Graph` would waste memory."""
+    src: torch.Tensor
+    dst: torch.Tensor
+    w: torch.Tensor
+    n: int
+    m: int
+
+    @property
+    def coo_src(self):
+        return self.src
+
+    @property
+    def coo_dst(self):
+        return self.dst
+
+    @property
+    def coo_w(self):
+        return self.w
+
+    @property
+    def push_src(self):
+        return self.src
+
+    @property
+    def push_dst(self):
+        return self.dst
+
+    @property
+    def push_w(self):
+        return self.w

@@ -8,25 +8,31 @@ checkpointing and the straggler watchdog, on the card unless
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --full --steps 5 --batch 8 --seq 4096 --num-micro 4
-    PYTHONPATH=src python -m repro_torch.launch.train --arch xdeepfm \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
         --steps 20 --device cpu
 
-The dense LMs and xDeepFM are ported; a GNN arch raises
-``NotImplementedError`` (ROADMAP queue 1), as the MoE LMs' configs do.
+A GNN arch trains full-graph on ``erdos_renyi(256, 4.0)`` with seeded
+numpy features and an MSE loss, as the reference's launcher does; its
+batch is the whole graph, so it takes no ``--num-micro`` above 1.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
+import torch
+
 from ..configs.archs import ARCH_FAMILY, full_config, smoke_config
 from ..data import prefetch, recsys_batches, token_batches
 from ..dist.compression import CompressionConfig
+from ..graphs.generators import erdos_renyi
 from ..graphs.structure import resolve_device
+from ..models import gnn as gnn_mod
 from ..models.recsys import xdeepfm_apply, xdeepfm_init
 from ..models.transformer import decay_mask, init_params, lm_loss
 from ..train import LoopConfig, OptConfig, TrainLoop
-from ..train.losses import bce_with_logits
+from ..train.losses import bce_with_logits, mse
 
 __all__ = ["main"]
 
@@ -40,9 +46,44 @@ def _lm_setup(arch, smoke, batch, seq, device):
 
 
 def _gnn_setup(arch, smoke, batch, seq, device):
-    raise NotImplementedError(
-        f"{arch}: training the GNN archs needs models/gnn.py and "
-        "graphs/sampling.py, which are not ported yet; see ROADMAP queue 1")
+    cfg = smoke_config(arch) if smoke else full_config(arch)
+    g = erdos_renyi(256, 4.0, seed=0, weighted=True, device=device)
+    rng = np.random.default_rng(0)
+    init_fn = {"egnn": gnn_mod.egnn_init, "gin-tu": gnn_mod.gin_init,
+               "graphsage-reddit": gnn_mod.sage_init,
+               "graphcast": gnn_mod.graphcast_init}[arch]
+    params = init_fn(cfg, seed=0, device=device)
+
+    def normal(cols):
+        return torch.from_numpy(rng.normal(size=(g.n, cols)).astype(
+            np.float32)).to(device)
+
+    if arch == "graphcast":
+        nv = normal(cfg.n_vars)
+
+        def loss_fn(p, b):
+            return mse(gnn_mod.graphcast_apply(p, cfg, g, b["x"]), b["x"])
+
+        def batches():
+            while True:
+                yield {"x": nv}
+    else:
+        feats, coords, target = normal(cfg.d_in), normal(3), normal(
+            cfg.d_out)
+
+        def loss_fn(p, b):
+            if arch == "egnn":
+                out, _ = gnn_mod.egnn_apply(p, cfg, g, b["h"], coords)
+            elif arch == "gin-tu":
+                out = gnn_mod.gin_apply(p, cfg, g, b["h"])
+            else:
+                out = gnn_mod.sage_apply(p, cfg, g, b["h"])
+            return mse(out, target)
+
+        def batches():
+            while True:
+                yield {"h": feats}
+    return params, loss_fn, batches(), None
 
 
 def _recsys_setup(arch, smoke, batch, seq, device):
@@ -71,6 +112,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--num-micro", type=int, default=1)
     args = ap.parse_args(argv)
+    if ARCH_FAMILY[args.arch] == "gnn" and args.num_micro > 1:
+        raise ValueError(f"{args.arch} trains on the whole graph, which "
+                         "does not split into microbatches: --num-micro "
+                         f"{args.num_micro}")
 
     setup = {"lm": _lm_setup, "gnn": _gnn_setup,
              "recsys": _recsys_setup}[ARCH_FAMILY[args.arch]]

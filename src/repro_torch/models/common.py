@@ -43,7 +43,13 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    """``x @ w (+ b)``; mixed dtypes promote, as ``jnp``'s matmul does
+    (an f32 input through bf16 weights computes in f32)."""
+    w = p["w"]
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (port of ``repro.models.transformer``,
-dense archs): serving and training.
+"""Decoder-only transformer LM (port of ``repro.models.transformer``):
+serving and training, dense and MoE layers.
 
 The serving path: :func:`prefill` runs a prompt and returns the
 last-position logits and a KV cache laid out as :func:`init_kv_cache`
@@ -31,14 +31,17 @@ Differences from the reference, none of which changes a result:
   * :func:`decode_step` writes the new token into the cache in place;
   * the reference's sharding hints have no counterpart on one card.
 
-MoE layers (``models/moe.py``) are not ported yet (ROADMAP queue 1): a
-config with ``moe`` set raises.
+MoE layers (``cfg.moe`` set: moonshot, deepseek) replace each layer's
+FFN by ``models.moe.moe_apply_ep`` (which is ``moe_apply`` unless an
+activation mesh is installed), in prefill, decode and training alike;
+a layer holds ``moe`` instead of ``ffn``, its experts stacked on a
+leading [E] axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -50,6 +53,7 @@ from .attention import (AttnConfig, _sdpa, attn_init, blockwise_sdpa,
                         decode_attn_apply, quantize_kv, rope)
 from .common import (dense_apply, dense_init, embed_init, rms_norm, silu,
                      softcap, tree_from_arrays, tree_leaves, tree_map)
+from .moe import MoEConfig, moe_apply_ep, moe_init
 
 __all__ = ["TransformerConfig", "init_params", "params_from_arrays",
            "decay_mask", "forward", "lm_loss", "prefill", "decode_step",
@@ -77,7 +81,7 @@ class TransformerConfig:
     attn_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
     embed_scale: bool = False          # gemma multiplies embed by sqrt(D)
-    moe: Optional[Any] = None          # not ported: raises when set
+    moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"
     loss_chunk: int = 512
     remat: bool = True
@@ -110,10 +114,6 @@ class TransformerConfig:
 
 
 def _check(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (models/moe.py) are not ported yet; "
-            "see ROADMAP queue 1")
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {cfg.attn_impl!r} not in {ATTN_IMPLS}")
 
@@ -128,14 +128,16 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     embed = embed_init(gen, cfg.vocab, cfg.d_model, dt)
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
-            "attn": attn_init(gen, cfg.attn_cfg(), dt),
-            "ln1": torch.zeros(cfg.d_model, device=dev),
-            "ln2": torch.zeros(cfg.d_model, device=dev),
-            "ffn": {"wi": dense_init(gen, cfg.d_model, cfg.d_ff, dt),
-                    "wg": dense_init(gen, cfg.d_model, cfg.d_ff, dt),
-                    "wo": dense_init(gen, cfg.d_ff, cfg.d_model, dt)},
-        })
+        layer = {"attn": attn_init(gen, cfg.attn_cfg(), dt),
+                 "ln1": torch.zeros(cfg.d_model, device=dev),
+                 "ln2": torch.zeros(cfg.d_model, device=dev)}
+        if cfg.moe is not None:
+            layer["moe"] = moe_init(gen, cfg.moe, dt)
+        else:
+            layer["ffn"] = {"wi": dense_init(gen, cfg.d_model, cfg.d_ff, dt),
+                            "wg": dense_init(gen, cfg.d_model, cfg.d_ff, dt),
+                            "wo": dense_init(gen, cfg.d_ff, cfg.d_model, dt)}
+        layers.append(layer)
     return {"embed": embed, "layers": layers,
             "final_ln": torch.zeros(cfg.d_model, device=dev),
             "unembed": dense_init(gen, cfg.d_model, cfg.vocab, dt)}
@@ -144,12 +146,10 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 def params_from_arrays(tree: dict, device=None) -> dict:
     """The reference's parameter tree (``repro.models.transformer.
     init_params``, as numpy arrays, layers stacked on a leading [L] axis)
-    as this module's parameters on ``device`` (the card unless given)."""
+    as this module's parameters on ``device`` (the card unless given).
+    A MoE layer's [L, E, ...] leaves become its own [E, ...] stacks."""
     dev = resolve_device(device)
     n_layers = np.asarray(tree["layers"]["ln1"]).shape[0]
-    if "moe" in tree["layers"]:
-        raise NotImplementedError("MoE layers (models/moe.py) are not "
-                                  "ported yet; see ROADMAP queue 1")
     out = tree_from_arrays({k: v for k, v in tree.items()
                             if k != "layers"}, dev)
     out["layers"] = [
@@ -179,7 +179,9 @@ def _embed(params: dict, cfg: TransformerConfig,
     return x
 
 
-def _ffn(lp: dict, h: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: TransformerConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+    if cfg.moe is not None:
+        return moe_apply_ep(lp["moe"], cfg.moe, h)
     ffn = lp["ffn"]
     return (silu(h @ ffn["wg"]["w"]) * (h @ ffn["wi"]["w"])) @ ffn["wo"]["w"]
 
@@ -207,7 +209,7 @@ def _layer_apply(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
         mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
         attn = _sdpa(q, k, v, mask, acfg)
     x = x + dense_apply(lp["attn"]["wo"], attn.reshape(B, T, -1))
-    return x + _ffn(lp, rms_norm(x, lp["ln2"])), (k, v)
+    return x + _ffn(cfg, lp, rms_norm(x, lp["ln2"])), (k, v)
 
 
 def _layer_out(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
@@ -375,7 +377,7 @@ def _decode_layer(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
     out, _ = decode_attn_apply(lp["attn"], cfg.attn_cfg(window),
                                rms_norm(x, lp["ln1"]), layer_cache, cur_len)
     x = x + out
-    return x + _ffn(lp, rms_norm(x, lp["ln2"]))
+    return x + _ffn(cfg, lp, rms_norm(x, lp["ln2"]))
 
 
 def decode_step(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,

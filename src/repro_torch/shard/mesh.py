@@ -3,10 +3,11 @@ of ``repro.shard.mesh``.
 
 One controller drives P shards: a :class:`ShardMesh` is the list of
 devices, shard p on ``devices[p]``, with the reference's ``(P, 1)``
-shape over axes ``(axis, "model")``. The list may repeat a device: four
-shards on one card run the same program as four shards on four cards,
-their transfers being nothing instead of peer copies, and the tests run
-P shards on ``[torch.device("cpu")] * P``. The mesh is not built on
+shape over axes ``(axis, "model")`` (``axis="model"`` gives the
+expert-parallel mesh of ``models.moe``: ``{"model": P}``). The list may
+repeat a device: four shards on one card run the same program as four
+shards on four cards, their transfers being nothing instead of peer
+copies, and the tests run P shards on ``[torch.device("cpu")] * P``. The mesh is not built on
 ``torch.distributed``: NCCL puts no two ranks on one GPU, and a gloo
 group on the CPU would run another program than the card's.
 """
@@ -29,7 +30,15 @@ class ShardMesh:
 
     @property
     def shape(self) -> dict:
-        return {self.axis: len(self.devices), "model": 1}
+        """Axis sizes: the named axis holds the P shards, and a trivial
+        "model" axis is added unless the named axis is "model"."""
+        shape = {self.axis: len(self.devices)}
+        shape.setdefault("model", 1)
+        return shape
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
 
     @property
     def size(self) -> int:

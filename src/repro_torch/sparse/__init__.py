@@ -1,5 +1,8 @@
 from .embedding import embedding_bag, one_hot_matmul_lookup
-from .segment import reduce_identity, segment_max, segment_min, segment_sum
+from .segment import (count_segments, reduce_identity, segment_logsumexp,
+                      segment_max, segment_mean, segment_min,
+                      segment_softmax, segment_sum)
 
-__all__ = ["segment_sum", "segment_min", "segment_max", "reduce_identity",
-           "embedding_bag", "one_hot_matmul_lookup"]
+__all__ = ["segment_sum", "segment_min", "segment_max", "segment_mean",
+           "segment_softmax", "segment_logsumexp", "count_segments",
+           "reduce_identity", "embedding_bag", "one_hot_matmul_lookup"]

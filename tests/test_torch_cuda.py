@@ -751,3 +751,97 @@ def test_lm_loss_gradients_kernel_against_naive(cuda):
         assert launched == (2 * cfg.n_layers if impl == "blockwise" else 0)
     assert cs.worst_leaf(grads["blockwise"], grads["naive"]) <= \
         cs.LM_GRAD_TOL[torch.float32]
+
+
+# -- slice 11: the GNN and MoE families -------------------------------------
+def test_chunked_float64_segment_sum_equals_one_sum_on_card(cuda,
+                                                            monkeypatch):
+    """A float32 segment_sum of 4 M rows × 8 on the card, its float64 copy
+    made 1 MB at a time (32 chunks), against one float64 ``index_add_``
+    of the whole input rounded once: the same up to the order of the
+    float64 atomics (rtol 1e-6, atol 1e-9); two 2^-130 terms, each in
+    its own chunk, still sum to 2^-129."""
+    from repro_torch.sparse import segment as seg
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    m, d, n = 1 << 22, 8, 1 << 16
+    data = torch.randn((m, d), generator=gen, device=cuda)
+    ids = torch.randint(-5, n + 5, (m,), generator=gen, device=cuda)
+    want = torch.zeros((n + 1, d), dtype=torch.float64, device=cuda)
+    want = want.index_add_(0, seg._spill_ids(ids, n), data.double())
+    monkeypatch.setattr(seg, "SUM_CHUNK_BYTES", 1 << 20)
+    got = seg.segment_sum(data, ids, n)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want[:n].float(), rtol=1e-6, atol=1e-9)
+    monkeypatch.setattr(seg, "SUM_CHUNK_BYTES", 8)
+    tiny = seg.segment_sum(torch.full((2,), 2.0 ** -130, device=cuda),
+                           torch.zeros(2, dtype=torch.long, device=cuda), 1)
+    assert tiny.item() == 2.0 ** -129
+
+
+def test_gin_push_equals_pull_on_card(cuda):
+    """GIN at a small width on the card: push equals pull (rtol = atol =
+    1e-5), and both equal the CPU's forward on the same graph and
+    weights within 1e-5 of the largest |output| (the card sums in
+    float64, the CPU in float32; an output that cancels to near 0 keeps
+    the absolute rounding of its terms)."""
+    import dataclasses
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.models import gnn
+    from repro_torch.models.common import tree_map
+    cfg = smoke_config("gin-tu")
+    g = erdos_renyi(300, 6.0, seed=3, weighted=True, device=cuda)
+    gc = erdos_renyi(300, 6.0, seed=3, weighted=True, device="cpu")
+    p = gnn.gin_init(cfg, seed=0, device=cuda)
+    h = torch.randn((300, cfg.d_in), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    pull = gnn.gin_apply(p, cfg, g, h)
+    push = gnn.gin_apply(p, dataclasses.replace(cfg, direction="push"), g, h)
+    torch.testing.assert_close(push, pull, rtol=1e-5, atol=1e-5)
+    cpu = gnn.gin_apply(tree_map(lambda t: t.cpu(), p), cfg, gc, h.cpu())
+    assert float((pull.cpu() - cpu).abs().max()) <= \
+        1e-5 * float(cpu.abs().max())
+
+
+def moe_case(cuda, **kw):
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(d_model=64, d_ff_expert=32, n_experts=8, top_k=2,
+                        n_shared=1, capacity_factor=8.0, **kw)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    p = moe.moe_init(gen, cfg)
+    x = torch.randn((2, 32, 64), generator=gen, device=cuda)
+    return moe, cfg, p, x
+
+
+@pytest.mark.parametrize("capacity", (0.5, 8.0))
+def test_moe_push_equals_pull_on_card(cuda, capacity):
+    import dataclasses
+    moe, cfg, p, x = moe_case(cuda)
+    cfg = dataclasses.replace(cfg, capacity_factor=capacity)
+    pull = moe.moe_apply(p, dataclasses.replace(cfg, dispatch="pull"), x)
+    push = moe.moe_apply(p, dataclasses.replace(cfg, dispatch="push"), x)
+    torch.testing.assert_close(push, pull, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,combine", [("psum", "f32"), ("a2a", "f32"),
+                                          ("psum", "bf16")])
+def test_moe_apply_ep_on_one_card_equals_moe_apply(cuda, mode, combine):
+    """Four expert shards on one card (``[cuda] * 4``), a capacity that
+    drops nothing: equal to ``moe_apply`` (f32 rtol = atol = 1e-5; the
+    bf16 combine within 2^-6 of the largest |output|)."""
+    import dataclasses
+    from repro_torch.dist.sharding import set_activation_mesh
+    from repro_torch.shard import make_shard_mesh
+    moe, cfg, p, x = moe_case(cuda, dispatch="pull")
+    want = moe.moe_apply(p, cfg, x)
+    set_activation_mesh(make_shard_mesh(4, axis="model",
+                                        devices=[cuda] * 4))
+    try:
+        got = moe.moe_apply_ep(p, dataclasses.replace(
+            cfg, ep_mode=mode, combine_dtype=combine), x)
+    finally:
+        set_activation_mesh(None)
+    if combine == "bf16":
+        assert float((got - want).abs().max()) <= \
+            2 ** -6 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -212,11 +212,18 @@ def test_blockwise_sdpa_matches_reference(window, dtype):
 
 
 def test_moe_config_and_entry_points_default_to_the_card():
-    cfg = dataclasses.replace(archs.smoke_config("llama3.2-1b"), moe=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_params(cfg, device=CPU)
+    """A MoE config builds MoE layers (no FFN) on the device asked for;
+    without CUDA the entry points refuse the default device."""
+    cfg = archs.smoke_config("deepseek-moe-16b")
+    p = tf.init_params(cfg, device=CPU)
+    assert all("moe" in lp and "ffn" not in lp for lp in p["layers"])
+    logits, _ = tf.prefill(p, cfg, torch.zeros((1, 4), dtype=torch.long))
+    assert logits.shape == (1, cfg.vocab) and logits.device.type == CPU
     if torch.cuda.is_available():
         return
+    for lm in (archs.smoke_config("llama3.2-1b"), cfg):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tf.init_params(lm)
     lm = archs.smoke_config("llama3.2-1b")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tf.init_params(lm)

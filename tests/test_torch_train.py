@@ -634,5 +634,18 @@ def test_launcher_trains_on_the_cpu(arch, tmp_path, capsys):
 
 
 def test_launcher_refuses_gnn_archs():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        launch_train.main(["--arch", "gin-tu", "--device", "cpu"])
+    """A GNN arch trains on the whole graph: the launcher refuses to cut
+    it into microbatches."""
+    for arch in ("gin-tu", "egnn"):
+        with pytest.raises(ValueError, match="whole graph"):
+            launch_train.main(["--arch", arch, "--device", "cpu",
+                               "--num-micro", "2"])
+
+
+@pytest.mark.parametrize("arch", ["gin-tu", "graphcast"])
+def test_launcher_trains_gnn_archs_on_the_cpu(arch, tmp_path, capsys):
+    assert launch_train.main(["--arch", arch, "--steps", "2", "--device",
+                              "cpu", "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert f"{arch}: step=2" in out and "loss=nan" not in out
+    assert ckpt.latest_step(str(tmp_path)) == 2
