@@ -222,6 +222,33 @@ non-zero:
      and f32; the gradients at 2 layers with the kernel against the
      plain path (bf16 5e-2, f32 1e-4).
 
+ 16. Slice 12, the cell registry and the dry run (run after 15).
+     ``"legacy"`` (right after slice 1's answers): ``bfs``, ``sssp_delta``
+     and ``personalized_pagerank`` on rca equal ``api.solve``'s states.
+     ``"cells"``: ``launch.dryrun.run_cell`` over the 40 cells at the
+     single-pod (16 × 16) and multi-pod (2 × 16 × 16) layouts on
+     ``meta``, in one worker process per CPU core (the card idles): one
+     line per cell with its FLOPs (PyTorch operators plus the kernels'
+     counted work), ``model_flops``, bytes accessed, argument bytes per
+     device and in all, the one-controller peak, ``fits_one_card``, the
+     wire bytes of the explicit exchanges and the roofline terms on one
+     H100; graphcast@minibatch_lg and egnn@ogb_products must not fit
+     (the card ran out on them in earlier runs). ``"hillclimb"``: one
+     variant of each of the three cells (qwen ``v1_pad_heads``, gin
+     ``v1_shard_all``, deepseek ``v1_bf16_combine``), in the same pool.
+     ``"cells_card"``: every cell whose predicted arguments and peak stay
+     within 70 GB (xDeepFM's four, the GNN cells that fit, llama3.2-1b at
+     long_500k among them) built on the card with seeded random weights
+     and inputs and run three times: the first run's peak
+     (``max_memory_allocated`` past the bytes held before it) within
+     ±20 % of the dry run's, its outputs finite and of the dry run's
+     bytes; the second's FLOPs, counted the dry run's way, equal to the
+     meta count; the third's wall. ``cin`` must launch.
+     ``"service_bench"``: ``service.bench.sweep(smoke=True)`` through
+     the autotuned CUDA backend, the reference's ``service_*`` rows.
+     ``"memory"`` lines give the bytes the card still holds after each
+     late phase.
+
 Launch counts are zeroed just before each main path and read just after
 it; every kernel of the path must have launched and no step of the graph
 paths may have fallen back to the plain primitives. The line before the last is
@@ -231,12 +258,14 @@ paths may have fallen back to the plain primitives. The line before the last is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -248,17 +277,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import api  # noqa: E402
 from repro_torch.core import backend as backend_module  # noqa: E402
 from repro_torch.core.cost_model import Cost  # noqa: E402
-from repro_torch.core.direction import Direction  # noqa: E402
+from repro_torch.core.direction import Direction, Fixed  # noqa: E402
 from repro_torch.graphs import (GRAPH_ARRAYS, Graph,  # noqa: E402
                                 SampledBlocks, build_graph, erdos_renyi,
                                 graph_from_arrays, kronecker, sample_blocks,
                                 standin, star)
 from repro_torch.graphs.structure import pad_values  # noqa: E402
+from repro_torch.configs import (ARCH_FAMILY, all_cells,  # noqa: E402
+                                 build_cell)
 from repro_torch.configs.archs import full_config  # noqa: E402
+from repro_torch.core import algorithms as legacy_algs  # noqa: E402
 from repro_torch.configs.shapes import GNN_SHAPES  # noqa: E402
 from repro_torch.data import (molecule_batches, recsys_batches,  # noqa: E402
                               token_batches)
-from repro_torch.dist.sharding import set_activation_mesh  # noqa: E402
+from repro_torch.dist.sharding import (set_activation_mesh,  # noqa: E402
+                                       tree_bytes_per_device)
 from repro_torch.dist.overlap import value_and_grad  # noqa: E402
 from repro_torch.kernels import _build, tune  # noqa: E402
 from repro_torch.kernels import cin as cin_module  # noqa: E402
@@ -279,6 +312,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_plain_gqa)
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.dryrun import count_step, run_cell  # noqa: E402
+from repro_torch.launch.hillclimb import main as hillclimb_main  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models import gnn as gnn_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import transformer as transformer_module  # noqa: E402
@@ -291,6 +327,7 @@ from repro_torch.models.transformer import (decay_mask,  # noqa: E402
                                             decode_step, init_params,
                                             lm_loss, pad_kv_cache, prefill)
 from repro_torch.service import QueryService  # noqa: E402
+from repro_torch.service.bench import sweep as bench_sweep  # noqa: E402
 from repro_torch.shard import ShardedBackend, make_shard_mesh  # noqa: E402
 from repro_torch.sparse.segment import (reduce_identity,  # noqa: E402
                                        segment_sum)
@@ -3946,6 +3983,223 @@ def moe_path(device) -> dict:
     return {"counts": counts, "rows": rows, "train": train}
 
 
+# ------------------------------------------------- slice 12: the cells --
+# the card runs every cell whose predicted arguments and peak stay below
+CARD_RUN_LIMIT = 70e9
+# measured peak against predicted, either way
+PEAK_TOL = 0.2
+# cells the card run must include (and one GNN cell)
+CARD_MUST = ("xdeepfm@serve_p99", "xdeepfm@train_batch",
+             "llama3.2-1b@long_500k")
+# cells the card could not hold (graphcast at 16 layers, EGNN's edge MLPs)
+NO_FIT = ("graphcast@minibatch_lg", "egnn@ogb_products")
+HILLCLIMB_PICKS = (("qwen", "v1_pad_heads"), ("gin", "v1_shard_all"),
+                   ("deepseek", "v1_bf16_combine"))
+
+
+def _dry_cost(job) -> int:
+    """A rough order for the pool: the MoE and long LM trains first."""
+    arch, shape, _ = job
+    moe = arch.startswith(("moonshot", "deepseek"))
+    return -(4 * moe + 2 * (shape == "train_4k") + (ARCH_FAMILY[arch] == "lm"))
+
+
+def dry_run_all(out_dir: Path) -> dict:
+    """``"cells"`` and ``"hillclimb"``: the dry run of the 40 cells at the
+    single-pod and multi-pod meshes and three hillclimb variants, on
+    ``meta``, in worker processes (one per CPU core; the card idles).
+    One line per cell; any failure fails. Returns {(arch, shape,
+    multi_pod): result}."""
+    import concurrent.futures as cf
+    import multiprocessing
+    jobs = sorted([(a, s, mp) for mp in (False, True) for a, s in all_cells()],
+                  key=_dry_cost)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    results, errors = {}, []
+    with cf.ProcessPoolExecutor(os.cpu_count() or 1, mp_context=ctx) as pool:
+        hc = {pool.submit(hillclimb_main, ["--cell", c, "--variant", v,
+                                           "--out", str(out_dir / f"{c}.json")]):
+              (c, v) for c, v in HILLCLIMB_PICKS}
+        futs = {pool.submit(run_cell, a, s, mp): (a, s, mp)
+                for a, s, mp in jobs}
+        for f in cf.as_completed(futs):
+            a, s, mp = futs[f]
+            try:
+                r = f.result()
+            except Exception as e:  # noqa: BLE001 — all cells, then fail
+                errors.append(f"{a}@{s} [{'multi' if mp else 'single'}]: "
+                              f"{e!r}")
+                continue
+            results[(a, s, mp)] = r
+            m, rf = r["memory"], r["roofline"]
+            emit({"phase": "cells", "cell": r["cell"], "mesh": r["mesh"],
+                  "flops": r["cost"]["flops"],
+                  "model_flops": r["model_flops"],
+                  "kernel_flops": {k: v["flops"] for k, v in
+                                   r["cost"]["kernels"].items()},
+                  "bytes_accessed": r["cost"]["bytes_accessed"],
+                  "argument_bytes_per_device": m["argument_bytes"],
+                  "argument_bytes_total": m["argument_bytes_total"],
+                  "one_controller_peak_bytes": m["temp_bytes"],
+                  "fits_one_card": r["fits_one_card"],
+                  "collective_bytes": r["collectives"]["total_bytes"],
+                  "roofline_h100": {k: rf[k] for k in (
+                      "compute_s", "memory_s", "collective_s", "dominant",
+                      "bound_s")},
+                  "t_lower_s": r["t_lower_s"]})
+        rcs = {hc[f]: f.result() for f in hc}
+    if errors:
+        fail("dry run failed: " + "; ".join(errors))
+    for c, v in HILLCLIMB_PICKS:
+        if rcs[(c, v)] != 0:
+            fail(f"hillclimb {c}/{v} exited {rcs[(c, v)]}")
+        run = json.loads((out_dir / f"{c}.json").read_text())["runs"][0]
+        r = run["result"]
+        emit({"phase": "hillclimb", "cell_key": c, "variant": v,
+              "cell": r["cell"], "flops": r["cost"]["flops"],
+              "one_controller_peak_bytes": r["memory"]["temp_bytes"],
+              "roofline_h100": {k: r["roofline"][k] for k in (
+                  "compute_s", "memory_s", "collective_s", "dominant")}})
+    for name in NO_FIT:
+        a, s = name.split("@")
+        if results[(a, s, False)]["fits_one_card"]:
+            fail(f"{name}: the dry run says it fits one card, which it "
+                 "did not")
+    emit({"phase": "cells_summary", "cells": len(results),
+          "seconds": time.perf_counter() - t0,
+          "workers": os.cpu_count()})
+    return results
+
+
+def cells_card(device, dry: dict) -> dict:
+    """``"cells_card"``: the cells the dry run puts at <= 70 GB, run for
+    real on the card with seeded random weights and inputs. A first run
+    measures the peak (``max_memory_allocated`` past the bytes held
+    before it) against the dry run's; a second, under the dry run's
+    counters, its FLOPs (equal to the meta count); a third its wall.
+    Returns the launch counts of the three runs."""
+    mesh = make_production_mesh()
+    picked = [(a, s) for (a, s, mp), r in dry.items() if not mp and
+              r["memory"]["argument_bytes_total"] + r["memory"]["temp_bytes"]
+              <= CARD_RUN_LIMIT]
+    names = {f"{a}@{s}" for a, s in picked}
+    if not set(CARD_MUST) <= names or not any(
+            ARCH_FAMILY[a] == "gnn" for a, _ in picked):
+        fail(f"the card run lacks a required cell: {sorted(names)}")
+    _build.reset_launch_counts()
+    for a, s in sorted(picked, key=lambda c: all_cells().index(c)):
+        r = dry[(a, s, False)]
+        torch.cuda.empty_cache()
+        cell = build_cell(a, s, mesh, device=device, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(out)
+                   if t.is_floating_point()):
+            fail(f"{a}@{s}: a non-finite output on the card")
+        out_bytes = tree_bytes_per_device(mesh, cell.out_shardings, out)
+        if out_bytes != r["memory"]["output_bytes"]:
+            fail(f"{a}@{s}: outputs {out_bytes} B a device, the dry run "
+                 f"{r['memory']['output_bytes']}")
+        del out
+        counted = count_step(cell)
+        del counted["out"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        del out
+        predicted = r["memory"]["temp_bytes"]
+        ratio = peak / max(predicted, 1)
+        line = {"phase": "cells_card", "cell": f"{a}@{s}", "wall_ms": wall,
+                "peak_bytes": peak, "predicted_peak_bytes": predicted,
+                "peak_ratio": ratio, "flops_card": counted["flops"],
+                "flops_meta": r["cost"]["flops"],
+                "kernel_flops_card": {k: v["flops"] for k, v in
+                                      counted["kernels"].items()},
+                "argument_bytes_total": r["memory"]["argument_bytes_total"],
+                "card": card_line()}
+        emit(line)
+        if counted["flops"] != r["cost"]["flops"]:
+            fail(f"{a}@{s}: {counted['flops']} FLOPs on the card, "
+                 f"{r['cost']['flops']} on meta")
+        if abs(ratio - 1) > PEAK_TOL:
+            fail(f"{a}@{s}: peak {peak} B on the card against "
+                 f"{predicted} B predicted")
+        del cell
+    set_activation_mesh(None)
+    torch.cuda.empty_cache()
+    counts = _build.launch_counts()
+    emit({"phase": "cells_card_path", "launches": counts})
+    if not counts["cin"]:
+        fail(f"cells_card launches no CIN kernel: {counts}")
+    return counts
+
+
+def service_bench_phase() -> dict:
+    """``"service_bench"``: ``service.bench.sweep(smoke=True)`` on the card
+    through the autotuned CUDA backend, one line per row. Returns its
+    launch counts: a pull and a push kernel must have launched."""
+    _build.reset_launch_counts()
+    for name, us, payload in bench_sweep(smoke=True):
+        if payload["backend"] != "cuda" or us <= 0:
+            fail(f"service bench row {name}: {payload}")
+        emit({"phase": "service_bench", "name": name, "us_per_call": us,
+              "derived": payload})
+    counts = _build.launch_counts()
+    emit({"phase": "service_bench_path", "launches": counts})
+    if not counts["ell_spmv"] or not (counts["coo_push"]
+                                      or counts["coo_push_mxu"]):
+        fail(f"service bench launches: {counts}")
+    return counts
+
+
+def held(after: str) -> None:
+    """Free what a phase left (the engines ``api`` cached for its
+    backends, whose sharded ones hold views of a graph's ELL arrays, and
+    its reference cycles, which only the cycle collector frees) and print
+    the bytes the card still holds: what the next phase's peaks start
+    from."""
+    api.clear_engine_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "memory", "after": after,
+          "allocated_bytes": torch.cuda.memory_allocated(),
+          "reserved_bytes": torch.cuda.memory_reserved()})
+
+
+def legacy_check(graphs: dict) -> None:
+    """``"legacy"``: ``bfs``, ``sssp_delta`` and ``personalized_pagerank``
+    on rca, on the card (their signatures take no backend: ``api.solve``'s
+    default), against ``api.solve`` with the same arguments: equal
+    states."""
+    g, delta = graphs["rca"]
+    root = top_sources(g, 1)[0]
+    got = legacy_algs.bfs(g, root)
+    want = api.solve(g, "bfs", policy=Fixed(Direction.PUSH), root=root)
+    same = (torch.equal(got.dist, want.state["dist"])
+            and torch.equal(got.parent, want.state["parent"])
+            and got.levels == want.steps)
+    got_s = legacy_algs.sssp_delta(g, root, delta=delta)
+    want_s = api.solve(g, "sssp_delta", policy=Fixed(Direction.PUSH),
+                       source=root, delta=delta, max_inner=64,
+                       max_steps=1 << 14)
+    same &= torch.equal(got_s.dist, want_s.state["dist"])
+    got_p = legacy_algs.personalized_pagerank(g, root, iters=20)
+    want_p = api.solve(g, "ppr", policy="pull", source=root, iters=20)
+    same &= torch.equal(got_p.ranks, want_p.state["ranks"])
+    emit({"phase": "legacy", "graph": "rca", "bfs_levels": int(got.levels),
+          "sssp_epochs": int(got_s.epochs), "ppr_iterations":
+          int(got_p.iterations), "equal": bool(same)})
+    if not same:
+        fail("a legacy wrapper differs from api.solve")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3986,6 +4240,7 @@ def main() -> int:
     tune_phase(graphs, list(ways.values()))
     results, walls, counts = main_path(graphs)
     dense = check_answers(graphs, results)
+    legacy_check(graphs)
     serving = serving_path(graphs, ways)
     counts = {k: counts[k] + serving[k] for k in counts}
     push_choice_phase(graphs, ways)
@@ -4006,24 +4261,32 @@ def main() -> int:
     for gname, (g, _) in graphs.items():
         rows += shaped_kernels(gname, g, device, ways)
         more_kernel_rows(gname, g, ways["auto"], more, by_alg)
-    del graphs, ways, more
-    torch.cuda.empty_cache()
+    # the loop's g would hold kron16 (its ELL view is 5.2 GB) to the end
+    del graphs, ways, more, g
+    held("graph phases")
 
     errs.update(model_kernel_grid(device))
     lms, rec, model_counts = model_path(device)
     counts = {k: counts[k] + model_counts[k] for k in counts}
     model_rows = model_kernel_rows(lms, rec)
     del lms, rec
-    torch.cuda.empty_cache()
+    held("model")
     train_counts = train_path(device)
     counts = {k: counts[k] + train_counts[k] for k in counts}
-    torch.cuda.empty_cache()
+    held("train")
     gnn_counts = gnn_path(device)
     counts = {k: counts[k] + gnn_counts[k] for k in counts}
-    torch.cuda.empty_cache()
+    held("gnn")
     moe = moe_path(device)
     counts = {k: counts[k] + moe["counts"][k] for k in counts}
     model_rows += moe["rows"]
+    held("moe")
+    with tempfile.TemporaryDirectory() as tmp:
+        dry = dry_run_all(Path(tmp))
+    cell_counts = cells_card(device, dry)
+    counts = {k: counts[k] + cell_counts[k] for k in counts}
+    held("cells_card")
+    counts = {k: counts[k] + v for k, v in service_bench_phase().items()}
     kernels = []
     for row in rows:
         # one row per kernel: the road graph, at width 1 where the kernel

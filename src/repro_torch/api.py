@@ -57,6 +57,7 @@ from .graphs.structure import Graph
 
 __all__ = ["RunResult", "AlgorithmSpec", "EngineCache", "register",
            "algorithms", "get_spec", "solve", "solve_batch",
+           "clear_engine_cache",
            "validate_vertex_indices",
            "POLICY_SHORTHANDS", "BACKEND_SHORTHANDS", "DenseBackend",
            "EllBackend", "CudaBackend", "DistributedBackend",
@@ -106,7 +107,10 @@ _REGISTRY: dict[str, AlgorithmSpec] = {}
 
 class EngineCache:
     """Bounded FIFO of built engines keyed by hashable tuples;
-    unhashable keys skip caching and rebuild every call."""
+    unhashable keys skip caching and rebuild every call. An engine keeps
+    its backend, and a sharded or distributed backend keeps its shards'
+    copies (or views) of the graph on the card: such an entry pins them
+    until it is evicted or :meth:`clear` drops it."""
 
     def __init__(self, max_size: int = 128):
         self.max_size = max_size
@@ -125,8 +129,17 @@ class EngineCache:
             self._data[key] = engine
         return engine
 
+    def clear(self) -> None:
+        self._data.clear()
+
 
 _ENGINE_CACHE = EngineCache()
+
+
+def clear_engine_cache() -> None:
+    """Drop every engine ``solve`` and ``solve_batch`` have cached, and
+    with them what their backends hold for graphs no longer in use."""
+    _ENGINE_CACHE.clear()
 
 
 def register(spec: AlgorithmSpec) -> AlgorithmSpec:

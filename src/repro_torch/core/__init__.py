@@ -1,7 +1,7 @@
 from .backend import (CudaBackend, DenseBackend, EllBackend,
                       ExchangeBackend, classify_msg_fn, require_backend)
 from .cost_model import (DEFAULT_WEIGHTS, Cost, CostPredictor, CostWeights,
-                         StepStats, StepTrace, counter)
+                         StepStats, StepTrace, counter, zero_cost)
 from .direction import (AutoSwitch, Direction, DirectionPolicy, Fixed,
                         GenericSwitch, GreedySwitch)
 from .engine import (EngineResult, Phase, PhaseProgram, PushPullEngine,
@@ -15,7 +15,7 @@ from .primitives import (combine_identity, frontier_in_edges,
 __all__ = [
     "CudaBackend", "DenseBackend", "EllBackend", "ExchangeBackend",
     "classify_msg_fn", "require_backend", "Cost", "CostPredictor",
-    "CostWeights", "DEFAULT_WEIGHTS", "StepStats", "StepTrace", "counter",
+    "CostWeights", "DEFAULT_WEIGHTS", "StepStats", "StepTrace", "counter", "zero_cost",
     "AutoSwitch", "Direction", "DirectionPolicy", "Fixed", "GenericSwitch",
     "GreedySwitch", "EngineResult", "Phase", "PhaseProgram",
     "PushPullEngine", "VertexProgram", "Semiring", "PLUS_TIMES",

@@ -6,19 +6,32 @@ pull (bottom-up): every unvisited vertex scans in-neighbors for a parent.
 
 Parents are chosen with a combining-min over candidate parent ids, so the
 result is deterministic and direction-independent (parent = min-id
-neighbor in the previous level).
+neighbor in the previous level). :func:`bfs` is the thin legacy wrapper
+around ``api.solve``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ...graphs.structure import Graph
+from ..cost_model import Cost
+from ..direction import Direction, DirectionPolicy, Fixed
 from ..engine import VertexProgram
 
-__all__ = ["bfs_program", "bfs_init", "UNREACHED"]
+__all__ = ["bfs", "BFSResult", "bfs_program", "bfs_init", "UNREACHED"]
 
 UNREACHED = 2147483647
+
+
+class BFSResult(NamedTuple):
+    dist: torch.Tensor      # int32[n], UNREACHED if unreachable
+    parent: torch.Tensor    # int32[n], n for none
+    cost: Cost
+    levels: int             # number of frontier expansions
+    push_steps: int         # how many levels ran in push mode
 
 
 def bfs_program(g: Graph, policy=None, backend=None
@@ -58,3 +71,12 @@ def bfs_init(g: Graph, root=0, **_):
     parent[root] = root
     return {"dist": dist, "parent": parent,
             "visited": frontier0.clone()}, frontier0
+
+
+def bfs(g: Graph, root: int,
+        policy: DirectionPolicy = Fixed(Direction.PUSH)) -> BFSResult:
+    """Legacy entry point — a thin wrapper over ``api.solve``."""
+    from ... import api
+    r = api.solve(g, "bfs", policy=policy, root=root)
+    return BFSResult(dist=r.state["dist"], parent=r.state["parent"],
+                     cost=r.cost, levels=r.steps, push_steps=r.push_steps)

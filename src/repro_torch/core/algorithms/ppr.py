@@ -8,18 +8,30 @@ The exchange is power-iteration PageRank's (every vertex active every
 step, wire values are rank/out-degree contributions); the teleport mass
 restarts at one source vertex. The iteration stops at a residual fixed
 point: ``converged`` once the max rank change drops below ``tol``
-(bounded by ``iters`` steps).
+(bounded by ``iters`` steps). :func:`personalized_pagerank` is the thin
+convenience wrapper around ``api.solve``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ...graphs.structure import Graph
 from ..backend import DenseBackend, EllBackend, require_backend
+from ..cost_model import Cost
 from ..engine import VertexProgram
 
-__all__ = ["ppr_program", "ppr_init", "ppr_finalize"]
+__all__ = ["personalized_pagerank", "PPRResult", "ppr_program", "ppr_init",
+           "ppr_finalize"]
+
+
+class PPRResult(NamedTuple):
+    ranks: torch.Tensor     # float32[n]
+    cost: Cost
+    iterations: int
+    residual: torch.Tensor
 
 
 def ppr_program(g: Graph, iters: int = 100, damp: float = 0.85,
@@ -61,3 +73,14 @@ def ppr_init(g: Graph, source=0, damp: float = 0.85, **_):
 
 def ppr_finalize(g: Graph, state):
     return {"ranks": state["rank"], "residual": state["resid"]}
+
+
+def personalized_pagerank(g: Graph, source: int, iters: int = 100,
+                          damp: float = 0.85, tol: float = 1e-6,
+                          direction: str = "pull") -> PPRResult:
+    """Convenience wrapper over ``api.solve`` (policy = Fixed)."""
+    from ... import api
+    r = api.solve(g, "ppr", policy=direction, source=source, iters=iters,
+                  damp=damp, tol=tol)
+    return PPRResult(ranks=r.state["ranks"], cost=r.cost,
+                     iterations=r.steps, residual=r.state["residual"])

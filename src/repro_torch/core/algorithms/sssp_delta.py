@@ -18,14 +18,19 @@ package.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ...graphs.structure import Graph
 from ...shard.backend import ShardedBackend
 from ..backend import DenseBackend, EllBackend, require_backend
+from ..cost_model import Cost
+from ..direction import Direction, Fixed
 from ..engine import Phase, PhaseProgram, VertexProgram
 
-__all__ = ["sssp_delta_program", "sssp_delta_init", "sssp_delta_finalize"]
+__all__ = ["sssp_delta", "SSSPResult", "sssp_delta_program",
+           "sssp_delta_init", "sssp_delta_finalize"]
 
 _INF = float("inf")
 
@@ -34,6 +39,13 @@ def _lo(epoch: int, delta: float, device) -> torch.Tensor:
     f32 = torch.float32
     return (torch.tensor(epoch, dtype=f32, device=device)
             * torch.tensor(delta, dtype=f32, device=device))
+
+
+class SSSPResult(NamedTuple):
+    dist: torch.Tensor      # float32[n]
+    cost: Cost
+    epochs: int             # buckets processed
+    inner_iters: int
 
 
 def _in_bucket(d: torch.Tensor, lo: torch.Tensor,
@@ -102,3 +114,16 @@ def sssp_delta_init(g: Graph, source=0, **_):
 
 def sssp_delta_finalize(g: Graph, state):
     return {"dist": state["dist"]}
+
+
+def sssp_delta(g: Graph, source: int, delta: float = 2.0,
+               direction: str = "push", max_epochs: int = 1 << 14,
+               max_inner: int = 64) -> SSSPResult:
+    """Legacy entry point — a thin wrapper over ``api.solve``."""
+    from ... import api
+    policy = Fixed(Direction.PUSH if direction == "push"
+                   else Direction.PULL)
+    r = api.solve(g, "sssp_delta", policy=policy, source=source,
+                  delta=delta, max_inner=max_inner, max_steps=max_epochs)
+    return SSSPResult(dist=r.state["dist"], cost=r.cost, epochs=r.epochs,
+                      inner_iters=r.steps)

@@ -286,12 +286,16 @@ class CudaBackend(EllBackend):
         return classify_msg_fn(msg_fn)
 
     def _cached(self, cache: dict, g: Graph, key, build: Callable):
-        # keyed by (id(g), key) with a weakref guard against id reuse
-        hit = cache.get((id(g), key))
+        # keyed by (id(g), key) with a weakref guard against id reuse;
+        # the entry goes when g does, so a shared backend keeps no plan
+        # or layout of a graph nobody holds
+        k = (id(g), key)
+        hit = cache.get(k)
         if hit is not None and hit[0]() is g:
             return hit[1]
         obj = build()
-        cache[(id(g), key)] = (weakref.ref(g), obj)
+        cache[k] = (weakref.ref(g, lambda _, c=cache, k=k: c.pop(k, None)),
+                    obj)
         return obj
 
     def push_plan(self, g: Graph, bin_n: int = DEFAULT_BIN_N):

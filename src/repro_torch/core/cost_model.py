@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Cost", "counter", "CostWeights", "DEFAULT_WEIGHTS",
+__all__ = ["Cost", "zero_cost", "counter", "CostWeights", "DEFAULT_WEIGHTS",
            "CostPredictor", "StepStats", "StepTrace"]
 
 COUNTER = torch.int64
@@ -100,6 +100,10 @@ class Cost:
         return (f(self.reads) * w.read + f(self.writes) * w.write
                 + f(self.atomics) * w.atomic + f(self.locks) * w.lock
                 + f(self.collective_bytes) * w.collective_byte)
+
+
+def zero_cost() -> Cost:
+    return Cost()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,13 @@ Both return ``(combined [n_padded], bytes_per_device)`` and are
 numerically identical; they differ in the communication structure the
 paper measures. Edge payloads follow ``PartitionedEdges``: ``[P, cap]``
 rows grouped by the owner shard, sentinel-padded, with a ``valid`` mask.
+
+The wire counter (:func:`count_wire`, :func:`wire_bytes`) adds up what
+each collective carries between shards, per shard as a wire would carry
+it: an ``all_gather`` brings every shard the blocks it does not own, a
+``reduce_scatter`` every owner the slices of the others, even where two
+shards share a device and nothing moves. The dry run reads it;
+``models.moe``'s expert-parallel exchanges add theirs too.
 """
 
 from __future__ import annotations
@@ -44,9 +51,39 @@ from ..sparse.segment import segment_max, segment_min, segment_sum
 __all__ = ["push_exchange", "pull_exchange", "pa_exchange",
            "merge_combine", "all_gather", "psum_scatter", "pmin_scatter",
            "pmax_scatter", "reduce_scatter", "shard_blocks", "unshard",
-           "pad_rows", "ShardRows", "place_edges"]
+           "pad_rows", "ShardRows", "place_edges", "count_wire",
+           "wire_bytes", "reset_wire", "WIRE_KINDS"]
 
 _SEGMENT = {"sum": segment_sum, "min": segment_min, "max": segment_max}
+
+# the reference's HLO collective kinds
+WIRE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+              "collective-permute")
+_WIRE = {k: {"count": 0, "bytes": 0} for k in WIRE_KINDS}
+
+
+def count_wire(kind: str, nbytes: int) -> None:
+    """One collective of ``kind`` that carried ``nbytes`` between shards."""
+    _WIRE[kind]["count"] += 1
+    _WIRE[kind]["bytes"] += int(nbytes)
+
+
+def wire_bytes() -> dict:
+    """What the collectives carried since :func:`reset_wire`, by kind
+    and in total."""
+    by_kind = {k: dict(v) for k, v in _WIRE.items()}
+    return {"by_kind": by_kind,
+            "total_bytes": sum(v["bytes"] for v in by_kind.values()),
+            "total_count": sum(v["count"] for v in by_kind.values())}
+
+
+def reset_wire() -> None:
+    for v in _WIRE.values():
+        v["count"] = v["bytes"] = 0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -91,6 +128,8 @@ def unshard(blocks: Sequence, device) -> torch.Tensor:
 def all_gather(blocks: Sequence, devices: Sequence) -> list:
     """Every shard's copy of the concatenated blocks. Shards that share a
     device share one copy: it is read only."""
+    count_wire("all-gather", sum(_nbytes(b) for b in blocks)
+               * (len(devices) - 1))
     by_dev: dict = {}
     out = []
     for dev in devices:
@@ -109,6 +148,8 @@ def reduce_scatter(blocks: Sequence, devices: Sequence,
     op = {"sum": torch.add, "min": torch.minimum,
           "max": torch.maximum}[combine]
     P = len(devices)
+    count_wire("reduce-scatter",
+               sum(_nbytes(b) for b in blocks) * (P - 1) // max(P, 1))
     out = []
     for p, dev in enumerate(devices):
         parts = [b.chunk(P)[p].to(dev, non_blocking=True) for b in blocks]

@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels; count their launches.
+"""Build and load the CUDA kernels; count their launches and their work.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface (no PyTorch headers, so a
@@ -9,6 +9,12 @@ missing libraries are compiled at once, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU tests import every module, and
 this host may have no ``nvcc``.
+
+The work counter (:func:`count_work`) holds the operations and bytes of
+each model kernel where it ran on the card or stood in on ``meta``, for
+the dry run: a profiler's operation counter sees the PyTorch operators
+around a launch, never the launch. A plain version on the CPU runs
+PyTorch operators, and adds nothing here.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import torch
 
 __all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
            "count_launch", "launch_counts", "reset_launch_counts",
-           "check_status", "lib_path", "zeroed_counters"]
+           "check_status", "lib_path", "zeroed_counters", "count_work",
+           "kernel_work", "reset_kernel_work"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -62,6 +69,7 @@ _SIGNATURES = {
 
 _LIBS: dict = {}
 _LAUNCHES = {name: 0 for name in KERNELS}
+_WORK = {name: {"flops": 0, "bytes": 0} for name in KERNELS}
 # per (kernel, device): arrival counters of work split across CTAs, zero
 # between launches (the last CTA of each split unit resets its own)
 _COUNTERS: dict = {}
@@ -90,6 +98,22 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def count_work(name: str, flops: int, nbytes: int) -> None:
+    """Called by a wrapper where kernel ``name`` launched on the card or
+    stood in on ``meta``: its operations and bytes."""
+    _WORK[name]["flops"] += int(flops)
+    _WORK[name]["bytes"] += int(nbytes)
+
+
+def kernel_work() -> dict:
+    return {name: dict(w) for name, w in _WORK.items()}
+
+
+def reset_kernel_work() -> None:
+    for w in _WORK.values():
+        w["flops"] = w["bytes"] = 0
 
 
 def _nvcc() -> str:

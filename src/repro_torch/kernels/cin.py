@@ -26,6 +26,13 @@ weights (each a view, packed anew per call):
 and dw[h, i, j] = Σ_{b,d} g[b,h,d]·xk[b,i,d]·x0[b,j,d] is a plain GEMM
 over batch chunks (:func:`cin_weight_grad`), as the JAX package's is
 plain XLA: no [B, Hp, F, D] tensor exists beyond one chunk.
+
+On a ``meta`` tensor (the dry run) a layer, the backward's two included,
+packs its weights and takes its split accumulators as on the card (at
+the H100's ``roofline.SMS``), so that the dry run sees the memory a
+launch holds, then launches nothing and runs no plain version: it
+returns an output of the right shape and adds the layer's work
+(``roofline.cin_work``) to ``_build.count_work``, as a launch does.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import weakref
 
 import torch
 
-from ._build import check_status, load, zeroed_counters
+from ._build import check_status, count_work, load, zeroed_counters
+from .roofline import SMS, cin_work
 
 __all__ = ["cin_layer", "cin_layer_plain", "cin_weight_grad", "CinLayer",
            "kernel_weights", "packed_weights", "cin_tile", "cin_splits",
@@ -233,12 +241,15 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor,
 
 def _forward(xk: torch.Tensor, x0: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
-    """The launch on a card tensor, the plain version on a CPU one (no
-    gradient: :class:`CinLayer` wraps it)."""
+    """The launch on a card tensor, the plain version on a CPU one, an
+    output of the right shape on a meta one (no gradient:
+    :class:`CinLayer` wraps it)."""
     if xk.device.type == "cpu":
         return cin_layer_plain(xk, x0, w)
-    if xk.device.type != "cuda":
-        raise ValueError(f"cin_layer runs on cuda or cpu, not {xk.device}")
+    meta = xk.device.type == "meta"
+    if xk.device.type != "cuda" and not meta:
+        raise ValueError(f"cin_layer runs on cuda, cpu or meta, not "
+                         f"{xk.device}")
     if xk.dtype not in DTYPE_CODES:
         raise ValueError(f"the kernel takes f32 or bf16, not {xk.dtype}")
     B, Hp, D = xk.shape
@@ -255,16 +266,22 @@ def _forward(xk: torch.Tensor, x0: torch.Tensor,
     ht, kt = wp.shape[0], wp.shape[1]
     nb = cin_tile(H)
     cols = B * D
-    sms = torch.cuda.get_device_properties(xk.device).multi_processor_count
+    sms = (SMS if meta else torch.cuda.get_device_properties(
+        xk.device).multi_processor_count)
     splits = cin_splits(cols, ht, kt, sms)
     tiles = -(-cols // TILE_COLS) * ht
     # the split CTAs' partial accumulators and their arrival counters
     partial = torch.empty((tiles * splits * TILE_COLS * nb if splits > 1
                            else 0,), dtype=torch.float32, device=xk.device)
+    nbytes, ops = cin_work(B, H, Hp, F, D, xk.element_size())
+    if meta:
+        count_work("cin", ops, nbytes)
+        return out
     rc = load("cin")(xk.data_ptr(), x0.data_ptr(), wp.data_ptr(),
                      out.data_ptr(), DTYPE_CODES[xk.dtype], B, Hp, F, H, nb,
                      D, kt, splits, partial.data_ptr(),
                      zeroed_counters("cin", xk.device, tiles).data_ptr(),
                      torch.cuda.current_stream().cuda_stream)
     check_status(rc, "cin")
+    count_work("cin", ops, nbytes)
     return out

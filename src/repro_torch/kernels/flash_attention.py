@@ -22,6 +22,11 @@ the plain attention one block of queries at a time (only the keys the
 block's causal window reaches) and applies the softmax's gradient, so
 the [T, T] scores never exist at once. The JAX package has no backward
 kernel either: it differentiates its plain ``blockwise_sdpa``.
+
+On a ``meta`` tensor (the dry run) the forward launches nothing and runs
+no plain version: it returns an output of the right shape and adds the
+kernel's work (``roofline.flash_work``) to ``_build.count_work``, as a
+launch on the card does.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from typing import Optional
 
 import torch
 
-from ._build import check_status, load
+from ._build import check_status, count_work, load
+from .roofline import flash_work
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_plain_gqa", "flash_attention_bwd",
@@ -204,14 +210,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              window: int, softcap: float,
              scale: Optional[float]) -> torch.Tensor:
-    """The launch on a card tensor, the plain version on a CPU one (no
-    gradient: :class:`FlashAttention` wraps it)."""
+    """The launch on a card tensor, the plain version on a CPU one, an
+    output of the right shape on a meta one (no gradient:
+    :class:`FlashAttention` wraps it)."""
     B, T, H, d = q.shape
     Hk = k.shape[2]
     if q.device.type == "cpu":
         return flash_attention_plain_gqa(q, k, v, window, softcap, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
                          f"{q.device}")
     if q.dtype not in DTYPE_CODES or d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes bf16 or f32 with head dim in "
@@ -220,10 +227,15 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    nbytes, ops = flash_work(B, T, H, Hk, d, window, q.element_size())
+    if q.device.type == "meta":
+        count_work("flash_attention", ops, nbytes)
+        return out
     sc = d ** -0.5 if scale is None else float(scale)
     rc = load("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         DTYPE_CODES[q.dtype], B, T, H, Hk, d, window, float(softcap), sc,
         torch.cuda.current_stream().cuda_stream)
     check_status(rc, "flash_attention")
+    count_work("flash_attention", ops, nbytes)
     return out

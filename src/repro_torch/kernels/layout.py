@@ -34,21 +34,26 @@ class DualEllLayout:
     in_w: torch.Tensor
     n: int
     d_in: int
-    graph: Graph = dataclasses.field(repr=False)
+    # the graph's push-major arrays, which the out side is packed from
+    # (the arrays, not the graph: a backend caches the layout per graph
+    # and drops it when the graph goes)
+    out_ptr: torch.Tensor = dataclasses.field(repr=False)
+    push_dst: torch.Tensor = dataclasses.field(repr=False)
+    push_w: torch.Tensor = dataclasses.field(repr=False)
     pad_rows_to: int = 8
     _out: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def _out_side(self) -> dict:
         if not self._out:
-            g = self.graph
-            out_ptr = g.out_ptr.cpu().numpy()
-            d_max = int(np.diff(out_ptr).max()) if g.n else 0
+            out_ptr = self.out_ptr.cpu().numpy()
+            d_max = int(np.diff(out_ptr).max()) if self.n else 0
             p = self.pad_rows_to
             d_out = max(p, -(-d_max // p) * p)
-            idx, w = _ell_from_ptr(out_ptr, g.push_dst.cpu().numpy(),
-                                   g.push_w.cpu().numpy(), g.n, d_out)
-            self._out.update(out_idx=torch.from_numpy(idx).to(g.device),
-                             out_w=torch.from_numpy(w).to(g.device),
+            idx, w = _ell_from_ptr(out_ptr, self.push_dst.cpu().numpy(),
+                                   self.push_w.cpu().numpy(), self.n, d_out)
+            dev = self.in_idx.device
+            self._out.update(out_idx=torch.from_numpy(idx).to(dev),
+                             out_w=torch.from_numpy(w).to(dev),
                              d_out=int(d_out))
         return self._out
 
@@ -70,7 +75,9 @@ def build_dual_ell(g: Graph, pad_rows_to: int = 8) -> DualEllLayout:
     side (max out-degree rounded up to ``pad_rows_to``) is packed from
     ``out_ptr``/``push_dst`` on first use."""
     return DualEllLayout(in_idx=g.ell_idx, in_w=g.ell_w, n=g.n,
-                         d_in=g.d_ell, graph=g, pad_rows_to=pad_rows_to)
+                         d_in=g.d_ell, out_ptr=g.out_ptr,
+                         push_dst=g.push_dst, push_w=g.push_w,
+                         pad_rows_to=pad_rows_to)
 
 
 def touched_out_mask(layout: DualEllLayout, frontier: torch.Tensor,

@@ -1,5 +1,7 @@
 """The H100's peak rates, the least time a kernel's work could take on
-it, and the CUDA-event timer that the kernel tables are measured with.
+it, the work each model kernel does (which the dry run counts where a
+launch would be), and the CUDA-event timer that the kernel tables are
+measured with.
 
 ``chip_smoke.py`` imports this module by name; ``profile_kernels.py``
 loads it by its path, so that the tree it times (``--src``, perhaps an
@@ -19,6 +21,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
+# NVLink 4 per card and direction (18 links of 25 GB/s)
+NVLINK_BYTES_PER_S = 450e9
+# device memory ("80 GB"; CUDA reports ~85.0e9 bytes usable) and SMs
+HBM_CAPACITY_BYTES = 80e9
+SMS = 132
 # destination rows of one tile of the one-hot push's products
 ONEHOT_TILE = 64
 
@@ -68,6 +75,14 @@ def flash_work(B: int, T: int, H: int, Hk: int, d: int, window: int,
     each KV head's K and V once; two products over the kept pairs."""
     nbytes = (2 * B * T * H * d + 2 * B * T * Hk * d) * item
     return nbytes, 4 * d * B * H * flash_pairs(T, window)
+
+
+def cin_work(B: int, H: int, Hp: int, F: int, D: int,
+             item: int) -> tuple[int, int]:
+    """(bytes, operations) of one CIN layer: xk, x0 and w read once, the
+    output written once; a multiply and an add per (b, h, i, j, d)."""
+    return ((B * Hp * D + B * F * D + H * Hp * F + B * H * D) * item,
+            2 * B * H * Hp * F * D)
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:

@@ -1,2 +1,3 @@
-"""Launchers (port of ``repro.launch``): ``launch.train``. The mesh
-helpers (``launch/mesh.py``) wait with ``dryrun`` (ROADMAP queue 1)."""
+"""Launchers (port of ``repro.launch``): ``launch.train``, the meshes
+(``launch.mesh``), the dry run over every cell (``launch.dryrun``) and
+its hillclimb (``launch.hillclimb``)."""

@@ -1,2 +1,3 @@
-"""Models (port of ``repro.models``, dense archs): the transformer LM
-(prefill, decode, ``lm_loss``) and xDeepFM, for serving and training."""
+"""Models (port of ``repro.models``): the transformer LM (dense and MoE;
+prefill, decode, ``lm_loss``), xDeepFM and the four GNNs, for serving and
+training."""

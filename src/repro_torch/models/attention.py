@@ -26,8 +26,8 @@ from ..kernels import ops
 from .common import dense_apply, dense_init, softcap
 
 __all__ = ["AttnConfig", "attn_init", "attn_apply", "rope",
-           "blockwise_sdpa", "decode_attn_apply", "quantize_kv",
-           "dequantize_kv"]
+           "blockwise_sdpa", "decode_attn_apply", "KVCacheSpec",
+           "quantize_kv", "dequantize_kv"]
 
 _NEG = -1e30
 
@@ -122,7 +122,8 @@ def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is a Python int (a large value is global). q: [B, T, H, Dh], k, v:
     [B, T, Hk, Dh].
 
-    On the card this is the flash-attention kernel (the chunk sizes then
+    On the card (and on ``meta``, where the dry run runs the card's
+    program) this is the flash-attention kernel (the chunk sizes then
     do not apply to the forward: the kernel's tiles are its own, and no
     tile changes the result). Under autograd (grad enabled, an input
     requiring it) it is the kernel's ``autograd.Function`` on either
@@ -134,7 +135,7 @@ def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cap = cfg.logit_softcap
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    if q.device.type == "cuda" or grad:
+    if q.device.type in ("cuda", "meta") or grad:
         return ops.flash_attention(q, k, v, causal_window=int(window),
                                    softcap=0.0 if cap is None else cap,
                                    block_q=q_chunk, scale=cfg.scale)
@@ -195,6 +196,17 @@ def attn_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
     mask = _scores_mask(T, T, 0, cfg.window, x.device)
     out = _sdpa(q, k, v, mask, cfg)
     return dense_apply(p["wo"], out.reshape(B, T, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheSpec:
+    """Static description of a layer's KV cache.
+
+    kind: 'bf16' (plain), 'int8' (per-(token,head) scaled), or the cache
+    length may be the sliding window for local layers (ring indexing).
+    """
+    length: int
+    kind: str = "bf16"
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -4,7 +4,10 @@ Parameters are plain nested dicts and lists of tensors, with the JAX
 package's names and layouts (a dense weight is ``[d_in, d_out]``), so a
 tree carries across as numpy arrays. Initializers draw from an explicit
 ``torch.Generator``: the distributions are the reference's, the numbers
-are not (tests carry the reference's weights across instead).
+are not (tests carry the reference's weights across instead). On the
+``meta`` device, which has no generator, the initializers draw nothing
+and make only the shapes and dtypes (:func:`generator`, :func:`randn`):
+the dry run builds its cells there.
 """
 
 from __future__ import annotations
@@ -16,19 +19,43 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-__all__ = ["rms_norm", "layer_norm", "gelu", "silu", "dense_init",
-           "dense_apply", "embed_init", "mlp_init", "mlp_apply", "softcap",
+from ..graphs.structure import resolve_device
+
+__all__ = ["generator", "randn", "rms_norm", "layer_norm", "gelu", "silu",
+           "dense_init", "dense_apply", "Dense", "embed_init", "mlp_init",
+           "mlp_apply", "softcap",
            "param_count", "tree_size_bytes", "tree_leaves", "tree_map",
            "tensor_from_array", "tree_from_arrays"]
 
 Params = Any
 
 
+class _MetaGenerator:
+    """Stands in for a ``torch.Generator`` on ``meta``, which has none."""
+    device = torch.device("meta")
+
+
+def generator(seed: int, device=None):
+    """A ``torch.Generator`` on ``device`` (the card unless given) seeded
+    with ``seed``; on ``meta`` a stand-in that :func:`randn` reads as
+    "draw nothing"."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """f32 standard normals from ``gen`` on its device (uninitialised
+    storage of the same shape on ``meta``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device=gen.device)
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def _normal(gen: torch.Generator, shape, std: float,
             dtype: torch.dtype) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(std).to(dtype)
+    return randn(gen, shape).mul_(std).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -53,6 +80,12 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+class Dense:
+    """Tiny functional linear layer namespace."""
+    init = staticmethod(dense_init)
+    apply = staticmethod(dense_apply)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,

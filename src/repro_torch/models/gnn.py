@@ -32,7 +32,7 @@ from ..dist.collectives import all_gather, shard_blocks, unshard
 from ..graphs.sampling import SampledBlocks
 from ..graphs.structure import resolve_device
 from ..sparse.segment import segment_mean, segment_sum
-from .common import (layer_norm, mlp_apply, mlp_init, silu,
+from .common import (generator, layer_norm, mlp_apply, mlp_init, silu,
                      tree_from_arrays, tree_map)
 
 __all__ = ["GNNConfig", "params_from_arrays",
@@ -63,10 +63,6 @@ class GNNConfig:
         return getattr(torch, self.dtype)
 
 
-def _generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
-
-
 def params_from_arrays(tree, device=None):
     """A reference GNN parameter tree (any of the four inits, as numpy
     arrays) as tensors on ``device`` (the card unless given)."""
@@ -93,7 +89,7 @@ def _one_plus_eps(lp: dict, cfg: GNNConfig, h: torch.Tensor):
 
 # ---------------------------------------------------------------- EGNN --
 def egnn_init(cfg: GNNConfig, seed: int = 0, device=None) -> dict:
-    gen = _generator(seed, device)
+    gen = generator(seed, device)
     dt, d = cfg.torch_dtype, cfg.d_hidden
     layers = [{
         # phi_e(h_i, h_j, ||xi-xj||^2) -> message
@@ -132,7 +128,7 @@ def egnn_apply(params, cfg: GNNConfig, g, h: torch.Tensor,
 
 # ----------------------------------------------------------------- GIN --
 def gin_init(cfg: GNNConfig, seed: int = 0, device=None) -> dict:
-    gen = _generator(seed, device)
+    gen = generator(seed, device)
     dt, d = cfg.torch_dtype, cfg.d_hidden
     layers = [{"mlp": mlp_init(gen, [cfg.d_in if i == 0 else d, d, d], dt),
                "eps": torch.zeros((), device=gen.device)}
@@ -201,7 +197,7 @@ def gin_apply_mp(params, cfg: GNNConfig, h: torch.Tensor,
 
 # ----------------------------------------------------------- GraphSAGE --
 def sage_init(cfg: GNNConfig, seed: int = 0, device=None) -> dict:
-    gen = _generator(seed, device)
+    gen = generator(seed, device)
     dt = cfg.torch_dtype
     layers = []
     for i in range(cfg.n_layers):
@@ -255,7 +251,7 @@ def sage_apply_blocks(params, cfg: GNNConfig, blocks: SampledBlocks,
 def graphcast_init(cfg: GNNConfig, seed: int = 0, device=None) -> dict:
     """Encoder-processor-decoder deep MPNN (GraphCast-style, adapted: the
     provided graph plays the multi-mesh role)."""
-    gen = _generator(seed, device)
+    gen = generator(seed, device)
     dt, d, dev = cfg.torch_dtype, cfg.d_hidden, gen.device
 
     def norm():

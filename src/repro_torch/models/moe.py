@@ -25,7 +25,10 @@ distinct values; they may order tied ones differently.
 installed activation mesh (``dist.sharding.set_activation_mesh``, a
 :class:`~repro_torch.shard.mesh.ShardMesh`); one controller runs the
 shards in order 0..P−1 on their devices, and tokens are replicated over
-them, since the port's mesh has no data axis.
+them, since the port's mesh has no data axis. What its exchanges carry
+between shards goes to ``dist.collectives.count_wire``: the psum
+combine's P − 1 partials, the a2a's blocks for other ranks both ways
+and its gather of the sequence slices.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ import math
 
 import torch
 
+from ..dist.collectives import count_wire
 from ..dist.sharding import get_activation_mesh
-from .common import dense_apply, dense_init, silu, tree_map
+from .common import dense_apply, dense_init, randn, silu, tree_map
 
 __all__ = ["MoEConfig", "moe_init", "moe_apply", "moe_apply_ep"]
 
@@ -66,8 +70,7 @@ def _experts_init(gen: torch.Generator, count: int, cfg: MoEConfig,
     """``count`` SwiGLU experts stacked on a leading axis: He-normal
     weights, each expert's as ``dense_init`` draws one."""
     def stacked(d_in, d_out):
-        w = torch.randn((count, d_in, d_out), generator=gen,
-                        device=gen.device)
+        w = randn(gen, (count, d_in, d_out))
         return {"w": w.mul_(math.sqrt(2.0 / max(1, d_in))).to(dtype)}
 
     D, F = cfg.d_model, cfg.d_ff_expert
@@ -258,12 +261,15 @@ def _a2a_dispatch(routers: list, blocks: list, shared: list, xs: list,
         send.append(buf[:, :cap].reshape(tp, E_local, cap, D))
         routed.append((xm, gate_vals, gate_idx, order, slot, in_cap))
     # tokens -> expert owners (the combined 'MP' push of the paper)
+    block = send[0][0].numel() * send[0][0].element_size()
+    count_wire("all-to-all", block * tp * (tp - 1))
     back = []
     for r, xf in enumerate(xs):
         recv = torch.stack([s[r].to(xf.device) for s in send])  # [tp,El,c,D]
         bufs = recv.transpose(0, 1).reshape(E_local, tp * cap, D)
         out_e = _expert_ffn(blocks[r], bufs)
         back.append(out_e.reshape(E_local, tp, cap, D).transpose(0, 1))
+    count_wire("all-to-all", block * tp * (tp - 1))
     ys = []
     for m, (xm, gate_vals, gate_idx, order, slot, in_cap) in enumerate(
             routed):
@@ -285,6 +291,8 @@ def _a2a_dispatch(routers: list, blocks: list, shared: list, xs: list,
         if cfg.combine_dtype == "bf16":
             ym = ym.to(torch.bfloat16)
         ys.append(ym.to(out_device))
+    count_wire("all-gather",
+               sum(y.numel() * y.element_size() for y in ys) * (tp - 1))
     return torch.cat(ys).to(xs[0].dtype)
 
 
@@ -329,6 +337,8 @@ def moe_apply_ep(params: dict, cfg: MoEConfig,
                  for r, xf in enumerate(xs)]
         if cfg.combine_dtype == "bf16":
             parts = [p.to(torch.bfloat16) for p in parts]
+        count_wire("all-reduce", sum(p.numel() * p.element_size()
+                                     for p in parts[1:]))
         yf = parts[0].to(x.device)
         for p in parts[1:]:
             yf = yf + p.to(x.device)

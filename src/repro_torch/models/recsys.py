@@ -20,8 +20,8 @@ import torch
 
 from ..graphs.structure import resolve_device
 from ..kernels import ops
-from .common import (dense_apply, dense_init, mlp_apply, mlp_init,
-                     tree_from_arrays)
+from .common import (dense_apply, dense_init, generator, mlp_apply,
+                     mlp_init, randn, tree_from_arrays)
 
 __all__ = ["XDeepFMConfig", "xdeepfm_init", "params_from_arrays",
            "xdeepfm_apply", "cin_apply", "retrieval_score"]
@@ -44,14 +44,14 @@ class XDeepFMConfig:
 def xdeepfm_init(cfg: XDeepFMConfig, seed: int = 0, device=None) -> dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the card unless given): the reference's initializers.
-    The tables stack as one [F, V, D] tensor."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    dt, dev = cfg.torch_dtype, gen.device
+    The tables stack as one [F, V, D] tensor. On ``meta``: the shapes and
+    dtypes only."""
+    gen = generator(seed, device)
+    dt = cfg.torch_dtype
     F, V, D = cfg.n_fields, cfg.vocab_per_field, cfg.embed_dim
 
     def normal(shape, std):
-        x = torch.randn(shape, generator=gen, device=dev)
-        return x.mul_(std).to(dt)
+        return randn(gen, shape).mul_(std).to(dt)
 
     params = {"tables": normal((F, V, D), 0.01),
               "linear": normal((F, V), 0.01)}

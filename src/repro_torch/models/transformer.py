@@ -51,8 +51,9 @@ from ..graphs.structure import resolve_device
 from ..kernels.flash_attention import GLOBAL_WINDOW
 from .attention import (AttnConfig, _sdpa, attn_init, blockwise_sdpa,
                         decode_attn_apply, quantize_kv, rope)
-from .common import (dense_apply, dense_init, embed_init, rms_norm, silu,
-                     softcap, tree_from_arrays, tree_leaves, tree_map)
+from .common import (dense_apply, dense_init, embed_init, generator,
+                     rms_norm, silu, softcap, tree_from_arrays, tree_leaves,
+                     tree_map)
 from .moe import MoEConfig, moe_apply_ep, moe_init
 
 __all__ = ["TransformerConfig", "init_params", "params_from_arrays",
@@ -121,9 +122,10 @@ def _check(cfg: TransformerConfig) -> None:
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device=None) -> dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (the card unless given): the reference's initializers."""
+    ``device`` (the card unless given): the reference's initializers.
+    On ``meta``: the shapes and dtypes only."""
     _check(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = generator(seed, device)
     dt, dev = cfg.torch_dtype, gen.device
     embed = embed_init(gen, cfg.vocab, cfg.d_model, dt)
     layers = []

@@ -13,7 +13,9 @@ one shared engine run:
   * :mod:`~repro_torch.service.scheduler` — :class:`QueryService`:
     submit/poll over fixed query slots refilled as queries finish,
     grouping, in-flight coalescing, deadlines, a bounded queue and an
-    LRU :class:`ResultCache`.
+    LRU :class:`ResultCache`;
+  * :mod:`~repro_torch.service.bench` — the throughput harness
+    (sequential solves against ``solve_batch``, ``service_*`` rows).
 """
 
 from .batch import BatchResult, solve_batch

@@ -18,7 +18,8 @@ messages needs one float64 accumulator of ``[num_segments + 1, ...]``
 and no float64 copy of the whole input; the gradient is the output's
 gradient gathered at each id, in float32. On the CPU ``index_add_``
 sums in float32, which does not flush, and matches
-``jax.ops.segment_sum`` exactly.
+``jax.ops.segment_sum`` exactly. On ``meta`` (the dry run) a sum takes
+the card's path, so the dry run sees its float64 buffers.
 """
 
 from __future__ import annotations
@@ -78,7 +79,8 @@ def _segment(data: torch.Tensor, segment_ids: torch.Tensor,
              num_segments: int, combine: str) -> torch.Tensor:
     # one spill row past the end takes the out-of-range ids
     ids = _spill_ids(segment_ids, num_segments)
-    if combine == "sum" and data.is_cuda and data.dtype == torch.float32:
+    if (combine == "sum" and data.device.type in ("cuda", "meta")
+            and data.dtype == torch.float32):
         return _Float64Sum.apply(data, ids, num_segments)
     shape = (num_segments + 1,) + tuple(data.shape[1:])
     out = torch.full(shape, reduce_identity(combine, data.dtype),

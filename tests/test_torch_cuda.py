@@ -845,3 +845,45 @@ def test_moe_apply_ep_on_one_card_equals_moe_apply(cuda, mode, combine):
             2 ** -6 * float(want.abs().max())
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------- slice 12: the cells --
+def test_kernel_wrappers_on_meta_launch_nothing(cuda):
+    """On ``meta`` a wrapper returns the shape and counts the work, with
+    the card present: no launch."""
+    from repro_torch.kernels.roofline import cin_work, flash_work
+    q = torch.empty(2, 130, 8, 64, dtype=torch.bfloat16, device="meta")
+    kv = torch.empty(2, 130, 2, 64, dtype=torch.bfloat16, device="meta")
+    xk = torch.empty(37, 39, 10, device="meta")
+    w = torch.empty(200, 39, 39, device="meta")
+    before = _build.launch_counts()
+    _build.reset_kernel_work()
+    assert flash_attention(q, kv, kv).shape == q.shape
+    assert cin_layer(xk, xk, w).shape == (37, 200, 10)
+    assert _build.launch_counts() == before
+    work = _build.kernel_work()
+    assert work["flash_attention"]["flops"] == flash_work(
+        2, 130, 8, 2, 64, GLOBAL_WINDOW, 2)[1]
+    assert work["cin"]["flops"] == cin_work(37, 200, 39, 39, 10, 4)[1]
+
+
+@pytest.mark.parametrize("arch,shape", [("xdeepfm", "serve_p99"),
+                                        ("xdeepfm", "train_batch"),
+                                        ("gin-tu", "molecule")])
+def test_cell_flops_on_card_equal_meta(cuda, arch, shape):
+    """The same step counted on the card (real tensors, the kernels
+    launched) and on meta: equal FLOPs, aten operators and kernel work
+    alike; the card's launches happened."""
+    from repro_torch.configs import build_cell
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    meta = count_step(build_cell(arch, shape, mesh))
+    before = _build.launch_counts()
+    card = count_step(build_cell(arch, shape, mesh, device=cuda))
+    torch.cuda.synchronize()
+    assert card["flops"] == meta["flops"]
+    assert card["flops_aten"] == meta["flops_aten"]
+    assert card["kernels"] == meta["kernels"]
+    if arch == "xdeepfm":
+        assert _build.launch_counts()["cin"] > before["cin"]

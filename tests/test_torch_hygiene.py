@@ -37,8 +37,8 @@ def port_modules() -> list[str]:
 
 
 def test_modules_import_without_jax_or_repro():
-    # the serving, model, sharded, training, GNN and MoE slices' modules
-    # are among those checked
+    # the serving, model, sharded, training, GNN, MoE and cell registry
+    # slices' modules are among those checked
     assert {"repro_torch.service.scheduler", "repro_torch.service.batch",
             "repro_torch.service.cache", "repro_torch.service.programs",
             "repro_torch.resilience.errors", "repro_torch.kernels.tune",
@@ -62,7 +62,12 @@ def test_modules_import_without_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.models.gnn",
             "repro_torch.models.moe", "repro_torch.graphs.sampling",
             "repro_torch.dist.sharding",
-            "repro_torch.sparse.segment"} <= set(port_modules())
+            "repro_torch.sparse.segment", "repro_torch.configs",
+            "repro_torch.configs.steps", "repro_torch.configs.registry",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hillclimb", "repro_torch.roofline",
+            "repro_torch.roofline.analysis",
+            "repro_torch.service.bench"} <= set(port_modules())
     code = (
         "import importlib, json, sys\n"
         f"for name in {port_modules() + ['chip_smoke']!r}:\n"
