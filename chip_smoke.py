@@ -67,7 +67,12 @@ non-zero:
   7. ``"model_kernel_grid"``: flash attention against its plain version
      over head dim {16, 32, 64, 128, 256} × T {1, 63, 129, 130, 300,
      4096} × GQA group {1, 2, 4, 8} × window {global, 17, 4096} ×
-     softcap {0, 50} × {bf16, f32}; the CIN layer over B {1, 37, 512} ×
+     softcap {0, 50} × {bf16, f32}; its backward kernel against
+     ``flash_attention_bwd_plain`` on the same output and logsumexp over
+     head dim × dtype × T {1, 130, 384} × group × window {global, 17} ×
+     softcap (each gradient within 1e-4 f32, 1e-2 bf16 of its largest
+     entry; two launches equal bit for bit; the forward's logsumexp
+     within 1e-5 of the plain one's); the CIN layer over B {1, 37, 512} ×
      (Hp, F, H, D) {(39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
      (200, 39, 70, 10), (13, 9, 37, 3)} × {f32, bf16}: H = 200 on its
      fitted product width, odd H on the general one, K split at B = 1
@@ -168,7 +173,8 @@ non-zero:
      attention's forward launches and backward calls, the CIN's
      forward, backward launches and ``dw`` GEMMs, a profiled step's
      busy share, the card's name and power limit, ``reduced``.
-     ``flash_attention`` and ``cin`` must launch. Then
+     ``flash_attention``, ``flash_attention_bwd`` and ``cin`` must
+     launch, and ``flash_attention_bwd_plain`` may not run. Then
      ``"train_check"``: llama at full width, 2 layers, bf16 and f32,
      every gradient with the kernel against ``attn_impl="naive"``
      (‖Δg‖/‖g‖ ≤ 5e-2 bf16, 1e-4 f32); xDeepFM's gradients on 4,096
@@ -180,8 +186,10 @@ non-zero:
      against autograd through the plain versions (relative to the
      largest entry: flash 1e-2 bf16, 1e-4 f32; CIN 1e-4), the backward
      timed beside the plain autograd backward, SDPA's backward where it
-     computes the same function, and the bound. Then the CIN layer at
-     train_batch's shapes (B = 65,536) beside ``einsum``.
+     computes the same function, and the bound; the flash backward
+     kernel (also at deepseek-moe-16b's layer) beside its plain
+     recompute, against the bound of its five products. Then the CIN
+     layer at train_batch's shapes (B = 65,536) beside ``einsum``.
  14. Main path of slice 11, the GNN family (run after 13), ``"gnn"``:
      EGNN, GIN, GraphSAGE and GraphCast at full width (``full_config``,
      the reference's cell widths: d_in the shape's features, d_out its
@@ -307,9 +315,10 @@ from repro_torch.kernels.ell_spmv import (  # noqa: E402
     _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain)
 from repro_torch.kernels.roofline import (  # noqa: E402
     BF16_OPS_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, bound, cin_tf32_floor_ms,
-    flash_work, onehot_floor_ms, push_bytes, time_ms)
+    flash_bwd_work, flash_work, onehot_floor_ms, push_bytes, time_ms)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_plain_gqa)
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.dryrun import count_step, run_cell  # noqa: E402
@@ -350,6 +359,10 @@ KERNEL_INFO = {
                      "src/repro/kernels/coo_push.py:241"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:65"),
+    # its gradient: the reference differentiates blockwise_sdpa instead
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:65"),
     "cin": ("src/repro_torch/kernels/csrc/cin.cu",
             "src/repro/kernels/cin.py:39"),
 }
@@ -2362,6 +2375,9 @@ FLASH_GROUPS = (1, 2, 4, 8)
 FLASH_WINDOWS = (GLOBAL_WINDOW, 17, 4096)
 FLASH_CAPS = (0.0, 50.0)
 MODEL_DTYPES = (torch.bfloat16, torch.float32)
+# the backward kernel's grid (d and dtype as the forward's)
+FLASH_BWD_TS = (1, 130, 384)
+FLASH_BWD_WINDOWS = (GLOBAL_WINDOW, 17)
 CIN_BATCHES = (1, 37, 512)
 CIN_SHAPES = ((39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
               (200, 39, 70, 10), (13, 9, 37, 3))
@@ -2424,10 +2440,76 @@ def normal(shape, gen, dtype=torch.float32) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
+def grad_gaps(got, want) -> list:
+    """Each gradient's largest gap over its largest |entry|, or over the
+    largest |entry| of the three where that is larger: where each query
+    sees one key (T = 1), dq and dk are 0 in exact arithmetic, and the
+    kernel's dP − D (D = rowsum(dO ∘ out)) leaves f32 roundings of the
+    size of dv's entries times 2^-24."""
+    floor = max(float(w.float().abs().max()) for w in want)
+    return [float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), floor, 1e-30)
+            for a, b in zip(got, want)]
+
+
+def flash_bwd_grid(device, gen) -> tuple[float, float, int]:
+    """The backward kernel against ``flash_attention_bwd_plain`` on the
+    same output and logsumexp (the kernel forward's), over head dim ×
+    dtype × T {1, 130, 384} × GQA group × window {global, 17} × softcap
+    {0, 50}: each gradient within FLASH_GRAD_TOL of its largest entry
+    (:func:`grad_gaps`), two launches equal bit for bit, and the
+    forward's logsumexp within 1e-5 of the plain one's largest |entry|.
+    Returns (largest abs gap, largest relative gap, cells)."""
+    worst_abs = worst_rel = 0.0
+    cells = 0
+    for d in FLASH_DIMS:
+        for dt in MODEL_DTYPES:
+            for T in FLASH_BWD_TS:
+                for group in FLASH_GROUPS:
+                    B, Hk = 2, 2
+                    q = normal((B, T, Hk * group, d), gen, dt)
+                    k = normal((B, T, Hk, d), gen, dt)
+                    v = normal((B, T, Hk, d), gen, dt)
+                    dout = normal((B, T, Hk * group, d), gen, dt)
+                    for window in FLASH_BWD_WINDOWS:
+                        for cap in FLASH_CAPS:
+                            what = (f"flash bwd d{d} T{T} g{group} {dt} "
+                                    f"w{window} cap{cap}")
+                            out, lse = flash_attention_fwd(
+                                q, k, v, window, cap, want_lse=True)
+                            plain_lse = flash_attention_plain_gqa(
+                                q, k, v, window, cap, return_lse=True)[1]
+                            lse_gap = rel_gap(lse, plain_lse)
+                            if not lse_gap <= FLASH_LSE_TOL:
+                                fail(f"{what}: logsumexp {lse_gap} of the "
+                                     f"largest, above {FLASH_LSE_TOL}")
+                            got = flash_attention_bwd(q, k, v, out, lse,
+                                                      dout, window, cap)
+                            again = flash_attention_bwd(q, k, v, out, lse,
+                                                        dout, window, cap)
+                            want = flash_attention_bwd_plain(
+                                q, k, v, dout, window, cap, out=out,
+                                lse=lse)
+                            if not all(torch.equal(a, b)
+                                       for a, b in zip(got, again)):
+                                fail(f"{what}: two launches differ")
+                            gaps = grad_gaps(got, want)
+                            if not max(gaps) <= FLASH_GRAD_TOL[dt]:
+                                fail(f"{what}: (dq, dk, dv) gaps {gaps}, "
+                                     f"above {FLASH_GRAD_TOL[dt]}")
+                            worst_rel = max(worst_rel, *gaps)
+                            worst_abs = max(worst_abs, *(
+                                float((a.float() - b.float()).abs().max())
+                                for a, b in zip(got, want)))
+                            cells += 1
+    return worst_abs, worst_rel, cells
+
+
 def model_kernel_grid(device) -> dict:
     """Each model kernel against its plain version: flash over head dim ×
     T (ragged against the 64-row tiles) × GQA group × window × softcap ×
-    dtype; CIN over ragged B × the layer shapes × dtype."""
+    dtype, its backward over :func:`flash_bwd_grid`'s cells; CIN over
+    ragged B × the layer shapes × dtype."""
     gen = torch.Generator(device=device).manual_seed(11)
     t0 = time.perf_counter()
     errs = {"flash_attention": 0.0, "cin": 0.0}
@@ -2451,6 +2533,8 @@ def model_kernel_grid(device) -> dict:
                                     f"flash d{d} T{T} g{group} {dt} "
                                     f"w{window} cap{cap}"))
                             cells["flash_attention"] += 1
+    errs["flash_attention_bwd"], bwd_rel, cells["flash_attention_bwd"] = \
+        flash_bwd_grid(device, gen)
     for B in CIN_BATCHES:
         for Hp, F, H, D in CIN_SHAPES:
             for dt in MODEL_DTYPES:
@@ -2464,7 +2548,9 @@ def model_kernel_grid(device) -> dict:
                 cells["cin"] += 1
     torch.cuda.synchronize()
     emit({"phase": "model_kernel_grid", "cells": cells,
-          "max_abs_err": errs, "seconds": time.perf_counter() - t0})
+          "max_abs_err": errs, "flash_bwd_max_rel_err": bwd_rel,
+          "flash_bwd_tol": {str(k): v for k, v in FLASH_GRAD_TOL.items()},
+          "seconds": time.perf_counter() - t0})
     return errs
 
 
@@ -2802,6 +2888,9 @@ XDEEPFM_GRAD_TOL = 1e-4
 # relative to the largest |entry|: the same formulas summed in other
 # orders (f32), and one bf16 rounding of each gradient (bf16)
 FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the kernel forward's row logsumexp against the plain one's, relative to
+# its largest |entry|: f32 sums in other orders, the fast tanh and ex2
+FLASH_LSE_TOL = 1e-5
 CIN_GRAD_TOL = 1e-4
 # resumed losses against the uninterrupted run's, relative, where they
 # are not equal bit for bit
@@ -3084,9 +3173,12 @@ def xdeepfm_grad_check(device) -> dict:
 
 def flash_grad_row(name: str, shape: dict, device) -> dict:
     """The Function's (dq, dk, dv) at a layer's shape against autograd
-    through ``flash_attention_plain_gqa``; the backward timed beside the
-    plain autograd backward, SDPA's backward where SDPA computes the
-    same function, and the bound of its four products."""
+    through ``flash_attention_plain_gqa``; the backward kernel held
+    against ``flash_attention_bwd_plain`` on the same output and
+    logsumexp, then timed beside that plain recompute (without them, as
+    the card ran it before the kernel), the plain autograd backward,
+    SDPA's backward where SDPA computes the same function, and the bound
+    of its five products (``flash_bwd_work``)."""
     B, T, H, Hk, d = shape["B"], shape["T"], shape["H"], shape["Hk"], \
         shape["d"]
     window, cap, dt = shape["window"], shape["cap"], shape["dtype"]
@@ -3104,8 +3196,21 @@ def flash_grad_row(name: str, shape: dict, device) -> dict:
         fail(f"flash gradients {name}: {err} above {FLASH_GRAD_TOL[dt]}")
     del got, want
     qd, kd, vd = q.detach(), k.detach(), v.detach()
-    bwd_ms = time_ms(lambda: flash_attention_bwd(qd, kd, vd, dout, window,
-                                                 cap), 3)
+    out, lse = flash_attention_fwd(qd, kd, vd, window, cap, want_lse=True)
+    got = flash_attention_bwd(qd, kd, vd, out, lse, dout, window, cap)
+    want = flash_attention_bwd_plain(qd, kd, vd, dout, window, cap,
+                                     out=out, lse=lse)
+    mirror = max(grad_gaps(got, want))
+    if not mirror <= FLASH_GRAD_TOL[dt]:
+        fail(f"flash backward kernel {name}: {mirror} above "
+             f"{FLASH_GRAD_TOL[dt]}")
+    abs_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+    del got, want
+    bwd_ms = time_ms(lambda: flash_attention_bwd(qd, kd, vd, out, lse, dout,
+                                                 window, cap), 10)
+    recompute_ms = time_ms(lambda: flash_attention_bwd_plain(
+        qd, kd, vd, dout, window, cap), 3)
     plain_ms = time_ms(lambda: torch.autograd.grad(
         plain_out, (q, k, v), dout, retain_graph=True), 3)
     del plain_out
@@ -3116,15 +3221,22 @@ def flash_grad_row(name: str, shape: dict, device) -> dict:
             is_causal=True, enable_gqa=True).transpose(1, 2)
         lib_ms = time_ms(lambda: torch.autograd.grad(
             sd, (q, k, v), dout, retain_graph=True), 10)
-    nbytes, ops_ = flash_work(B, T, H, Hk, d, window, q.element_size())
-    b_ms, b_by = bound(2 * nbytes, 2 * ops_, BF16_OPS_PER_S
+    nbytes, ops_ = flash_bwd_work(B, T, H, Hk, d, window, q.element_size())
+    b_ms, b_by = bound(nbytes, ops_, BF16_OPS_PER_S
                        if dt == torch.bfloat16 else F32_OPS_PER_S)
-    row = {"phase": "train_grad", "kernel": "flash_attention",
+    row = {"phase": "train_grad", "kernel": "flash_attention_bwd",
            "shape": name, "max_rel_err": err, "tol": FLASH_GRAD_TOL[dt],
-           "bwd_ms": bwd_ms, "plain_autograd_ms": plain_ms,
-           "library_bwd_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+           "kernel_vs_plain_rel_err": mirror, "bwd_ms": bwd_ms,
+           "plain_recompute_ms": recompute_ms, "plain_autograd_ms": plain_ms,
+           "library_bwd_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "card": card_line()}
     emit(row)
-    return row
+    # the kernels line's keys
+    return row | {"name": "flash_attention_bwd", "route": "cuda",
+                  "source": KERNEL_INFO["flash_attention_bwd"][0],
+                  "replaces": KERNEL_INFO["flash_attention_bwd"][1],
+                  "max_abs_err": abs_err, "ms": bwd_ms,
+                  "plain_ms": recompute_ms, "library_ms": lib_ms}
 
 
 def cin_grad_row(name: str, B: int, Hp: int, F: int, H: int, D: int,
@@ -3178,6 +3290,9 @@ FLASH_GRAD_SHAPES = {
     "llama3.2-1b layer, f32 [1, 1024, 32, 64], kv 8, causal":
         {"B": 1, "T": 1024, "H": 32, "Hk": 8, "d": 64,
          "window": GLOBAL_WINDOW, "cap": 0.0, "dtype": torch.float32},
+    "deepseek-moe-16b layer, bf16 [1, 4096, 16, 128], kv 16, causal":
+        {"B": 1, "T": 4096, "H": 16, "Hk": 16, "d": 128,
+         "window": GLOBAL_WINDOW, "cap": 0.0, "dtype": torch.bfloat16},
 }
 # (B, Hp, F, H, D): serve_p99's two layer shapes, train_batch's Hp = 200
 CIN_GRAD_SHAPES = {"serve_p99 layer 0": (512, 39, 39, 200, 10),
@@ -3185,13 +3300,22 @@ CIN_GRAD_SHAPES = {"serve_p99 layer 0": (512, 39, 39, 200, 10),
                    "train_batch layer 1": (65536, 200, 39, 200, 10)}
 
 
-def train_path(device) -> dict:
+def no_plain_backward(timer: CallTimer, path: str) -> None:
+    """Fail if the flash backward's plain version ran on the card."""
+    if timer.events:
+        fail(f"flash_attention_bwd_plain ran {len(timer.events)} times on "
+             f"the {path} path")
+
+
+def train_path(device) -> tuple[dict, dict]:
     """Slice 10's main path: llama3.2-1b and gemma2-9b through
     ``TrainLoop`` and xDeepFM through ``launch.train.main``, with the
     launch counts zeroed just before and read just after; then the
-    gradient checks."""
+    gradient checks. Returns the counts and the llama layer's
+    ``flash_attention_bwd`` row."""
     with CallTimer(kernel_ops, "flash_attention") as fwd, \
             CallTimer(flash_module, "flash_attention_bwd") as bwd, \
+            CallTimer(flash_module, "flash_attention_bwd_plain") as plain, \
             CallTimer(kernel_ops, "cin_layer") as cin_fwd, \
             CallTimer(cin_module, "cin_layer") as cin_bwd, \
             CallTimer(cin_module, "cin_weight_grad") as cin_dw:
@@ -3200,8 +3324,9 @@ def train_path(device) -> dict:
         torch.cuda.empty_cache()
         lines["xdeepfm"] = xdeepfm_train(device, cin_fwd, cin_bwd, cin_dw)
         counts = _build.launch_counts()
+        no_plain_backward(plain, "training")
     emit({"phase": "train_path", "launches": counts})
-    for name in ("flash_attention", "cin"):
+    for name in ("flash_attention", "flash_attention_bwd", "cin"):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the training path")
     torch.cuda.empty_cache()
@@ -3210,15 +3335,16 @@ def train_path(device) -> dict:
     checks["xdeepfm"] = xdeepfm_grad_check(device)
     torch.cuda.empty_cache()
     emit({"phase": "train_check", **checks, "ok": True})
+    grad_rows = []
     for name, shape in FLASH_GRAD_SHAPES.items():
-        flash_grad_row(name, shape, device)
+        grad_rows.append(flash_grad_row(name, shape, device))
         torch.cuda.empty_cache()
     for name, shp in CIN_GRAD_SHAPES.items():
         cin_grad_row(name, *shp, device)
         torch.cuda.empty_cache()
     cin_train_rows(device)
     torch.cuda.empty_cache()
-    return counts
+    return counts, grad_rows
 
 
 def cin_train_rows(device) -> list:
@@ -3943,6 +4069,7 @@ def moe_path(device) -> dict:
     t0 = time.perf_counter()
     with CallTimer(kernel_ops, "flash_attention") as flash, \
             CallTimer(flash_module, "flash_attention_bwd") as bwd, \
+            CallTimer(flash_module, "flash_attention_bwd_plain") as plain, \
             CallTimer(transformer_module, "moe_apply_ep") as moe_t:
         _build.reset_launch_counts()
         lms = {}
@@ -3967,11 +4094,14 @@ def moe_path(device) -> dict:
                                 path="moe")
                  for arch, run in MOE_TRAIN.items()}
         trained = _build.launch_counts()
+        no_plain_backward(plain, "MoE")
     counts = {k: counts[k] + trained[k] for k in counts}
     emit({"phase": "moe_path", "launches": counts,
           "seconds": time.perf_counter() - t0})
     if counts["flash_attention"] <= 0 or trained["flash_attention"] <= 0:
         fail("kernel flash_attention was not launched on the MoE path")
+    if trained["flash_attention_bwd"] <= 0:
+        fail("kernel flash_attention_bwd was not launched on the MoE path")
     torch.cuda.empty_cache()
     moe_ep_check(device)
     torch.cuda.empty_cache()
@@ -4271,7 +4401,7 @@ def main() -> int:
     model_rows = model_kernel_rows(lms, rec)
     del lms, rec
     held("model")
-    train_counts = train_path(device)
+    train_counts, grad_rows = train_path(device)
     counts = {k: counts[k] + train_counts[k] for k in counts}
     held("train")
     gnn_counts = gnn_path(device)
@@ -4316,6 +4446,14 @@ def main() -> int:
                         if k not in ("arch", "layer", "tf32_floor_ms",
                                      "path")}
                        | {"launches": counts[name], "max_abs_err": worst})
+    # the backward's row: the llama3.2-1b layer in bf16
+    row = grad_rows[0]
+    kernels.append({k: row[k] for k in (
+        "name", "route", "source", "replaces", "shape", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")}
+        | {"launches": counts["flash_attention_bwd"],
+           "max_abs_err": max(errs["flash_attention_bwd"],
+                              *(r["max_abs_err"] for r in grad_rows))})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

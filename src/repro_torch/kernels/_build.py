@@ -37,7 +37,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu",
-           "flash_attention", "cin")
+           "flash_attention", "flash_attention_bwd", "cin")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,8 +61,11 @@ _SIGNATURES = {
                      [_P, _I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I,
                       _I, _L, _P, _P, _P, _P]),
     "flash_attention": ("repro_flash_attention",
-                        [_P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _L, _F,
-                         _F, _P]),
+                        [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _L,
+                         _F, _F, _P]),
+    "flash_attention_bwd": ("repro_flash_attention_bwd",
+                            [_P] * 12 + [_I, _L, _L, _I, _I, _I, _L, _F, _F,
+                                         _P]),
     "cin": ("repro_cin_layer", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
                                 _I, _I, _P, _P, _P]),
 }

@@ -55,6 +55,9 @@
 //   * f32: CUDA cores (a TF32 product would miss the 3e-4 tolerance).
 //     Each warp owns 4 query rows, 16 per CTA; tiles of 32 keys, one key
 //     per lane for the scores, D / 32 output columns per lane for P V.
+// Given an lse pointer (training), each row's logsumexp m + log l of its
+// scores is written as f32 [B, H, T] for the backward
+// (flash_attention_bwd.cu); serving passes null and writes nothing more.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -62,11 +65,18 @@
 
 #include <cstdint>
 
+#include "flash.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
+using flash::fast_exp2;
+using flash::fast_tanh;
+using flash::kLog2e;
+using flash::kNeg;
+using flash::kv_range;
+using flash::pack_bf16;
+
 constexpr int kThreads = 128;
 
 __device__ __forceinline__ float score(float acc, float scale, float cap,
@@ -76,18 +86,6 @@ __device__ __forceinline__ float score(float acc, float scale, float cap,
   if (cap > 0.f) s = cap * tanhf(s / cap);
   const bool ok = kpos <= qpos && kpos > qpos - window && kpos < T;
   return ok ? s : kNeg;
-}
-
-// kv tiles of width bk that one query tile [q0, q0 + bq) may see
-__device__ __forceinline__ void kv_range(long long q0, int bq, int bk,
-                                         long long T, long long window,
-                                         int* lo, int* hi) {
-  long long first = q0 - window + 1;
-  if (first < 0) first = 0;
-  long long last = q0 + bq - 1;
-  if (last > T - 1) last = T - 1;
-  *lo = static_cast<int>(first / bk);
-  *hi = static_cast<int>(last / bk);  // inclusive
 }
 
 // the bf16 kernel's barriers, [q_full, k_full[S], v_full[S],
@@ -131,33 +129,14 @@ template <int D> struct Bf16Cfg {
       (1 + 4 * kStages) * sizeof(uint64_t);
 };
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(x) = 1 - 2 / (e^2x + 1): two special-function ops, absolute error
-// ~1e-7 (tanhf takes some twenty instructions); +-1 where e^2x is 0 or
-// inf
-__device__ __forceinline__ float fast_tanh(float x) {
-  return 1.f - __fdividef(2.f, fast_exp2(x * (2.f * kLog2e)) + 1.f);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bf16(const __grid_constant__ CUtensorMap qmap,
            const __grid_constant__ CUtensorMap kmap,
            const __grid_constant__ CUtensorMap vmap,
-           __nv_bfloat16* __restrict__ o, long long T, int H, int Hk,
-           long long window, float cap, float scale) {
+           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+           long long T, int H, int Hk, long long window, float cap,
+           float scale) {
   using Cfg = Bf16Cfg<D>;
   constexpr int kBk = Cfg::kBk, kStages = Cfg::kStages, kCb = Cfg::kCb;
   extern __shared__ unsigned char smem_raw[];
@@ -424,6 +403,13 @@ flash_bf16(const __grid_constant__ CUtensorMap qmap,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {
+    // the row's logsumexp of the (scaled, capped, masked) scores, for the
+    // backward: m + log l (every row < T keeps its own key, so l >= 1)
+    float* lh = lse + (static_cast<long long>(b) * H + h) * T;
+    if (qpos0 < T) lh[qpos0] = m0 + logf(l0);
+    if (qpos1 < T) lh[qpos1] = m1 + logf(l1);
+  }
   const long long qstride = static_cast<long long>(H) * D;
   __nv_bfloat16* oh = o + b * T * qstride + h * D;
 #pragma unroll
@@ -447,8 +433,9 @@ constexpr int kRowsPerWarp = 4;
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, long long T,
-          int H, int Hk, long long window, float cap, float scale) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, long long T, int H, int Hk,
+          long long window, float cap, float scale) {
   constexpr int kCols = (D + 31) / 32;  // output columns per lane
   constexpr int kLdK = D + 1;           // lane = key reads K[lane][d]
   extern __shared__ __align__(16) unsigned char smem[];
@@ -536,6 +523,8 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     const long long qp = q0 + warp * kRowsPerWarp + i;
     if (qp >= T) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * H + h) * T + qp] = m[i] + logf(l[i]);
 #pragma unroll
     for (int e = 0; e < kCols; ++e) {
       const int d = lane + 32 * e;
@@ -548,56 +537,15 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Each run_* opts its own template instance in to the dynamic shared
 // memory it needs, once (the attribute belongs to each instantiated
 // function, not to the function type that instances share).
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// cuTensorMapEncodeTiled is a driver API: fetched through the runtime,
-// so that the library links only the runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 [B, T, heads, D] tensor as the 4-d map (D, heads, T, B), whose
-// box is kCb columns x `rows` positions of one head, swizzled as the
-// wgmma descriptors read it; rows at or past T arrive as zeros
 template <int D>
 cudaError_t head_map(CUtensorMap* map, const void* ptr, long long B,
                      long long T, int heads, int rows) {
-  using Cfg = Bf16Cfg<D>;
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * T};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Cfg::kCb), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      Cfg::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : Cfg::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                             : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-          dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return flash::head_map(map, ptr, B, T, heads, D, Bf16Cfg<D>::kCb, rows);
 }
 
 template <int D>
 cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o,
-                     long long B, long long T, int H, int Hk,
+                     float* lse, long long B, long long T, int H, int Hk,
                      long long window, float cap, float scale,
                      cudaStream_t stream) {
   using Cfg = Bf16Cfg<D>;
@@ -622,14 +570,14 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>(tiles));
   kernel<<<grid, kBf16Threads, Cfg::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), T, H, Hk, window,
-      cap, scale);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, T, H, Hk,
+      window, cap, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t run_f32(const void* q, const void* k, const void* v, void* o,
-                    long long B, long long T, int H, int Hk,
+                    float* lse, long long B, long long T, int H, int Hk,
                     long long window, float cap, float scale,
                     cudaStream_t stream) {
   static bool opted = false;
@@ -650,7 +598,7 @@ cudaError_t run_f32(const void* q, const void* k, const void* v, void* o,
                   static_cast<unsigned>(tiles));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), T, H, Hk,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, T, H, Hk,
       window, cap, scale);
   return cudaGetLastError();
 }
@@ -662,8 +610,11 @@ extern "C" const char* repro_error_string(int code) {
 }
 
 // dtype: 0 = f32, 1 = bf16. D in {16, 32, 64, 128, 256}; H % Hk == 0.
+// lse: f32 [B, H, T], each row's logsumexp for the backward, or null
+// (serving: nothing is written).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int dtype,
+                                     const void* v, void* o, void* lse,
+                                     int dtype,
                                      long long B, long long T, int H,
                                      int Hk, int D, long long window,
                                      float softcap, float scale,
@@ -675,10 +626,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 #define REPRO_FLASH_CASE(DIM)                                              \
   case DIM:                                                                \
     return static_cast<int>(                                               \
-        dtype == 1 ? run_bf16<DIM>(q, k, v, o, B, T, H, Hk, window,        \
-                                   softcap, scale, s)                      \
-                   : run_f32<DIM>(q, k, v, o, B, T, H, Hk, window,         \
-                                  softcap, scale, s));
+        dtype == 1 ? run_bf16<DIM>(q, k, v, o, static_cast<float*>(lse), B, \
+                                   T, H, Hk, window, softcap, scale, s)    \
+                   : run_f32<DIM>(q, k, v, o, static_cast<float*>(lse), B,  \
+                                  T, H, Hk, window, softcap, scale, s));
   if (dtype != 0 && dtype != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {

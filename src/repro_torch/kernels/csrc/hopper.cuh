@@ -178,7 +178,8 @@ template <int R> __device__ __forceinline__ void regs_claim() {
 
 // ---- the products: tf32 with A in registers (K-major B; N = 8, 32, 64,
 // 128, 200); bf16 with A
-// and B in shared memory (both K-major); bf16 with A in registers and B
+// and B in shared memory (both K-major; N = 32, 64, 128); bf16 with A in
+// registers and B
 // MN-major ("transposed"). scale_d = 0 overwrites the accumulator.
 __device__ __forceinline__ void
 wgmma_tf32_rs(Acc<8>& d, const uint32_t (&a)[4], uint64_t b,
@@ -313,6 +314,22 @@ wgmma_tf32_rs(Acc<200>& d, const uint32_t (&a)[4], uint64_t b,
         "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
+}
+
+__device__ __forceinline__ void
+wgmma_bf16_ss(Acc<32>& d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void

@@ -15,18 +15,21 @@ query t when ``t - window < s <= t``) with masked scores ``-1e30``, a
 softmax over keys and the product with V; the output has q's dtype.
 
 Gradients: when grad is enabled and an input requires it,
-:func:`flash_attention` runs through :class:`FlashAttention`, whose
-forward is the same launch (the plain version on the CPU) and whose
-backward, :func:`flash_attention_bwd`, is plain PyTorch: it recomputes
-the plain attention one block of queries at a time (only the keys the
-block's causal window reaches) and applies the softmax's gradient, so
+:func:`flash_attention` runs through :class:`FlashAttention`. Its
+forward is the same launch (the plain version on the CPU) and also
+writes each row's logsumexp. Its backward, :func:`flash_attention_bwd`,
+launches the hand-written kernel in ``csrc/flash_attention_bwd.cu`` on a
+CUDA tensor (dK and dV per KV head, dQ per query head, from the saved
+output and logsumexp; no atomics) and runs
+:func:`flash_attention_bwd_plain` on a CPU one: a recompute one block of
+queries at a time (only the keys the block's causal window reaches), so
 the [T, T] scores never exist at once. The JAX package has no backward
-kernel either: it differentiates its plain ``blockwise_sdpa``.
+kernel: it differentiates its plain ``blockwise_sdpa``.
 
-On a ``meta`` tensor (the dry run) the forward launches nothing and runs
-no plain version: it returns an output of the right shape and adds the
-kernel's work (``roofline.flash_work``) to ``_build.count_work``, as a
-launch on the card does.
+On a ``meta`` tensor (the dry run) both directions launch nothing and
+run no plain version: they return outputs of the right shapes and add
+the kernel's work (``roofline.flash_work``, ``roofline.flash_bwd_work``)
+to ``_build.count_work``, as a launch on the card does.
 """
 
 from __future__ import annotations
@@ -36,29 +39,34 @@ from typing import Optional
 import torch
 
 from ._build import check_status, count_work, load
-from .roofline import flash_work
+from .roofline import flash_bwd_work, flash_work
 
-__all__ = ["flash_attention", "flash_attention_plain",
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_plain_gqa", "flash_attention_bwd",
-           "FlashAttention", "GLOBAL_WINDOW", "HEAD_DIMS", "DTYPE_CODES",
-           "BWD_Q_CHUNK"]
+           "flash_attention_bwd_plain", "FlashAttention", "GLOBAL_WINDOW",
+           "HEAD_DIMS", "DTYPE_CODES", "BWD_Q_CHUNK"]
 
 # a window no sequence reaches: causal attention over every earlier key
 GLOBAL_WINDOW = 1 << 30
 # head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# queries per block of the backward's recompute
+# queries per block of the plain backward's recompute
 BWD_Q_CHUNK = 512
+# the backward kernel's lse and D scratch: positions padded to this
+BWD_PAD = 64
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor,
                           causal_window: int = GLOBAL_WINDOW,
                           softcap: float = 0.0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Plain materialized-scores attention. q, k, v: [B, H, T, d] (KV
-    heads already broadcast to H). Returns [B, H, T, d] in q's dtype."""
+    heads already broadcast to H). Returns [B, H, T, d] in q's dtype and,
+    with ``return_lse``, each row's logsumexp of its masked, capped f32
+    scores, [B, H, T] f32."""
     T, d = q.shape[2], q.shape[3]
     sc = d ** -0.5 if scale is None else scale
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sc
@@ -69,21 +77,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     mask = (k_pos <= q_pos) & (k_pos > q_pos - causal_window)
     s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def flash_attention_plain_gqa(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               causal_window: int = GLOBAL_WINDOW,
                               softcap: float = 0.0,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              return_lse: bool = False):
     """:func:`flash_attention_plain` on the kernel's layout: q [B, T, H,
-    d], k, v [B, T, Hk, d] (KV heads repeated to H here) -> [B, T, H, d]."""
+    d], k, v [B, T, Hk, d] (KV heads repeated to H here) -> [B, T, H, d]
+    (and, with ``return_lse``, the logsumexp [B, H, T] f32)."""
     group = q.shape[2] // k.shape[2]
-    return flash_attention_plain(
+    res = flash_attention_plain(
         q.transpose(1, 2), k.repeat_interleave(group, dim=2).transpose(1, 2),
         v.repeat_interleave(group, dim=2).transpose(1, 2), causal_window,
-        softcap, scale).transpose(1, 2)
+        softcap, scale, return_lse)
+    if return_lse:
+        return res[0].transpose(1, 2), res[1]
+    return res.transpose(1, 2)
 
 
 def _check(q, k, v):
@@ -113,20 +127,29 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        dout: torch.Tensor,
-                        causal_window: int = GLOBAL_WINDOW,
-                        softcap: float = 0.0,
-                        scale: Optional[float] = None,
-                        q_chunk: int = BWD_Q_CHUNK
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              causal_window: int = GLOBAL_WINDOW,
+                              softcap: float = 0.0,
+                              scale: Optional[float] = None,
+                              q_chunk: int = BWD_Q_CHUNK,
+                              out: Optional[torch.Tensor] = None,
+                              lse: Optional[torch.Tensor] = None
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_plain_gqa` for the output
     gradient ``dout`` ([B, T, H, d]), in the inputs' dtypes, summed in
     f32. Blocks of ``q_chunk`` queries recompute their probabilities P
     against the keys their window reaches, then dV += Pᵀ·dO, dP = dO·Vᵀ,
-    dS = P ∘ (dP − rowsum(P ∘ dP)) (times 1 − tanh² under a softcap),
-    dQ = dS·K·scale and dK += dSᵀ·Q·scale, KV heads shared by their
-    group of query heads."""
+    dS = P ∘ (dP − D) (times 1 − tanh² under a softcap), dQ = dS·K·scale
+    and dK += dSᵀ·Q·scale, KV heads shared by their group of query heads.
+
+    Without ``out`` and ``lse``, P is the softmax of the block's scores
+    and D = rowsum(P ∘ dP). Given the forward's output ``out`` and its
+    row logsumexp ``lse`` ([B, H, T] f32), they are used as the kernel
+    uses them: P = exp(s − lse) and D = rowsum(dO ∘ out)."""
+    if (out is None) != (lse is None):
+        raise ValueError("give both out and lse, or neither")
     B, T, H, d = q.shape
     Hk = k.shape[2]
     group = H // Hk
@@ -134,6 +157,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = int(causal_window)
     qc = max(1, min(int(q_chunk), T))
     kf, vf = k.float(), v.float()
+    if out is not None:
+        # [B, T, H] -> [B, Hk, group, T, 1], as the blocks' scores
+        delta = (dout.float() * out.float()).sum(-1).reshape(
+            B, T, Hk, group).permute(0, 2, 3, 1)[..., None]
+        lse_b = lse.reshape(B, Hk, group, T)[..., None]
     dq = torch.empty((B, T, H, d), dtype=torch.float32, device=q.device)
     dk = torch.zeros((B, T, Hk, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros((B, T, Hk, d), dtype=torch.float32, device=q.device)
@@ -151,11 +179,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos = torch.arange(lo, hi, device=q.device)[:, None]
         k_pos = torch.arange(k_lo, hi, device=q.device)[None, :]
         seen = (k_pos <= q_pos) & (k_pos > q_pos - window)
-        p = torch.softmax(s.masked_fill_(~seen, -1e30), dim=-1)
+        s = s.masked_fill_(~seen, -1e30)
+        if out is None:
+            p = torch.softmax(s, dim=-1)
+        else:
+            p = s.sub_(lse_b[:, :, :, lo:hi]).exp_()
         del s
         dv[:, k_lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
         dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
-        ds = dp.sub_((p * dp).sum(dim=-1, keepdim=True)).mul_(p)
+        ds = dp.sub_(delta[:, :, :, lo:hi] if out is not None else
+                     (p * dp).sum(dim=-1, keepdim=True)).mul_(p)
         del p
         if t is not None:
             ds.mul_(t.mul_(t).neg_().add_(1.0))
@@ -165,21 +198,89 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor,
+                        causal_window: int = GLOBAL_WINDOW,
+                        softcap: float = 0.0,
+                        scale: Optional[float] = None,
+                        q_chunk: int = BWD_Q_CHUNK
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` for the output gradient
+    ``dout``, from the forward's ``out`` and row logsumexp ``lse`` ([B,
+    H, T] f32). The launch on a card tensor (bf16 or f32, d in
+    :data:`HEAD_DIMS`; ``q_chunk`` is not read), the plain version
+    (:func:`flash_attention_bwd_plain` with ``out`` and ``lse``, blocks of
+    ``q_chunk`` queries) on a CPU one, outputs of the right shapes on a
+    meta one."""
+    _check(q, k, v)
+    B, T, H, d = q.shape
+    Hk = k.shape[2]
+    window = int(causal_window)
+    if dout.shape != q.shape or out.shape != q.shape or \
+            lse.shape != (B, H, T):
+        raise ValueError(f"dout and out must be {tuple(q.shape)} and lse "
+                         f"{(B, H, T)}; got {tuple(dout.shape)}, "
+                         f"{tuple(out.shape)}, {tuple(lse.shape)}")
+    if dout.dtype != q.dtype or out.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise ValueError(f"dout and out must be {q.dtype} and lse float32; "
+                         f"got {dout.dtype}, {out.dtype}, {lse.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, window, softcap,
+                                         scale, q_chunk, out=out, lse=lse)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_bwd runs on cuda, cpu or meta, "
+                         f"not {q.device}")
+    if q.dtype not in DTYPE_CODES or d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes bf16 or f32 with head dim in "
+                         f"{HEAD_DIMS}; got {q.dtype}, d = {d}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out, dout, lse = _aligned(out), _aligned(dout), _aligned(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    nbytes, ops = flash_bwd_work(B, T, H, Hk, d, window, q.element_size())
+    if q.device.type == "meta":
+        count_work("flash_attention_bwd", ops, nbytes)
+        return dq, dk, dv
+    # the kernel's scratch: lse and D padded to BWD_PAD positions, and in
+    # f32 with a group of heads each head's partial dK and dV
+    Tp = -(-T // BWD_PAD) * BWD_PAD
+    rows = torch.empty((2, B, H, Tp), dtype=torch.float32, device=q.device)
+    part = torch.empty((2, B, T, H, d), dtype=torch.float32,
+                       device=q.device) \
+        if q.dtype == torch.float32 and H != Hk else None
+    sc = d ** -0.5 if scale is None else float(scale)
+    rc = load("flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+        None if part is None else part.data_ptr(), DTYPE_CODES[q.dtype], B,
+        T, H, Hk, d, window, float(softcap), sc,
+        torch.cuda.current_stream().cuda_stream)
+    check_status(rc, "flash_attention_bwd")
+    count_work("flash_attention_bwd", ops, nbytes)
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` with a gradient: the forward is the kernel
-    launch (the plain version on the CPU), the backward
-    :func:`flash_attention_bwd`."""
+    launch (the plain version on the CPU) with the row logsumexp kept,
+    the backward :func:`flash_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal_window, softcap, scale, q_chunk):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention_fwd(q, k, v, causal_window, softcap,
+                                       scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal_window, softcap, scale, q_chunk)
-        return _forward(q, k, v, causal_window, softcap, scale)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, dout, *ctx.args)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
 
@@ -196,27 +297,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``t - window < s <= t``; ``softcap > 0`` caps the scores; ``scale``
     defaults to ``d ** -0.5``. On the card: bf16 or f32, d in
     :data:`HEAD_DIMS`. When grad is enabled and an input requires it,
-    the output carries :class:`FlashAttention`'s gradient, whose
-    recompute takes ``bwd_q_chunk`` queries at a time.
+    the output carries :class:`FlashAttention`'s gradient (on the CPU,
+    its plain recompute takes ``bwd_q_chunk`` queries at a time).
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, int(causal_window),
                                     float(softcap), scale, int(bwd_q_chunk))
-    return _forward(q, k, v, int(causal_window), float(softcap), scale)
+    return flash_attention_fwd(q, k, v, int(causal_window), float(softcap),
+                               scale)
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int, softcap: float,
-             scale: Optional[float]) -> torch.Tensor:
-    """The launch on a card tensor, the plain version on a CPU one, an
-    output of the right shape on a meta one (no gradient:
-    :class:`FlashAttention` wraps it)."""
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = GLOBAL_WINDOW, softcap: float = 0.0,
+                        scale: Optional[float] = None,
+                        want_lse: bool = False):
+    """The forward alone, without a gradient (:class:`FlashAttention`
+    wraps it): the launch on a card tensor, the plain version on a CPU
+    one, an output of the right shape on a meta one. With ``want_lse``,
+    also each row's logsumexp, [B, H, T] f32, as the backward takes it
+    (serving asks for none, and the kernel then writes none)."""
     B, T, H, d = q.shape
     Hk = k.shape[2]
     if q.device.type == "cpu":
-        return flash_attention_plain_gqa(q, k, v, window, softcap, scale)
+        return flash_attention_plain_gqa(q, k, v, window, softcap, scale,
+                                         want_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
                          f"{q.device}")
@@ -225,17 +331,21 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}; got {q.dtype}, d = {d}")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32,
+                      device=q.device) if want_lse else None
+    done = (out, lse) if want_lse else out
     if out.numel() == 0:
-        return out
+        return done
     nbytes, ops = flash_work(B, T, H, Hk, d, window, q.element_size())
     if q.device.type == "meta":
         count_work("flash_attention", ops, nbytes)
-        return out
+        return done
     sc = d ** -0.5 if scale is None else float(scale)
     rc = load("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[q.dtype], B, T, H, Hk, d, window, float(softcap), sc,
+        None if lse is None else lse.data_ptr(), DTYPE_CODES[q.dtype], B, T,
+        H, Hk, d, window, float(softcap), sc,
         torch.cuda.current_stream().cuda_stream)
     check_status(rc, "flash_attention")
     count_work("flash_attention", ops, nbytes)
-    return out
+    return done

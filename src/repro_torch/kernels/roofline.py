@@ -77,6 +77,18 @@ def flash_work(B: int, T: int, H: int, Hk: int, d: int, window: int,
     return nbytes, 4 * d * B * H * flash_pairs(T, window)
 
 
+def flash_bwd_work(B: int, T: int, H: int, Hk: int, d: int, window: int,
+                   item: int) -> tuple[int, int]:
+    """(bytes, operations) of causal attention's gradient: q, out, dout
+    read and dq written once, each KV head's K, V read and dK, dV written
+    once, plus the f32 row logsumexp and D = rowsum(dO ∘ out); five
+    products over the kept pairs (S, dP, dV, dK, dQ), whatever a design
+    recomputes."""
+    nbytes = ((4 * B * T * H * d + 4 * B * T * Hk * d) * item
+              + 2 * B * H * T * 4)
+    return nbytes, 10 * d * B * H * flash_pairs(T, window)
+
+
 def cin_work(B: int, H: int, Hp: int, F: int, D: int,
              item: int) -> tuple[int, int]:
     """(bytes, operations) of one CIN layer: xk, x0 and w read once, the

@@ -23,9 +23,14 @@ picks some, all by default):
     as the tree's own ``roofline.py`` counts them).
   * ``flash``: bf16, the llama3.2-1b prefill layer (q [2, 4,096, 32,
     64], 8 KV heads, causal) beside ``scaled_dot_product_attention``,
-    and the gemma2-9b layers (q [1, 8,192, 16, 256], 8 KV heads,
-    softcap 50) with the 4,096 window and without; beside the
-    operations bound.
+    the gemma2-9b layers (q [1, 8,192, 16, 256], 8 KV heads, softcap 50)
+    with the 4,096 window and without, and deepseek-moe-16b's (q [1,
+    4,096, 16, 128], 16 KV heads, causal); beside the operations bound.
+    Where the tree's forward can write the row logsumexp
+    (``flash_attention_fwd``), that forward is timed too; the backward
+    (``flash_attention_bwd``: the tree's kernel, or an earlier tree's
+    plain recompute) beside SDPA's backward and the bound of its five
+    products.
   * ``frontier``: ``ell_pull_frontier`` on the BFS pull (i32, min, copy)
     of ``chip_smoke.py``'s row list (the largest touched set that fits
     the default cap) on rca and kron16, over the real slots where the
@@ -109,6 +114,7 @@ def main(argv=None) -> int:
                                                        frontier_rows)
     from repro_torch.kernels.ell_spmv import ell_spmv
     from repro_torch.kernels.flash_attention import flash_attention
+    fmod = sys.modules["repro_torch.kernels.flash_attention"]
 
     lines = []
 
@@ -188,26 +194,62 @@ def main(argv=None) -> int:
         for name, (B, T, H, Hk, d, window, cap) in {
                 "llama3.2-1b": (2, 4096, 32, 8, 64, window_all, 0.0),
                 "gemma2-9b local": (1, 8192, 16, 8, 256, 4096, 50.0),
-                "gemma2-9b global": (1, 8192, 16, 8, 256, window_all, 50.0)
+                "gemma2-9b global": (1, 8192, 16, 8, 256, window_all, 50.0),
+                "deepseek-moe-16b": (1, 4096, 16, 16, 128, window_all, 0.0)
         }.items():
             q, k, v = normal((B, T, H, d)), normal((B, T, Hk, d)), \
                 normal((B, T, Hk, d))
-            lib_ms = None
+            dout = normal((B, T, H, d))
+            lib_ms = lib_bwd_ms = None
             if window >= T and cap == 0.0:
                 lib_ms = time_ms(lambda q=q, k=k, v=v: torch.nn.functional
                                  .scaled_dot_product_attention(
                                      q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), is_causal=True,
                                      enable_gqa=True))
+                qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+                sd = torch.nn.functional.scaled_dot_product_attention(
+                    qg.transpose(1, 2), kg.transpose(1, 2),
+                    vg.transpose(1, 2), is_causal=True,
+                    enable_gqa=True).transpose(1, 2)
+                lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                    sd, (qg, kg, vg), dout, retain_graph=True), reps=10)
+                del qg, kg, vg, sd
             b_ms, b_by = rl.bound(*rl.flash_work(B, T, H, Hk, d, window, 2),
                                   rl.BF16_OPS_PER_S)
-            emit({"kind": "kernel", "name": "flash_attention", "layer": name,
-                  "shape": [B, T, H, Hk, d], "window": min(window, T),
-                  "softcap": cap,
-                  "ms": time_ms(lambda q=q, k=k, v=v, w=window, c=cap:
-                                flash_attention(q, k, v, w, c), reps=10),
-                  "sdpa_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
-            del q, k, v
+            row = {"kind": "kernel", "name": "flash_attention",
+                   "layer": name, "shape": [B, T, H, Hk, d],
+                   "window": min(window, T), "softcap": cap,
+                   "ms": time_ms(lambda q=q, k=k, v=v, w=window, c=cap:
+                                 flash_attention(q, k, v, w, c), reps=10),
+                   "sdpa_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+            if hasattr(fmod, "flash_attention_fwd"):
+                out, lse = fmod.flash_attention_fwd(q, k, v, window, cap,
+                                                    want_lse=True)
+                row["lse_ms"] = time_ms(
+                    lambda q=q, k=k, v=v, w=window, c=cap:
+                    fmod.flash_attention_fwd(q, k, v, w, c, want_lse=True),
+                    reps=10)
+
+                def bwd(q=q, k=k, v=v, w=window, c=cap):
+                    return fmod.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    w, c)
+                bwd_reps = 10
+            else:
+                def bwd(q=q, k=k, v=v, w=window, c=cap):
+                    return fmod.flash_attention_bwd(q, k, v, dout, w, c)
+                bwd_reps = 3
+            bb_ms, bb_by = rl.bound(
+                *rl.flash_bwd_work(B, T, H, Hk, d, window, 2),
+                rl.BF16_OPS_PER_S)
+            emit(row)
+            emit({"kind": "kernel", "name": "flash_attention_bwd",
+                  "layer": name, "shape": [B, T, H, Hk, d],
+                  "window": min(window, T), "softcap": cap,
+                  "ms": time_ms(bwd, reps=bwd_reps),
+                  "sdpa_bwd_ms": lib_bwd_ms, "bound_ms": bb_ms,
+                  "bound_by": bb_by})
+            del q, k, v, dout
 
     # ---- the frontier pull: chip_smoke.py's BFS pull row list, over the
     # real slots where the tree's kernel takes row_len

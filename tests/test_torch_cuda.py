@@ -41,6 +41,9 @@ from repro_torch.kernels.ell_spmv import (ell_row_plan, ell_spmv,
 from repro_torch.kernels.cin import cin_layer, cin_layer_plain
 from repro_torch.kernels.flash_attention import (GLOBAL_WINDOW, HEAD_DIMS,
                                                  flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_fwd,
                                                  flash_attention_plain_gqa)
 from repro_torch.core.primitives import mask_untouched
 
@@ -112,13 +115,15 @@ def test_each_wrapper_counts_its_launches(graphs, cuda):
     coo_push(x[:-1], active, g.coo_src, g.coo_dst, g.coo_w, g.n,
              strategy="mxu")
     q = torch.ones((1, 8, 2, 16), device=cuda)
-    flash_attention(q, q, q)
+    out, lse = flash_attention_fwd(q, q, q, want_lse=True)
+    flash_attention_bwd(q, q, q, out, lse, q)
     xk = torch.ones((3, 4, 5), device=cuda)
     cin_layer(xk, xk, torch.ones((2, 4, 4), device=cuda))
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "ell_spmv": 1, "ell_pull_frontier": 1, "coo_push": 1,
-        "coo_push_mxu": 1, "flash_attention": 1, "cin": 1}
+        "coo_push_mxu": 1, "flash_attention": 1, "flash_attention_bwd": 1,
+        "cin": 1}
 
 
 def test_frontier_full_equals_masked_full_scan(cuda):
@@ -653,10 +658,11 @@ def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     (200, 8, 64, 30.0, 32)])
 def test_flash_attention_gradients_match_plain(cuda, dtype, T, group,
                                                window, softcap, d):
-    """The ``FlashAttention`` Function (the kernel forward, the q-chunked
-    plain backward at blocks of 64 here) against autograd through the
-    plain version: each gradient within ``chip_smoke.FLASH_GRAD_TOL``
-    (f32 1e-4, bf16 1e-2) of its largest entry."""
+    """The ``FlashAttention`` Function (the kernel forward, the backward
+    kernel; the Function's q-chunk of 64 is read only on the CPU)
+    against autograd through the plain version: each gradient within
+    ``chip_smoke.FLASH_GRAD_TOL`` (f32 1e-4, bf16 1e-2) of its largest
+    entry; one forward and one backward launch."""
     B, Hk = 2, 2
     q = normal((B, T, Hk * group, d), 1, cuda, dtype).requires_grad_()
     k = normal((B, T, Hk, d), 2, cuda, dtype).requires_grad_()
@@ -667,12 +673,43 @@ def test_flash_attention_gradients_match_plain(cuda, dtype, T, group,
     assert out.grad_fn is not None
     assert _build.launch_counts()["flash_attention"] == 1
     got = torch.autograd.grad(out, (q, k, v), dout)
+    assert _build.launch_counts()["flash_attention_bwd"] == 1
     want = torch.autograd.grad(flash_attention_plain_gqa(q, k, v, window,
                                                          softcap),
                                (q, k, v), dout)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert rel_gap(a, b) <= cs.FLASH_GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32), ids=str)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("T,group,window,softcap", [
+    (1, 2, GLOBAL_WINDOW, 0.0), (130, 4, 17, 50.0), (384, 8, GLOBAL_WINDOW,
+                                                     50.0)])
+def test_flash_attention_bwd_kernel_matches_its_plain_version(
+        cuda, dtype, d, T, group, window, softcap):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the
+    same output and logsumexp (``chip_smoke.grad_gaps``), the same bits
+    from two launches, and the forward's logsumexp against the plain
+    one's."""
+    B, Hk = 2, 2
+    q = normal((B, T, Hk * group, d), 5, cuda, dtype)
+    k = normal((B, T, Hk, d), 6, cuda, dtype)
+    v = normal((B, T, Hk, d), 7, cuda, dtype)
+    dout = normal((B, T, Hk * group, d), 8, cuda, dtype)
+    out, lse = flash_attention_fwd(q, k, v, window, softcap, want_lse=True)
+    plain_lse = flash_attention_plain_gqa(q, k, v, window, softcap,
+                                          return_lse=True)[1]
+    assert rel_gap(lse, plain_lse) <= cs.FLASH_LSE_TOL
+    got = flash_attention_bwd(q, k, v, out, lse, dout, window, softcap)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, window, softcap)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_bwd_plain(q, k, v, dout, window, softcap,
+                                     out=out, lse=lse)
+    assert [(a.dtype, a.shape) for a in got] == [(b.dtype, b.shape)
+                                                 for b in want]
+    assert max(cs.grad_gaps(got, want)) <= cs.FLASH_GRAD_TOL[dtype]
 
 
 @pytest.mark.parametrize("B,Hp,F,H,D", [(37, 39, 39, 200, 10),

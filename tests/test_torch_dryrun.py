@@ -46,7 +46,8 @@ from repro_torch.graphs import GRAPH_ARRAYS, graph_from_arrays
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.roofline import (BF16_OPS_PER_S, HBM_BYTES_PER_S,
-                                          cin_work, flash_work)
+                                          cin_work, flash_bwd_work,
+                                          flash_work)
 from repro_torch.launch import dryrun, hillclimb
 from repro_torch.launch.mesh import MeshLayout, make_production_mesh
 from repro_torch.models import attention, common
@@ -245,9 +246,8 @@ def test_lm_train_flops_band():
     """Counted FLOPs of a train step against ``lm_train_flops``: at least
     the model FLOPs, at most twice. Exactly: the products of 6·N·tokens
     (norm scales aside), the layers' second forward (remat), the flash
-    kernel's forward twice (remat) and its backward's plain recompute,
-    which covers for each block of ``q_chunk`` queries every key up to
-    the block's end: ``5 · 2 · d · H · B · (T² + T · q_chunk) / 2``."""
+    kernel's forward twice (remat) and its backward kernel's five
+    products over the kept pairs, ``flash_bwd_work`` once a layer."""
     r = dryrun.run_cell("llama3.2-1b", "train_4k", overrides=LM_SMOKE)
     cfg = dataclasses.replace(full_config("llama3.2-1b"), **LM_SMOKE)
     p = init_params(cfg, device="meta")
@@ -259,8 +259,8 @@ def test_lm_train_flops_band():
                           4)[1] for w in cfg.window_array(T))
     layers = sum(param_count(lp) for lp in p["layers"])
     n = param_count(p) - p["embed"].numel()
-    bwd = cfg.n_layers * 5 * 2 * cfg.hd * cfg.n_heads * B * (
-        T * T + T * cfg.q_chunk) / 2
+    bwd = sum(flash_bwd_work(B, T, cfg.n_heads, cfg.n_kv_heads, cfg.hd, w,
+                             4)[1] for w in cfg.window_array(T))
     # the recompute stops once every saved tensor is back: each layer's
     # last product (the FFN's down projection) and its norms are not in it
     remat = layers - cfg.n_layers * (cfg.d_ff * cfg.d_model
@@ -269,6 +269,7 @@ def test_lm_train_flops_band():
     want = 6 * (n - norms) * B * T + 2 * remat * B * T + 2 * attn + bwd
     assert counted == want
     assert r["cost"]["kernels"]["flash_attention"]["flops"] == 2 * attn
+    assert r["cost"]["kernels"]["flash_attention_bwd"]["flops"] == bwd
     assert r["model_flops"] == pytest.approx(6 * n * B * T)
 
 
