@@ -76,7 +76,11 @@ non-zero:
      (Hp, F, H, D) {(39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
      (200, 39, 70, 10), (13, 9, 37, 3)} × {f32, bf16}: H = 200 on its
      fitted product width, odd H on the general one, K split at B = 1
-     and 37.
+     and 37; its dw and dx0 kernels over the same cells and (20, 41, 9,
+     4), (7, 7, 8, 6), (13, 230, 37, 3) (F padded to 200 and 40 by dx0,
+     and in two blocks of 200), each within 1e-4
+     of its largest entry (dx0 in bf16: 2e-2), two launches equal bit
+     for bit.
   8. Main path of slice 3, model serving, weights from seeded
      generators on the card: llama3.2-1b (full config) prefills B = 2 ×
      T = 4,096 (twice: the first pays the GEMM heuristics and the
@@ -171,10 +175,12 @@ non-zero:
      (B = 65,536, BCE, 5 steps). One line per run: step ms, tokens/s or
      rows/s, model FLOPs against the bf16 peak, peak memory, the
      attention's forward launches and backward calls, the CIN's
-     forward, backward launches and ``dw`` GEMMs, a profiled step's
-     busy share, the card's name and power limit, ``reduced``.
-     ``flash_attention``, ``flash_attention_bwd`` and ``cin`` must
-     launch, and ``flash_attention_bwd_plain`` may not run. Then
+     forward and its backward's dxk, dw and dx0 kernels per layer, a
+     profiled step's busy share, the card's name and power limit,
+     ``reduced``. ``flash_attention``, ``flash_attention_bwd``, ``cin``,
+     ``cin_dw`` and ``cin_dx0`` must launch, and neither
+     ``flash_attention_bwd_plain`` nor CIN's plain dw and dx0 may run.
+     Then
      ``"train_check"``: llama at full width, 2 layers, bf16 and f32,
      every gradient with the kernel against ``attn_impl="naive"``
      (‖Δg‖/‖g‖ ≤ 5e-2 bf16, 1e-4 f32); xDeepFM's gradients on 4,096
@@ -188,8 +194,13 @@ non-zero:
      timed beside the plain autograd backward, SDPA's backward where it
      computes the same function, and the bound; the flash backward
      kernel (also at deepseek-moe-16b's layer) beside its plain
-     recompute, against the bound of its five products. Then the CIN
-     layer at train_batch's shapes (B = 65,536) beside ``einsum``.
+     recompute, against the bound of its five products; CIN's dw and dx0
+     kernels against their plain versions, timed beside the route each
+     replaced (the chunked GEMM; a layer launch of width 64 on
+     w.permute(2, 0, 1)), their plain versions and one ``einsum`` each,
+     the three products' 3xTF32 floor beside one TF32 pass of them. Then
+     the CIN layer at train_batch's shapes (B = 65,536) beside
+     ``einsum``.
  14. Main path of slice 11, the GNN family (run after 13), ``"gnn"``:
      EGNN, GIN, GraphSAGE and GraphCast at full width (``full_config``,
      the reference's cell widths: d_in the shape's features, d_out its
@@ -304,7 +315,9 @@ from repro_torch.dist.overlap import value_and_grad  # noqa: E402
 from repro_torch.kernels import _build, tune  # noqa: E402
 from repro_torch.kernels import cin as cin_module  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
-from repro_torch.kernels.cin import cin_layer, cin_layer_plain  # noqa: E402
+from repro_torch.kernels.cin import (cin_dx0, cin_dx0_plain,  # noqa: E402
+                                     cin_layer, cin_layer_plain,
+                                     cin_weight_grad, cin_weight_grad_plain)
 from repro_torch.kernels.coo_push import (build_push_plan,  # noqa: E402
                                           coo_push, coo_push_mxu_plain,
                                           coo_push_plain)
@@ -314,8 +327,9 @@ from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
 from repro_torch.kernels.ell_spmv import (  # noqa: E402
     _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain)
 from repro_torch.kernels.roofline import (  # noqa: E402
-    BF16_OPS_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, bound, cin_tf32_floor_ms,
-    flash_bwd_work, flash_work, onehot_floor_ms, push_bytes, time_ms)
+    BF16_OPS_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, bound, cin_bwd_work,
+    cin_tf32_floor_ms, cin_work, flash_bwd_work, flash_work,
+    onehot_floor_ms, push_bytes, time_ms)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     GLOBAL_WINDOW, HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_fwd,
@@ -365,6 +379,12 @@ KERNEL_INFO = {
         "src/repro/kernels/flash_attention.py:65"),
     "cin": ("src/repro_torch/kernels/csrc/cin.cu",
             "src/repro/kernels/cin.py:39"),
+    # CIN's gradients: the reference differentiates cin_apply's einsums in
+    # XLA (src/repro/models/recsys.py), around this kernel's function
+    "cin_dw": ("src/repro_torch/kernels/csrc/cin_bwd.cu",
+               "src/repro/kernels/cin.py:39"),
+    "cin_dx0": ("src/repro_torch/kernels/csrc/cin_bwd.cu",
+                "src/repro/kernels/cin.py:39"),
 }
 # the push kernels, by the name of their device functions
 PUSH_KERNELS = ("coo_push", "coo_push_mxu")
@@ -2381,6 +2401,10 @@ FLASH_BWD_WINDOWS = (GLOBAL_WINDOW, 17)
 CIN_BATCHES = (1, 37, 512)
 CIN_SHAPES = ((39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
               (200, 39, 70, 10), (13, 9, 37, 3))
+# the backward kernels also at F padded to 200 and to 40 from below 8 by
+# the dx0 kernel, and at F above 200 (its fields in two blocks)
+CIN_BWD_SHAPES = CIN_SHAPES + ((20, 41, 9, 4), (7, 7, 8, 6),
+                               (13, 230, 37, 3))
 # kernel against plain: flash 3e-4 (f32) / 2e-2 (bf16, P enters P·V in
 # bf16); CIN 2e-4 (f32 sums in other orders) / 2e-2 (bf16 output)
 FLASH_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
@@ -2505,15 +2529,33 @@ def flash_bwd_grid(device, gen) -> tuple[float, float, int]:
     return worst_abs, worst_rel, cells
 
 
+def cin_bwd_check(kernel, plain, args, tol: float, what: str) -> float:
+    """A CIN backward kernel against its plain version on ``args``:
+    within ``tol`` of the largest |entry| (dw is f32 whatever the inputs;
+    dx0 rounds to their dtype), two launches equal bit for bit. Returns
+    the largest absolute gap."""
+    got, want = kernel(*args), plain(*args)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{what}: {got.dtype}{tuple(got.shape)} vs plain "
+             f"{want.dtype}{tuple(want.shape)}")
+    if not torch.equal(got, kernel(*args)):
+        fail(f"{what}: two launches differ")
+    gap = rel_gap(got, want)
+    if not gap <= tol:
+        fail(f"{what}: {gap} of the largest entry, above {tol}")
+    return float((got.float() - want.float()).abs().max())
+
+
 def model_kernel_grid(device) -> dict:
     """Each model kernel against its plain version: flash over head dim ×
     T (ragged against the 64-row tiles) × GQA group × window × softcap ×
     dtype, its backward over :func:`flash_bwd_grid`'s cells; CIN over
-    ragged B × the layer shapes × dtype."""
+    ragged B × the layer shapes × dtype, its dw and dx0 kernels too."""
     gen = torch.Generator(device=device).manual_seed(11)
     t0 = time.perf_counter()
-    errs = {"flash_attention": 0.0, "cin": 0.0}
-    cells = {"flash_attention": 0, "cin": 0}
+    errs = {"flash_attention": 0.0, "cin": 0.0, "cin_dw": 0.0,
+            "cin_dx0": 0.0}
+    cells = {"flash_attention": 0, "cin": 0, "cin_bwd": 0}
     for d in FLASH_DIMS:
         for T in FLASH_TS:
             B, Hk = (2, 2) if T < 4096 else (1, 2)
@@ -2546,6 +2588,22 @@ def model_kernel_grid(device) -> dict:
                     cin_layer(xk, x0, w), cin_layer_plain(xk, x0, w),
                     CIN_TOL[dt], f"cin B{B} {(Hp, F, H, D)} {dt}"))
                 cells["cin"] += 1
+        for Hp, F, H, D in CIN_BWD_SHAPES:
+            for dt in MODEL_DTYPES:
+                what = f"cin backward B{B} {(Hp, F, H, D)} {dt}"
+                xk = normal((B, Hp, D), gen, dt)
+                x0 = normal((B, F, D), gen, dt)
+                w = (normal((H, Hp, F), gen) * (2.0 / (Hp * F)) ** 0.5
+                     ).to(dt)
+                g = normal((B, H, D), gen, dt)
+                errs["cin_dw"] = max(errs["cin_dw"], cin_bwd_check(
+                    cin_weight_grad, cin_weight_grad_plain, (g, xk, x0),
+                    CIN_GRAD_TOL, "dw " + what))
+                errs["cin_dx0"] = max(errs["cin_dx0"], cin_bwd_check(
+                    cin_dx0, cin_dx0_plain, (g, xk, w),
+                    CIN_TOL[dt] if dt == torch.bfloat16 else CIN_GRAD_TOL,
+                    "dx0 " + what))
+                cells["cin_bwd"] += 1
     torch.cuda.synchronize()
     emit({"phase": "model_kernel_grid", "cells": cells,
           "max_abs_err": errs, "flash_bwd_max_rel_err": bwd_rel,
@@ -2837,18 +2895,17 @@ def model_kernel_rows(lms: dict, rec: dict | None, path: str = "model"
     for li, ((xk, x0, w), _) in enumerate(rec["cin_args"] if rec else ()):
         B, Hp, D = xk.shape
         F, H = x0.shape[1], w.shape[0]
+        nbytes, ops_ = cin_work(B, H, Hp, F, D, xk.element_size())
         record("cin", f"serve_p99 layer {li}: xk f32 [{B}, {Hp}, {D}], x0 "
                f"[{B}, {F}, {D}], w [{H}, {Hp}, {F}]",
                {"layer": li, "path": path,
-                "tf32_floor_ms": cin_tf32_floor_ms(B, H, Hp, F, D)},
+                "f32_bound_ms": bound(nbytes, ops_)[0]},
                lambda xk=xk, x0=x0, w=w: kernel_ops.cin_layer(xk, x0, w),
                lambda xk=xk, x0=x0, w=w: cin_layer_plain(xk, x0, w),
                lambda xk=xk, x0=x0, w=w: torch.einsum("hij,bid,bjd->bhd", w,
                                                       xk, x0),
-               CIN_TOL[xk.dtype],
-               nbytes=(B * Hp * D + B * F * D + H * Hp * F + B * H * D)
-               * xk.element_size(),
-               ops_=2 * B * H * Hp * F * D, rate=F32_OPS_PER_S, reps=20)
+               CIN_TOL[xk.dtype], nbytes=nbytes, ops_=3 * ops_,
+               rate=TF32_OPS_PER_S, reps=20)
     torch.cuda.synchronize()
     return rows
 
@@ -3025,15 +3082,16 @@ def lm_resume(loss_fn, params, opt, loop_cfg, batches, losses,
     return out
 
 
-def xdeepfm_train(device, fwd: CallTimer, bwd: CallTimer,
-                  dw: CallTimer) -> dict:
+def xdeepfm_train(device, fwd: CallTimer, bwd: CallTimer, dw: CallTimer,
+                  dx0: CallTimer) -> dict:
     """``launch.train.main`` on the full xDeepFM config at train_batch
-    (BCE, AdamW): its step time, and the CIN layers' forward launches,
-    backward launches and dw GEMMs in it."""
+    (BCE, AdamW): its step time, and the CIN layers' forward launches and
+    backward kernels (dxk, a layer launch; dw; dx0) in it, per layer in
+    the backward's order (the last layer first)."""
     import contextlib
     import io
     B, steps = TRAIN_XDEEPFM["B"], TRAIN_XDEEPFM["steps"]
-    for t in (fwd, bwd, dw):
+    for t in (fwd, bwd, dw, dx0):
         t.take_ms()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3050,19 +3108,25 @@ def xdeepfm_train(device, fwd: CallTimer, bwd: CallTimer,
             not np.isfinite(float(m.group(2))):
         fail(f"xdeepfm training: rc {rc}, {text!r}")
     step_ms = float(m.group(3))
-    f_ms, b_ms, w_ms = fwd.take_ms(), bwd.take_ms(), dw.take_ms()
+    f_ms, b_ms, w_ms, x_ms = (fwd.take_ms(), bwd.take_ms(), dw.take_ms(),
+                              dx0.take_ms())
     nl = len(full_config("xdeepfm").cin_layers)
-    cin_ms = (sum(f_ms) + sum(b_ms) + sum(w_ms)) / steps
+    cin_ms = (sum(f_ms) + sum(b_ms) + sum(w_ms) + sum(x_ms)) / steps
+
+    def per_layer(ms):
+        return [statistics.median(ms[i::nl]) for i in range(nl)]
     line = {"phase": "train", "arch": "xdeepfm", "B": B, "steps": steps,
             "launcher": text, "step_ms_median": step_ms,
             "rows_per_s": B / step_ms * 1e3, "run_s": run_s,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "cin_fwd_ms_per_layer": [statistics.median(f_ms[i::nl])
-                                     for i in range(nl)],
-            "cin_bwd_launch_ms": statistics.median(b_ms),
-            "cin_bwd_launches": len(b_ms),
-            "cin_dw_ms_per_layer": [statistics.median(w_ms[i::nl])
-                                    for i in range(nl)],
+            "cin_fwd_ms_per_layer": per_layer(f_ms),
+            "cin_dxk_ms_per_layer_bwd_order": per_layer(b_ms),
+            "cin_dw_ms_per_layer_bwd_order": per_layer(w_ms),
+            "cin_dx0_ms_per_layer_bwd_order": per_layer(x_ms),
+            "cin_bwd_launches": {"dxk": len(b_ms), "dw": len(w_ms),
+                                 "dx0": len(x_ms)},
+            "cin_bwd_ms_per_step": (sum(b_ms) + sum(w_ms) + sum(x_ms))
+            / steps,
             "cin_ms_per_step": cin_ms, "cin_share": cin_ms / step_ms,
             "reduced": TRAIN_XDEEPFM["reduced"], "card": card_line()}
     emit(line)
@@ -3240,11 +3304,20 @@ def flash_grad_row(name: str, shape: dict, device) -> dict:
 
 
 def cin_grad_row(name: str, B: int, Hp: int, F: int, H: int, D: int,
-                 device) -> dict:
+                 device) -> list:
     """The Function's (dxk, dx0, dw) at a CIN layer's shape against
-    autograd through ``cin_layer_plain``; the backward's two launches
-    and its dw GEMM timed beside the bound of their three products at
-    the TF32 rate."""
+    autograd through ``cin_layer_plain``, and the dw and dx0 kernels
+    against their plain versions on the same inputs (each within
+    CIN_GRAD_TOL of its largest entry); then each backward piece timed:
+    dxk (a layer launch), the dx0 kernel beside the route it replaced (a
+    layer launch on w.permute(2, 0, 1), width 64, K = H · Hp), its plain
+    version and one ``einsum``; the dw kernel beside the chunked GEMM it
+    replaced (its plain version) and one ``einsum``; the Function's whole
+    backward. Bounds: each kernel's bytes or its three TF32 products
+    (the 3xTF32 floor it runs at), with its FLOP at the f32 rate beside
+    them (``f32_bound_ms``); the Function's three products' 3xTF32 floor
+    beside one TF32 pass of them. Returns the two kernels' rows for the
+    kernels line."""
     gen = torch.Generator(device=device).manual_seed(B + Hp)
     xk = normal((B, Hp, D), gen).requires_grad_()
     x0 = normal((B, F, D), gen).requires_grad_()
@@ -3259,21 +3332,56 @@ def cin_grad_row(name: str, B: int, Hp: int, F: int, H: int, D: int,
         fail(f"CIN gradients {name}: {err} above {CIN_GRAD_TOL}")
     del got, want
     xk, x0, w = xk.detach(), x0.detach(), w.detach()
-    dxk_ms = time_ms(lambda: cin_layer(g, x0, w.permute(1, 0, 2)), 5)
-    dx0_ms = time_ms(lambda: cin_layer(g, xk, w.permute(2, 0, 1)), 5)
-    dw_ms = time_ms(lambda: cin_module.cin_weight_grad(g, xk, x0), 3)
-    pack_ms = time_ms(lambda: cin_module.kernel_weights(
-        w.permute(2, 0, 1)), 10)
-    ops_ = 3 * 2 * B * H * Hp * F * D
-    nbytes = 2 * (B * Hp * D + B * F * D + H * Hp * F + B * H * D) * 4
-    b_ms, b_by = bound(nbytes, ops_, TF32_OPS_PER_S)
+    abs_err = {"cin_dw": cin_bwd_check(
+        cin_weight_grad, cin_weight_grad_plain, (g, xk, x0), CIN_GRAD_TOL,
+        f"dw {name}"), "cin_dx0": cin_bwd_check(
+        cin_dx0, cin_dx0_plain, (g, xk, w), CIN_GRAD_TOL, f"dx0 {name}")}
+    t = {"dxk": time_ms(lambda: cin_layer(g, x0, w.permute(1, 0, 2)), 5),
+         "cin_dx0": time_ms(lambda: cin_dx0(g, xk, w), 5),
+         "cin_dw": time_ms(lambda: cin_weight_grad(g, xk, x0), 5),
+         "dx0_width64_launch": time_ms(
+             lambda: cin_layer(g, xk, w.permute(2, 0, 1)), 3),
+         "cin_dx0_plain": time_ms(lambda: cin_dx0_plain(g, xk, w), 3),
+         "cin_dw_plain": time_ms(lambda: cin_weight_grad_plain(g, xk, x0),
+                                 3),
+         # one einsum a gradient, its operands ordered so that the first
+         # pair contracts into [B, Hp, F, D], not [B, H, Hp, D]
+         "dxk_einsum": time_ms(lambda: torch.einsum(
+             "hij,bhd,bjd->bid", w, g, x0), 3),
+         "dx0_einsum": time_ms(lambda: torch.einsum(
+             "hij,bhd,bid->bjd", w, g, xk), 3),
+         "dw_einsum": time_ms(lambda: torch.einsum(
+             "bid,bjd,bhd->hij", xk, x0, g), 3)}
+    leaves = [a.clone().requires_grad_() for a in (xk, x0, w)]
+    out = cin_layer(*leaves)
+    t["function_bwd"] = time_ms(lambda: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), 3)
+    del out, leaves
+    one = cin_tf32_floor_ms(B, H, Hp, F, D)       # one kernel's 3xTF32
     row = {"phase": "train_grad", "kernel": "cin", "shape": name,
            "max_rel_err": err, "rel_err": errs, "tol": CIN_GRAD_TOL,
-           "bwd_ms": dxk_ms + dx0_ms + dw_ms, "dxk_ms": dxk_ms,
-           "dx0_ms": dx0_ms, "dw_gemm_ms": dw_ms,
-           "permuted_pack_ms": pack_ms, "bound_ms": b_ms, "bound_by": b_by}
+           "bwd_ms": t["dxk"] + t["cin_dx0"] + t["cin_dw"], "ms": t,
+           # the three products: 3xTF32, one TF32 pass, the f32 rate
+           "tf32_floor_ms": 3 * one, "tf32_single_pass_ms": one,
+           "f32_bound_ms": bound(0, 3 * 2 * B * H * Hp * F * D)[0],
+           "card": card_line()}
     emit(row)
-    return row
+    rows = []
+    for kname, which, lib in (("cin_dw", "dw", "dw_einsum"),
+                              ("cin_dx0", "dx0", "dx0_einsum")):
+        nbytes, ops_ = cin_bwd_work(which, B, H, Hp, F, D, 4)
+        b_ms, b_by = bound(nbytes, 3 * ops_, TF32_OPS_PER_S)
+        rows.append({"name": kname, "route": "cuda",
+                     "source": KERNEL_INFO[kname][0],
+                     "replaces": KERNEL_INFO[kname][1],
+                     "shape": f"{name}: g f32 [{B}, {H}, {D}], xk [{B}, "
+                              f"{Hp}, {D}], x0 [{B}, {F}, {D}], w [{H}, "
+                              f"{Hp}, {F}]",
+                     "max_abs_err": abs_err[kname], "ms": t[kname],
+                     "plain_ms": t[kname + "_plain"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": t[lib],
+                     "f32_bound_ms": bound(nbytes, ops_)[0]})
+    return rows
 
 
 FLASH_GRAD_SHAPES = {
@@ -3294,10 +3402,13 @@ FLASH_GRAD_SHAPES = {
         {"B": 1, "T": 4096, "H": 16, "Hk": 16, "d": 128,
          "window": GLOBAL_WINDOW, "cap": 0.0, "dtype": torch.bfloat16},
 }
-# (B, Hp, F, H, D): serve_p99's two layer shapes, train_batch's Hp = 200
+# (B, Hp, F, H, D): serve_p99's and train_batch's two layer shapes (the
+# kernels line reads train_batch's Hp = 200 layer)
 CIN_GRAD_SHAPES = {"serve_p99 layer 0": (512, 39, 39, 200, 10),
                    "serve_p99 layer 1": (512, 200, 39, 200, 10),
+                   "train_batch layer 0": (65536, 39, 39, 200, 10),
                    "train_batch layer 1": (65536, 200, 39, 200, 10)}
+CIN_KERNELS_LINE_SHAPE = "train_batch layer 1"
 
 
 def no_plain_backward(timer: CallTimer, path: str) -> None:
@@ -3307,26 +3418,36 @@ def no_plain_backward(timer: CallTimer, path: str) -> None:
              f"the {path} path")
 
 
-def train_path(device) -> tuple[dict, dict]:
+def train_path(device) -> tuple[dict, list, list]:
     """Slice 10's main path: llama3.2-1b and gemma2-9b through
     ``TrainLoop`` and xDeepFM through ``launch.train.main``, with the
     launch counts zeroed just before and read just after; then the
-    gradient checks. Returns the counts and the llama layer's
-    ``flash_attention_bwd`` row."""
+    gradient checks. Returns the counts, the flash backward's rows (the
+    llama layer's first) and the CIN backward kernels' rows at
+    ``CIN_KERNELS_LINE_SHAPE``."""
     with CallTimer(kernel_ops, "flash_attention") as fwd, \
             CallTimer(flash_module, "flash_attention_bwd") as bwd, \
             CallTimer(flash_module, "flash_attention_bwd_plain") as plain, \
             CallTimer(kernel_ops, "cin_layer") as cin_fwd, \
             CallTimer(cin_module, "cin_layer") as cin_bwd, \
-            CallTimer(cin_module, "cin_weight_grad") as cin_dw:
+            CallTimer(cin_module, "cin_weight_grad") as cin_dw, \
+            CallTimer(cin_module, "cin_dx0") as cin_dx0_t, \
+            CallTimer(cin_module, "cin_weight_grad_plain") as dw_plain, \
+            CallTimer(cin_module, "cin_dx0_plain") as dx0_plain:
         _build.reset_launch_counts()
         lines = {arch: lm_train(arch, device, fwd, bwd) for arch in TRAIN_LM}
         torch.cuda.empty_cache()
-        lines["xdeepfm"] = xdeepfm_train(device, cin_fwd, cin_bwd, cin_dw)
+        lines["xdeepfm"] = xdeepfm_train(device, cin_fwd, cin_bwd, cin_dw,
+                                         cin_dx0_t)
         counts = _build.launch_counts()
         no_plain_backward(plain, "training")
+        for timer in (dw_plain, dx0_plain):
+            if timer.events:
+                fail(f"{timer.name} ran {len(timer.events)} times on the "
+                     "training path")
     emit({"phase": "train_path", "launches": counts})
-    for name in ("flash_attention", "flash_attention_bwd", "cin"):
+    for name in ("flash_attention", "flash_attention_bwd", "cin", "cin_dw",
+                 "cin_dx0"):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched on the training path")
     torch.cuda.empty_cache()
@@ -3340,18 +3461,21 @@ def train_path(device) -> tuple[dict, dict]:
         grad_rows.append(flash_grad_row(name, shape, device))
         torch.cuda.empty_cache()
     for name, shp in CIN_GRAD_SHAPES.items():
-        cin_grad_row(name, *shp, device)
+        rows = cin_grad_row(name, *shp, device)
+        if name == CIN_KERNELS_LINE_SHAPE:
+            cin_rows = rows
         torch.cuda.empty_cache()
     cin_train_rows(device)
     torch.cuda.empty_cache()
-    return counts, grad_rows
+    return counts, grad_rows, cin_rows
 
 
 def cin_train_rows(device) -> list:
     """The CIN layer at train_batch's two layer shapes (B = 65,536; Hp =
     39 and 200) on seeded inputs, held against its plain version within
     CIN_TOL of the largest output, then timed as in 11 beside
-    ``einsum``, the f32 bound and the 3xTF32 floor."""
+    ``einsum``, bound by its bytes or its three TF32 products (the
+    3xTF32 floor), the f32 rate's bound beside them."""
     gen = torch.Generator(device=device).manual_seed(12)
     rows = []
     for li, Hp in enumerate((39, 200)):
@@ -3368,6 +3492,7 @@ def cin_train_rows(device) -> list:
                  f"largest output, above {CIN_TOL[torch.float32]}")
         err = float((got - want).abs().max())
         del got, want
+        nbytes, ops_ = cin_work(B, H, Hp, F, D, 4)
         rows.append(kernel_row(
             "cin", f"train_batch layer {li}: xk f32 [{B}, {Hp}, {D}], x0 "
             f"[{B}, {F}, {D}], w [{H}, {Hp}, {F}]", err,
@@ -3375,10 +3500,8 @@ def cin_train_rows(device) -> list:
             lambda xk=xk, x0=x0, w=w: cin_layer_plain(xk, x0, w),
             lambda xk=xk, x0=x0, w=w: torch.einsum("hij,bid,bjd->bhd", w,
                                                    xk, x0),
-            (B * Hp * D + B * F * D + H * Hp * F + B * H * D) * 4,
-            2 * B * H * Hp * F * D, 5, rate=F32_OPS_PER_S, plain_reps=2,
-            path="train", layer=li,
-            tf32_floor_ms=cin_tf32_floor_ms(B, H, Hp, F, D)))
+            nbytes, 3 * ops_, 5, rate=TF32_OPS_PER_S, plain_reps=2,
+            path="train", layer=li, f32_bound_ms=bound(nbytes, ops_)[0]))
         del xk, x0, w
         torch.cuda.empty_cache()
     return rows
@@ -4401,7 +4524,7 @@ def main() -> int:
     model_rows = model_kernel_rows(lms, rec)
     del lms, rec
     held("model")
-    train_counts, grad_rows = train_path(device)
+    train_counts, grad_rows, cin_grad_rows = train_path(device)
     counts = {k: counts[k] + train_counts[k] for k in counts}
     held("train")
     gnn_counts = gnn_path(device)
@@ -4443,8 +4566,7 @@ def main() -> int:
         worst = max(errs[name], *(r["max_abs_err"] for r in model_rows
                                   if r["name"] == name))
         kernels.append({k: v for k, v in row.items()
-                        if k not in ("arch", "layer", "tf32_floor_ms",
-                                     "path")}
+                        if k not in ("arch", "layer", "path")}
                        | {"launches": counts[name], "max_abs_err": worst})
     # the backward's row: the llama3.2-1b layer in bf16
     row = grad_rows[0]
@@ -4454,6 +4576,11 @@ def main() -> int:
         | {"launches": counts["flash_attention_bwd"],
            "max_abs_err": max(errs["flash_attention_bwd"],
                               *(r["max_abs_err"] for r in grad_rows))})
+    # CIN's backward kernels: train_batch's Hp = 200 layer
+    for row in cin_grad_rows:
+        kernels.append(row | {"launches": counts[row["name"]],
+                              "max_abs_err": max(errs[row["name"]],
+                                                 row["max_abs_err"])})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

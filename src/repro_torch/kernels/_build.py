@@ -1,8 +1,10 @@
 """Build and load the CUDA kernels; count their launches and their work.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
-own shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds) and loaded with ``ctypes``. Libraries live in
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface (no PyTorch headers, so
+a build takes seconds) and loaded with ``ctypes``. A kernel's source is
+its name, except where ``SOURCES`` puts several kernels (each with its
+own entry point and launch count) in one file. Libraries live in
 ``build/repro_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source is rebuilt at its next use. All
 missing libraries are compiled at once, one ``nvcc`` process each.
@@ -29,7 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
+__all__ = ["KERNELS", "SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all",
+           "load",
            "count_launch", "launch_counts", "reset_launch_counts",
            "check_status", "lib_path", "zeroed_counters", "count_work",
            "kernel_work", "reset_kernel_work"]
@@ -37,7 +40,10 @@ __all__ = ["KERNELS", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu",
-           "flash_attention", "flash_attention_bwd", "cin")
+           "flash_attention", "flash_attention_bwd", "cin", "cin_dw",
+           "cin_dx0")
+# kernels that share a source file (the others are built from their name)
+SOURCES = {"cin_dw": "cin_bwd", "cin_dx0": "cin_bwd"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,6 +74,10 @@ _SIGNATURES = {
                                          _P]),
     "cin": ("repro_cin_layer", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
                                 _I, _I, _P, _P, _P]),
+    "cin_dw": ("repro_cin_dw", [_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P, _P, _P, _P, _P, _P]),
+    "cin_dx0": ("repro_cin_dx0", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                                  _I, _P, _P, _P, _P]),
 }
 
 _LIBS: dict = {}
@@ -132,18 +142,19 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     """Where kernel ``name``'s library lives (its build log beside it)."""
+    source = SOURCES.get(name, name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{source}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict:
     """Compile every kernel library that is missing, all in parallel.
-    Returns {name: seconds} for the ones compiled; raises with the
+    Returns {source: seconds} for the ones compiled; raises with the
     compiler's output if any fails."""
-    todo = {name: lib_path(name) for name in KERNELS
+    todo = {SOURCES.get(name, name): lib_path(name) for name in KERNELS
             if not lib_path(name).is_file()}
     if not todo:
         return {}

@@ -97,6 +97,20 @@ def cin_work(B: int, H: int, Hp: int, F: int, D: int,
             2 * B * H * Hp * F * D)
 
 
+def cin_bwd_work(which: str, B: int, H: int, Hp: int, F: int, D: int,
+                 item: int) -> tuple[int, int]:
+    """(bytes, operations) of one of a CIN layer's backward kernels, a
+    multiply and an add per (b, h, i, j, d) each: ``"dw"`` reads g, xk
+    and x0 once and writes dw [H, Hp, F] in f32 once; ``"dx0"`` reads g,
+    xk and w once and writes dx0 [B, F, D] once."""
+    ops = 2 * B * H * Hp * F * D
+    if which == "dw":
+        return (B * H * D + B * Hp * D + B * F * D) * item + H * Hp * F * 4, ops
+    if which == "dx0":
+        return (B * H * D + B * Hp * D + H * Hp * F + B * F * D) * item, ops
+    raise ValueError(f"cin_bwd_work: which is 'dw' or 'dx0', not {which!r}")
+
+
 def time_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` launches, each after
     a 256 MB write that evicts the 50 MB L2 cache (``flush``, or a buffer

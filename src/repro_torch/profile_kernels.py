@@ -39,6 +39,12 @@ picks some, all by default):
   * ``cin``: the CIN layer on xDeepFM serve_p99's shapes (B = 512, D =
     10, F = 39, H = 200; layer 0 Hp = 39, layer 1 Hp = 200), seeded
     inputs, beside ``torch.einsum``, the f32 bound and the 3xTF32 floor.
+  * ``cin_bwd``: the CIN layer's backward (``CinLayer``'s, through
+    ``torch.autograd.grad`` after its forward) at serve_p99's layer 1 and
+    train_batch's layers (B = 65,536; Hp = 39 and 200), f32, seeded;
+    where the tree has them, its dw and dx0 kernels alone
+    (``cin_weight_grad``, ``cin_dx0``); beside the three products'
+    3xTF32 floor and f32 bound.
   * ``walls``: what the tuner picks for the serving widths, the batched
     PPR run (B = 32) and a ``QueryService`` answering 48 requests on
     kron16 through the autotuned backend, and llama3.2-1b's prefill of
@@ -69,7 +75,8 @@ import time
 from pathlib import Path
 
 BATCH = {"rca": 16, "kron16": 32}
-SECTIONS = ("mxu", "flash", "frontier", "cin", "walls", "xdeepfm")
+SECTIONS = ("mxu", "flash", "frontier", "cin", "cin_bwd", "walls",
+            "xdeepfm")
 
 
 def load_roofline():
@@ -318,6 +325,40 @@ def main(argv=None) -> int:
                   "bound_by": b_by,
                   "tf32_floor_ms": rl.cin_tf32_floor_ms(B, H, Hp, F, D),
                   "max_abs_err_vs_einsum": err})
+
+    # ---- the CIN backward: the Function's, and its kernels where the
+    # tree has them
+    if "cin_bwd" in only:
+        cmod = sys.modules["repro_torch.kernels.cin"]
+        cgen = torch.Generator(device="cuda").manual_seed(5)
+        for name, (B, Hp) in (("serve_p99 layer 1", (512, 200)),
+                              ("train_batch layer 0", (65536, 39)),
+                              ("train_batch layer 1", (65536, 200))):
+            F, H, D = 39, 200, 10
+            xk, x0 = (torch.randn(s_, generator=cgen, device="cuda")
+                      for s_ in ((B, Hp, D), (B, F, D)))
+            w = torch.randn((H, Hp, F), generator=cgen, device="cuda") * (
+                2.0 / (Hp * F)) ** 0.5
+            g = torch.randn((B, H, D), generator=cgen, device="cuda")
+            leaves = [a.clone().requires_grad_() for a in (xk, x0, w)]
+            out = cin_layer(*leaves)
+            reps = 5 if B > 4096 else args.reps
+            pieces = {}
+            if hasattr(cmod, "cin_dx0"):
+                pieces["cin_dx0"] = time_ms(
+                    lambda: cmod.cin_dx0(g, xk, w), reps)
+                pieces["cin_dw"] = time_ms(
+                    lambda: cmod.cin_weight_grad(g, xk, x0), reps)
+            ops = 3 * 2 * B * H * Hp * F * D
+            emit({"kind": "kernel", "name": "cin_bwd", "shape": name,
+                  "B": B, "Hp": Hp, "bwd_ms": time_ms(
+                      lambda: torch.autograd.grad(out, leaves, g,
+                                                  retain_graph=True), reps),
+                  "pieces_ms": pieces,
+                  "tf32_floor_ms": 3 * rl.cin_tf32_floor_ms(B, H, Hp, F, D),
+                  "f32_bound_ms": rl.bound(0, ops)[0]})
+            del out, leaves, xk, x0, w, g
+            torch.cuda.empty_cache()
 
     # ---- walls: the tuner's picks, batched PPR and serving on kron16,
     # llama prefill

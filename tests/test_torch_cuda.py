@@ -38,7 +38,10 @@ from repro_torch.kernels.ell_pull_frontier import (ell_pull_frontier,
                                                    frontier_rows)
 from repro_torch.kernels.ell_spmv import (ell_row_plan, ell_spmv,
                                           ell_spmv_plain)
-from repro_torch.kernels.cin import cin_layer, cin_layer_plain
+from repro_torch.kernels import cin as cin_mod
+from repro_torch.kernels.cin import (cin_dx0, cin_dx0_plain, cin_layer,
+                                     cin_layer_plain, cin_weight_grad,
+                                     cin_weight_grad_plain)
 from repro_torch.kernels.flash_attention import (GLOBAL_WINDOW, HEAD_DIMS,
                                                  flash_attention,
                                                  flash_attention_bwd,
@@ -119,11 +122,14 @@ def test_each_wrapper_counts_its_launches(graphs, cuda):
     flash_attention_bwd(q, q, q, out, lse, q)
     xk = torch.ones((3, 4, 5), device=cuda)
     cin_layer(xk, xk, torch.ones((2, 4, 4), device=cuda))
+    g = torch.ones((3, 2, 5), device=cuda)
+    cin_weight_grad(g, xk, xk)
+    cin_dx0(g, xk, torch.ones((2, 4, 4), device=cuda))
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "ell_spmv": 1, "ell_pull_frontier": 1, "coo_push": 1,
         "coo_push_mxu": 1, "flash_attention": 1, "flash_attention_bwd": 1,
-        "cin": 1}
+        "cin": 1, "cin_dw": 1, "cin_dx0": 1}
 
 
 def test_frontier_full_equals_masked_full_scan(cuda):
@@ -716,10 +722,11 @@ def test_flash_attention_bwd_kernel_matches_its_plain_version(
                                         (37, 200, 39, 200, 10),
                                         (300, 13, 9, 37, 3)])
 def test_cin_layer_gradients_match_plain(cuda, B, Hp, F, H, D):
-    """The ``CinLayer`` Function (dxk and dx0 as kernel launches on
-    permuted weights, dw as the chunked GEMM) against autograd through
-    the plain version, f32: each within ``chip_smoke.CIN_GRAD_TOL``
-    (1e-4) of its largest entry; three launches, none plain."""
+    """The ``CinLayer`` Function (dxk a layer launch on a permuted
+    weight, dx0 and dw their own kernels) against autograd through the
+    plain version, f32: each within ``chip_smoke.CIN_GRAD_TOL`` (1e-4) of
+    its largest entry; four launches (the forward, dxk, dw, dx0), none
+    plain."""
     xk = normal((B, Hp, D), 4, cuda).requires_grad_()
     x0 = normal((B, F, D), 5, cuda).requires_grad_()
     w = (normal((H, Hp, F), 6, cuda) * (2.0 / (Hp * F)) ** 0.5
@@ -729,11 +736,65 @@ def test_cin_layer_gradients_match_plain(cuda, B, Hp, F, H, D):
     out = cin_layer(xk, x0, w)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, (xk, x0, w), g)
-    assert _build.launch_counts()["cin"] == 3
+    counts = _build.launch_counts()
+    assert (counts["cin"], counts["cin_dw"], counts["cin_dx0"]) == (2, 1, 1)
     want = torch.autograd.grad(cin_layer_plain(xk, x0, w), (xk, x0, w), g)
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert rel_gap(a, b) <= cs.CIN_GRAD_TOL
+
+
+# (Hp, F, H, D): the layers' shapes, odd H on the width of 64 (one and
+# two h tiles), F padded to 40 and 200 by the dx0 kernel and above 200
+# (two blocks of fields), Hp not a multiple of 16 or of the dx0 kernel's
+# groups of i
+CIN_BWD_SHAPES = [(39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
+                  (200, 39, 70, 10), (13, 9, 37, 3), (20, 41, 9, 4),
+                  (7, 7, 8, 6), (13, 230, 37, 3)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("B", (1, 37, 300))
+@pytest.mark.parametrize("Hp,F,H,D", CIN_BWD_SHAPES)
+def test_cin_bwd_kernels_match_plain(cuda, dtype, B, Hp, F, H, D):
+    """The dw and dx0 kernels against their plain versions on the same
+    inputs: dw (f32) within ``chip_smoke.CIN_GRAD_TOL`` (1e-4) of its
+    largest entry in both dtypes (bf16 inputs are exact in f32); dx0
+    within 1e-4 in f32 and ``chip_smoke.CIN_TOL`` (2e-2) in bf16 (its
+    output rounds to bf16). Few columns split dw's K and dx0's units over
+    CTAs (B = 1, 37); two launches give the same bits."""
+    xk = normal((B, Hp, D), 14, cuda, dtype)
+    x0 = normal((B, F, D), 15, cuda, dtype)
+    w = (normal((H, Hp, F), 16, cuda) * (2.0 / (Hp * F)) ** 0.5).to(dtype)
+    g = normal((B, H, D), 17, cuda, dtype)
+    dw, dx0 = cin_weight_grad(g, xk, x0), cin_dx0(g, xk, w)
+    assert torch.equal(dw, cin_weight_grad(g, xk, x0))
+    assert torch.equal(dx0, cin_dx0(g, xk, w))
+    want_dw = cin_weight_grad_plain(g, xk, x0)
+    want_dx0 = cin_dx0_plain(g, xk, w)
+    assert (dw.dtype, dw.shape) == (want_dw.dtype, want_dw.shape)
+    assert (dx0.dtype, dx0.shape) == (want_dx0.dtype, want_dx0.shape)
+    assert rel_gap(dw, want_dw) <= cs.CIN_GRAD_TOL
+    assert rel_gap(dx0, want_dx0) <= (cs.CIN_TOL[dtype]
+                                      if dtype == torch.bfloat16
+                                      else cs.CIN_GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+def test_cin_bwd_prepass_writes_the_packed_layouts(cuda, dtype):
+    """The kernels' pre-passes write the operands bit for bit as
+    ``dw_operands`` and ``dx0_operands`` lay them out (the layouts the
+    CPU tests check)."""
+    B, Hp, F, H, D = 37, 13, 9, 37, 3
+    xk = normal((B, Hp, D), 18, cuda, dtype)
+    x0 = normal((B, F, D), 19, cuda, dtype)
+    g = normal((B, H, D), 20, cuda, dtype)
+    w = normal((H, Hp, F), 21, cuda, dtype)
+    _, ops = cin_mod._dw_launch(g, xk, x0)
+    want = cin_mod.dw_operands(g, xk, x0)
+    assert all(torch.equal(ops[k], want[k]) for k in ("g", "xk", "x0"))
+    _, ga = cin_mod._dx0_launch(g, xk, w)
+    assert torch.equal(ga, cin_mod.dx0_operands(g))
 
 
 def test_cin_packing_follows_an_in_place_optimizer_step(cuda):

@@ -46,8 +46,8 @@ from repro_torch.graphs import GRAPH_ARRAYS, graph_from_arrays
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.roofline import (BF16_OPS_PER_S, HBM_BYTES_PER_S,
-                                          cin_work, flash_bwd_work,
-                                          flash_work)
+                                          cin_bwd_work, cin_work,
+                                          flash_bwd_work, flash_work)
 from repro_torch.launch import dryrun, hillclimb
 from repro_torch.launch.mesh import MeshLayout, make_production_mesh
 from repro_torch.models import attention, common
@@ -183,8 +183,15 @@ def test_cin_on_meta_counts_forward_and_backward_work():
     out.sum().backward()
     assert xk.grad.shape == xk.shape and x0.grad.shape == x0.shape
     assert w.grad.shape == w.shape
-    dxk, dx0 = cin_work(B, Hp, H, F, D, 4), cin_work(B, F, H, Hp, D, 4)
-    assert _build.kernel_work()["cin"]["flops"] == fwd[1] + dxk[1] + dx0[1]
+    # dxk a layer on the permuted weight; dx0 and dw their own kernels,
+    # each 2·B·H·Hp·F·D FLOP (what the dw GEMM counted as an addmm)
+    dxk = cin_work(B, Hp, H, F, D, 4)
+    work = _build.kernel_work()
+    assert work["cin"]["flops"] == fwd[1] + dxk[1]
+    for name, which in (("cin_dx0", "dx0"), ("cin_dw", "dw")):
+        nbytes, ops = cin_bwd_work(which, B, H, Hp, F, D, 4)
+        assert ops == 2 * B * H * Hp * F * D
+        assert work[name] == {"flops": ops, "bytes": nbytes}
     assert _build.launch_counts() == launches
 
 

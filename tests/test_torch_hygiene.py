@@ -105,7 +105,7 @@ def test_cuda_sources_have_a_plain_c_interface():
     sources = sorted((PKG / "kernels" / "csrc").glob("*.cu*"))
     assert {p.stem for p in sources if p.suffix == ".cu"} == {
         "ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu",
-        "flash_attention", "flash_attention_bwd", "cin"}
+        "flash_attention", "flash_attention_bwd", "cin", "cin_bwd"}
     for p in sources:
         assert "torch/" not in p.read_text() and "ATen" not in p.read_text()
 

@@ -236,10 +236,10 @@ def test_cin_splits_fill_the_card():
 
 
 def test_cin_splits_bound_each_range():
-    """No CTA accumulates more than 256 K tiles: the backward's dx0 at
-    train_batch (K = 200 · 200, 1,250 tiles, 5,120 column tiles) splits
-    in 5, at serve_p99 in 5 rather than 3; the forward's longest K (250
-    tiles) stays whole at a bulk batch."""
+    """No CTA accumulates more than 256 K tiles: a K of 200 · 200 (1,250
+    tiles) over 5,120 column tiles splits in 5, over 40 in 5 rather than
+    3; the forward's longest K (250 tiles) stays whole at a bulk
+    batch."""
     assert cin_splits(655_360, 1, 1250, 132) == 5
     assert cin_splits(5120, 1, 1250, 132) == 5
     assert cin_splits(2_621_440, 1, 250, 132) == 1

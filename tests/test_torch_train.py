@@ -314,10 +314,10 @@ def test_flash_function_grads_match_plain_autograd(T, H, Hk, d, window,
                                         (33, 13, 9, 37, 3)])
 def test_cin_function_grads_match_plain_autograd(B, Hp, F, H, D,
                                                  monkeypatch):
-    """dxk and dx0 through the layer on permuted weights, dw through the
-    chunked GEMM (chunks of at most 300 outer-product entries here, so
-    that every batch walks several) against autograd through the plain
-    version; f32, within 1e-5 of each leaf's largest entry."""
+    """dxk through the layer on a permuted weight, dx0 and dw through
+    their plain versions on the CPU (chunks of at most 300 entries here,
+    so that every batch walks several) against autograd through the
+    plain version; f32, within 1e-5 of each leaf's largest entry."""
     monkeypatch.setattr(cin_mod, "_PLAIN_CHUNK", 300)
     gen = torch.Generator().manual_seed(B)
     xk = torch.randn(B, Hp, D, generator=gen).requires_grad_()
@@ -367,7 +367,7 @@ def test_cin_weight_grad_chunks_bound_the_outer_product(monkeypatch):
     gen = torch.Generator().manual_seed(0)
     g, xk, x0 = (torch.randn(s, generator=gen)
                  for s in ((50, 6, 4), (50, 5, 4), (50, 3, 4)))
-    dw = cin_mod.cin_weight_grad(g, xk, x0)
+    dw = cin_mod.cin_weight_grad_plain(g, xk, x0)
     assert len(sizes) > 1 and max(sizes) <= 500
     want = torch.einsum("bhd,bid,bjd->hij", g, xk, x0)
     leaf_close(dw, want.numpy(), 1e-5)
