@@ -69,8 +69,11 @@ non-zero:
      4096} × GQA group {1, 2, 4, 8} × window {global, 17, 4096} ×
      softcap {0, 50} × {bf16, f32}; its backward kernel against
      ``flash_attention_bwd_plain`` on the same output and logsumexp over
-     head dim × dtype × T {1, 130, 384} × group × window {global, 17} ×
-     softcap (each gradient within 1e-4 f32, 1e-2 bf16 of its largest
+     head dim × dtype × T {1, 130, 200, 384, 1000, 2048} × group ×
+     window {global, 17} × softcap (T = 200 and 1,000 leave a ragged
+     last tile of 64 queries and of 64 or 128 keys; at 2,048 up to 32
+     key tiles add into one dQ tile in turn) (each gradient within 1e-4
+     f32, 1e-2 bf16 of its largest
      entry; two launches equal bit for bit; the forward's logsumexp
      within 1e-5 of the plain one's); the CIN layer over B {1, 37, 512} ×
      (Hp, F, H, D) {(39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
@@ -2395,8 +2398,10 @@ FLASH_GROUPS = (1, 2, 4, 8)
 FLASH_WINDOWS = (GLOBAL_WINDOW, 17, 4096)
 FLASH_CAPS = (0.0, 50.0)
 MODEL_DTYPES = (torch.bfloat16, torch.float32)
-# the backward kernel's grid (d and dtype as the forward's)
-FLASH_BWD_TS = (1, 130, 384)
+# the backward kernel's grid (d and dtype as the forward's): ragged last
+# query and key tiles (130, 200, 1,000), and many key tiles adding into
+# each dQ tile in turn (2,048)
+FLASH_BWD_TS = (1, 130, 200, 384, 1000, 2048)
 FLASH_BWD_WINDOWS = (GLOBAL_WINDOW, 17)
 CIN_BATCHES = (1, 37, 512)
 CIN_SHAPES = ((39, 39, 200, 10), (200, 39, 200, 10), (5, 4, 7, 6),
@@ -2479,7 +2484,7 @@ def grad_gaps(got, want) -> list:
 def flash_bwd_grid(device, gen) -> tuple[float, float, int]:
     """The backward kernel against ``flash_attention_bwd_plain`` on the
     same output and logsumexp (the kernel forward's), over head dim ×
-    dtype × T {1, 130, 384} × GQA group × window {global, 17} × softcap
+    dtype × T in FLASH_BWD_TS × GQA group × window {global, 17} × softcap
     {0, 50}: each gradient within FLASH_GRAD_TOL of its largest entry
     (:func:`grad_gaps`), two launches equal bit for bit, and the
     forward's logsumexp within 1e-5 of the plain one's largest |entry|.

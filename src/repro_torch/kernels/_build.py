@@ -70,7 +70,7 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _L,
                          _F, _F, _P]),
     "flash_attention_bwd": ("repro_flash_attention_bwd",
-                            [_P] * 12 + [_I, _L, _L, _I, _I, _I, _L, _F, _F,
+                            [_P] * 13 + [_I, _L, _L, _I, _I, _I, _L, _F, _F,
                                          _P]),
     "cin": ("repro_cin_layer", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
                                 _I, _I, _P, _P, _P]),

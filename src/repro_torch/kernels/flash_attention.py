@@ -19,12 +19,13 @@ Gradients: when grad is enabled and an input requires it,
 forward is the same launch (the plain version on the CPU) and also
 writes each row's logsumexp. Its backward, :func:`flash_attention_bwd`,
 launches the hand-written kernel in ``csrc/flash_attention_bwd.cu`` on a
-CUDA tensor (dK and dV per KV head, dQ per query head, from the saved
-output and logsumexp; no atomics) and runs
-:func:`flash_attention_bwd_plain` on a CPU one: a recompute one block of
-queries at a time (only the keys the block's causal window reaches), so
-the [T, T] scores never exist at once. The JAX package has no backward
-kernel: it differentiates its plain ``blockwise_sdpa``.
+CUDA tensor (from the saved output and logsumexp, each of the five
+products formed once: dK and dV per KV head, each key tile's part of dQ
+added into f32 tiles in key order, so two runs give the same bits) and
+runs :func:`flash_attention_bwd_plain` on a CPU one: a recompute one
+block of queries at a time (only the keys the block's causal window
+reaches), so the [T, T] scores never exist at once. The JAX package has
+no backward kernel: it differentiates its plain ``blockwise_sdpa``.
 
 On a ``meta`` tensor (the dry run) both directions launch nothing and
 run no plain version: they return outputs of the right shapes and add
@@ -198,6 +199,27 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _bwd_scratch(B: int, T: int, H: int, Hk: int, d: int, dtype,
+                 device) -> tuple[int, Optional[torch.Tensor],
+                                  Optional[torch.Tensor]]:
+    """The backward kernel's scratch besides lse and D (padded to ``Tp``,
+    a multiple of BWD_PAD positions): in bf16 the f32 dQ tiles, [B, H, Tp
+    / 64] tiles of 64 queries × d that the key tiles add into in order,
+    and zeroed uint32 flags (a tile counter, then a turn count for each
+    of the up to two pieces a dQ tile is written in); in f32 with a
+    group of heads each head's partial dK and dV."""
+    Tp = -(-T // BWD_PAD) * BWD_PAD
+    if dtype == torch.bfloat16:
+        return (Tp, torch.empty(B * H * Tp * d, dtype=torch.float32,
+                                device=device),
+                torch.zeros(1 + 2 * B * H * (Tp // BWD_PAD),
+                            dtype=torch.int32, device=device))
+    if H != Hk:
+        return Tp, torch.empty((2, B, T, H, d), dtype=torch.float32,
+                               device=device), None
+    return Tp, None, None
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor,
@@ -244,19 +266,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "meta":
         count_work("flash_attention_bwd", ops, nbytes)
         return dq, dk, dv
-    # the kernel's scratch: lse and D padded to BWD_PAD positions, and in
-    # f32 with a group of heads each head's partial dK and dV
-    Tp = -(-T // BWD_PAD) * BWD_PAD
+    Tp, scratch, sync = _bwd_scratch(B, T, H, Hk, d, q.dtype, q.device)
     rows = torch.empty((2, B, H, Tp), dtype=torch.float32, device=q.device)
-    part = torch.empty((2, B, T, H, d), dtype=torch.float32,
-                       device=q.device) \
-        if q.dtype == torch.float32 and H != Hk else None
     sc = d ** -0.5 if scale is None else float(scale)
     rc = load("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-        None if part is None else part.data_ptr(), DTYPE_CODES[q.dtype], B,
+        None if scratch is None else scratch.data_ptr(),
+        None if sync is None else sync.data_ptr(), DTYPE_CODES[q.dtype], B,
         T, H, Hk, d, window, float(softcap), sc,
         torch.cuda.current_stream().cuda_stream)
     check_status(rc, "flash_attention_bwd")

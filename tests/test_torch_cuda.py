@@ -691,14 +691,17 @@ def test_flash_attention_gradients_match_plain(cuda, dtype, T, group,
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32), ids=str)
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("T,group,window,softcap", [
-    (1, 2, GLOBAL_WINDOW, 0.0), (130, 4, 17, 50.0), (384, 8, GLOBAL_WINDOW,
-                                                     50.0)])
+    (1, 2, GLOBAL_WINDOW, 0.0), (130, 4, 17, 50.0),
+    (384, 8, GLOBAL_WINDOW, 50.0), (200, 1, GLOBAL_WINDOW, 0.0),
+    (1000, 8, 17, 50.0), (2048, 4, GLOBAL_WINDOW, 0.0)])
 def test_flash_attention_bwd_kernel_matches_its_plain_version(
         cuda, dtype, d, T, group, window, softcap):
     """The backward kernel against ``flash_attention_bwd_plain`` on the
     same output and logsumexp (``chip_smoke.grad_gaps``), the same bits
     from two launches, and the forward's logsumexp against the plain
-    one's."""
+    one's. T = 200 and 1,000 leave a ragged last tile of 64 queries and
+    of 64 or 128 keys; at 2,048 up to 32 key tiles add into each dQ tile
+    in turn, which two launches must still do in the same order."""
     B, Hk = 2, 2
     q = normal((B, T, Hk * group, d), 5, cuda, dtype)
     k = normal((B, T, Hk, d), 6, cuda, dtype)

@@ -27,6 +27,8 @@ is held to 1e-5 of the largest |entry| over the three gradients. On
 version on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,13 +39,15 @@ from jax.scipy.special import logsumexp
 from repro.kernels import ref as R
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.flash_attention import (GLOBAL_WINDOW,
+from repro_torch.kernels.flash_attention import (BWD_PAD, GLOBAL_WINDOW,
                                                  FlashAttention,
                                                  flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain_gqa)
 from repro_torch.kernels.roofline import flash_bwd_work, flash_pairs
+
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
 TOL = 1e-5
 B, HK, D = 2, 2, 16
@@ -205,9 +209,13 @@ def test_plain_backward_refuses_out_without_lse():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("window", [GLOBAL_WINDOW, 17])
+@pytest.mark.parametrize("T,d", [(300, 64), (2048, 256)])
 def test_backward_on_meta_counts_its_work_and_launches_nothing(dtype,
-                                                               window):
-    T, H, d = 300, 8, 64
+                                                               window, T, d):
+    """On meta: outputs of the right shapes, the work of five products
+    over the kept pairs (the kernel's scratch, its dQ tiles and turn
+    flags, is neither made nor counted), and no launch."""
+    H = 8
     q = torch.empty(B, T, H, d, dtype=dtype, device="meta")
     kv = torch.empty(B, T, HK, d, dtype=dtype, device="meta")
     lse = torch.empty(B, H, T, device="meta")
@@ -218,12 +226,38 @@ def test_backward_on_meta_counts_its_work_and_launches_nothing(dtype,
         (q.shape, dtype, "meta"), (kv.shape, dtype, "meta"),
         (kv.shape, dtype, "meta")]
     nbytes, ops = flash_bwd_work(B, T, H, HK, d, window, q.element_size())
+    assert ops == 10 * d * B * H * flash_pairs(T, window)
     assert _build.kernel_work()["flash_attention_bwd"] == {"flops": ops,
                                                            "bytes": nbytes}
     assert _build.launch_counts() == launches
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_bwd(q[..., :8], kv[..., :8], kv[..., :8],
                             q[..., :8], lse, q[..., :8])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("T,H,Hk,d", [(1, 4, 2, 64), (300, 8, 8, 256),
+                                      (4096, 32, 8, 64)])
+def test_backward_scratch_holds_dq_tiles_and_turn_flags(dtype, T, H, Hk, d):
+    """The kernel's scratch beside lse and D: in bf16 f32 dQ tiles of 64
+    queries x d for every (b, head, tile), and zeroed uint32 flags (the
+    tile counter, two turn counts a dQ tile); in f32 each head's partial
+    dK and dV where a KV head serves a group, else nothing."""
+    Tp, scratch, sync = fa_mod._bwd_scratch(B, T, H, Hk, d, dtype,
+                                            torch.device("cpu"))
+    assert Tp % BWD_PAD == 0 and T <= Tp < T + BWD_PAD
+    if dtype == torch.bfloat16:
+        assert scratch.dtype == torch.float32
+        assert scratch.numel() == B * H * (Tp // 64) * 64 * d
+        assert sync.dtype == torch.int32
+        assert sync.numel() == 1 + 2 * B * H * (Tp // 64)
+        assert not sync.any()
+    else:
+        assert sync is None
+        if H == Hk:
+            assert scratch is None
+        else:
+            assert scratch.shape == (2, B, T, H, d)
 
 
 def test_function_on_meta_counts_forward_and_backward():
