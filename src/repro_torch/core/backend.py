@@ -41,6 +41,7 @@ from ..kernels.ell_pull_frontier import (default_pull_cap,
                                          frontier_rows)
 from ..kernels.ell_spmv import _out_dtype, col_lanes, ell_row_plan, ell_spmv
 from ..kernels.layout import build_dual_ell
+from ..obs.trace import region
 from .cost_model import COUNTER, Cost, counter
 from .direction import Direction
 from .primitives import (combine_identity, frontier_in_edges,
@@ -261,7 +262,8 @@ class CudaBackend(EllBackend):
         default_factory=lambda: {"kernel_pull": 0, "kernel_push": 0,
                                  "kernel_pull_frontier": 0,
                                  "skip_empty_pull": 0,
-                                 "fallback_pull": 0, "fallback_push": 0})
+                                 "fallback_pull": 0, "fallback_push": 0,
+                                 "pull_edges": 0})
     _tuned: dict = dataclasses.field(default_factory=dict, repr=False)
     _plans: dict = dataclasses.field(default_factory=dict, repr=False)
     _layouts: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -274,8 +276,10 @@ class CudaBackend(EllBackend):
         return self is other
 
     def telemetry_counters(self) -> dict:
-        """Kernel launches by kind, empty pulls skipped and fallbacks to
-        the plain paths (``stats``)."""
+        """``stats``: kernel launches by kind, empty pulls skipped,
+        fallbacks to the plain paths, and ``pull_edges``, the in-edge
+        slots the kernel pulls read: ``m`` a full scan, ``rows · d_ell``
+        a frontier pull, the host integers the Cost charge uses."""
         return dict(self.stats)
 
     def _mode(self, values, combine, msg_fn) -> Optional[str]:
@@ -293,7 +297,8 @@ class CudaBackend(EllBackend):
         hit = cache.get(k)
         if hit is not None and hit[0]() is g:
             return hit[1]
-        obj = build()
+        with region("backend.build"):
+            obj = build()
         cache[k] = (weakref.ref(g, lambda _, c=cache, k=k: c.pop(k, None)),
                     obj)
         return obj
@@ -328,7 +333,8 @@ class CudaBackend(EllBackend):
         return self._tune(
             ("pull", g.n, g.d_ell, width, dt, combine, mode),
             lambda: tune.tune_pull(g.n, g.d_ell, width, dt, combine, mode,
-                                   values.device),
+                                   values.device,
+                                   layout=(g.ell_idx, g.ell_w, g.in_deg)),
             lambda: tune.pull_candidates(g.n)[0])
 
     def _pull_cap(self, g: Graph) -> int:
@@ -399,14 +405,18 @@ class CudaBackend(EllBackend):
         width = _width(values)
         if touched is None:
             self.stats["kernel_pull"] += 1
-            out = ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
-                           combine=combine, msg=mode,
-                           block_n=self._pull_block_n(g, values, combine,
-                                                      mode),
-                           row_len=g.in_deg, plan=self.pull_plan(g, width))
+            self.stats["pull_edges"] += g.m
+            with region("backend.pull"):
+                out = ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
+                               combine=combine, msg=mode,
+                               block_n=self._pull_block_n(g, values,
+                                                          combine, mode),
+                               row_len=g.in_deg,
+                               plan=self.pull_plan(g, width))
             return out, cost.charge(reads=counter(g.m, g.device) * width,
                                     writes=counter(g.n, g.device) * width)
         edges, verts, cnt, fits = self._pull_scan_stats(g, touched)
+        self.stats["pull_edges"] += edges
         if cnt == 0:
             self.stats["skip_empty_pull"] += 1
             odt = _out_dtype(values.dtype, g.ell_w.dtype, mode, combine)
@@ -415,24 +425,28 @@ class CudaBackend(EllBackend):
                              device=values.device)
         elif fits:
             self.stats["kernel_pull_frontier"] += 1
-            layout = self.dual_layout(g)
-            rows_n = min(max(8, 1 << (cnt - 1).bit_length()),
-                         self._pull_cap(g))
-            out = ell_pull_frontier_full(
-                pad_values(values), layout.in_idx, layout.in_w,
-                frontier_rows(touched, rows_n), combine=combine, msg=mode,
-                block_r=self._pull_frontier_block(g, rows_n, values,
-                                                  combine, mode),
-                row_len=g.in_deg)
+            with region("backend.pull_frontier"):
+                layout = self.dual_layout(g)
+                rows_n = min(max(8, 1 << (cnt - 1).bit_length()),
+                             self._pull_cap(g))
+                out = ell_pull_frontier_full(
+                    pad_values(values), layout.in_idx, layout.in_w,
+                    frontier_rows(touched, rows_n), combine=combine,
+                    msg=mode,
+                    block_r=self._pull_frontier_block(g, rows_n, values,
+                                                      combine, mode),
+                    row_len=g.in_deg)
         else:
             self.stats["kernel_pull"] += 1
-            out = mask_untouched(
-                ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
-                         combine=combine, msg=mode,
-                         block_n=self._pull_block_n(g, values, combine,
-                                                    mode),
-                         row_len=g.in_deg, plan=self.pull_plan(g, width)),
-                touched, combine)
+            with region("backend.pull"):
+                out = mask_untouched(
+                    ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
+                             combine=combine, msg=mode,
+                             block_n=self._pull_block_n(g, values, combine,
+                                                        mode),
+                             row_len=g.in_deg,
+                             plan=self.pull_plan(g, width)),
+                    touched, combine)
         return out, cost.charge(reads=counter(edges * width, g.device),
                                 writes=counter(verts * width, g.device))
 
@@ -442,16 +456,17 @@ class CudaBackend(EllBackend):
             self.stats["fallback_push"] += 1
             return super().push(g, values, frontier, combine, msg_fn, cost)
         self.stats["kernel_push"] += 1
-        if g.m:
-            block_e, bin_n, strategy = self.push_blocks(g, values, combine,
-                                                        mode)
-            out = coo_push(values, frontier, g.coo_src, g.coo_dst, g.coo_w,
-                           g.n, combine=combine, msg=mode,
-                           plan=self.push_plan(g, bin_n), strategy=strategy,
-                           block_e=block_e)
-        else:
-            out = coo_push(values, frontier, g.coo_src, g.coo_dst, g.coo_w,
-                           g.n, combine=combine, msg=mode)
+        with region("backend.push"):
+            if g.m:
+                block_e, bin_n, strategy = self.push_blocks(
+                    g, values, combine, mode)
+                out = coo_push(values, frontier, g.coo_src, g.coo_dst,
+                               g.coo_w, g.n, combine=combine, msg=mode,
+                               plan=self.push_plan(g, bin_n),
+                               strategy=strategy, block_e=block_e)
+            else:
+                out = coo_push(values, frontier, g.coo_src, g.coo_dst,
+                               g.coo_w, g.n, combine=combine, msg=mode)
         k = frontier_out_edges(g, frontier)
         width = _width(values)
         # the binning pass reads and rewrites every edge once

@@ -39,6 +39,7 @@ import torch
 
 from ..graphs.structure import Graph
 from ..models.common import tree_leaves
+from ..obs.trace import region
 from ..resilience import DivergenceError, SolveInterrupted, fault_point
 from .backend import DenseBackend, ExchangeBackend
 from .cost_model import (COUNTER, Cost, CostPredictor, StepStats, StepTrace,
@@ -352,10 +353,9 @@ class PushPullEngine:
                 fault_point("engine.step")
             if not ph.going(st):
                 return st
-            if watch is None:
-                st = self._step(g, ph, st)
-            else:
-                st = watch.step(lambda: self._step(g, ph, st))
+            with region("engine.step"):
+                st = (self._step(g, ph, st) if watch is None
+                      else watch.step(lambda: self._step(g, ph, st)))
 
     def _finish(self, g: Graph, ph: _PhaseRun, st: _Loop,
                 c: _Carry) -> bool:
@@ -391,42 +391,43 @@ class PushPullEngine:
 
     def run(self, g: Graph, init_state: Any,
             init_frontier: torch.Tensor) -> EngineResult:
-        if isinstance(self.program, PhaseProgram):
-            pp = self.program
-            phases = tuple(pp.phases)
-            max_epochs = (self.max_steps if pp.max_epochs is None
-                          else pp.max_epochs)
-            epoch_cond, epoch_exit = pp.epoch_cond, pp.epoch_exit_fn
-        else:
-            phases = (Phase(program=self.program,
-                            max_steps=self.max_steps),)
-            max_epochs, epoch_cond, epoch_exit = 1, None, None
+        with region("engine.run"):
+            if isinstance(self.program, PhaseProgram):
+                pp = self.program
+                phases = tuple(pp.phases)
+                max_epochs = (self.max_steps if pp.max_epochs is None
+                              else pp.max_epochs)
+                epoch_cond, epoch_exit = pp.epoch_cond, pp.epoch_exit_fn
+            else:
+                phases = (Phase(program=self.program,
+                                max_steps=self.max_steps),)
+                max_epochs, epoch_cond, epoch_exit = 1, None, None
 
-        c = self._carry(g, init_state, init_frontier)
+            c = self._carry(g, init_state, init_frontier)
 
-        def run_epoch(epoch: int) -> bool:
-            conv = True
-            for phase in phases:
-                ph, st = self._enter(g, phase, c, epoch)
-                conv = self._finish(g, ph, self._loop(g, ph, st), c)
-            if epoch_exit is not None:
-                c.state, c.frontier = epoch_exit(g, c.state, c.frontier,
-                                                 epoch)
-            return conv
+            def run_epoch(epoch: int) -> bool:
+                conv = True
+                for phase in phases:
+                    ph, st = self._enter(g, phase, c, epoch)
+                    conv = self._finish(g, ph, self._loop(g, ph, st), c)
+                if epoch_exit is not None:
+                    c.state, c.frontier = epoch_exit(g, c.state, c.frontier,
+                                                     epoch)
+                return conv
 
-        if max_epochs == 1 and epoch_cond is None:
-            converged, epochs = run_epoch(0), 1
-        else:
-            epochs, conv = 0, True
-            while epochs < max_epochs and (
-                    epoch_cond is None
-                    or bool(epoch_cond(g, c.state, epochs))):
-                conv = run_epoch(epochs)
-                epochs += 1
-            # converged iff the work test (not the epoch bound) ended it
-            converged = (not bool(epoch_cond(g, c.state, epochs))
-                         if epoch_cond is not None else conv)
-        return self._result(c, converged, epochs)
+            if max_epochs == 1 and epoch_cond is None:
+                converged, epochs = run_epoch(0), 1
+            else:
+                epochs, conv = 0, True
+                while epochs < max_epochs and (
+                        epoch_cond is None
+                        or bool(epoch_cond(g, c.state, epochs))):
+                    conv = run_epoch(epochs)
+                    epochs += 1
+                # converged iff the work test (not the epoch bound) ended it
+                converged = (not bool(epoch_cond(g, c.state, epochs))
+                             if epoch_cond is not None else conv)
+            return self._result(c, converged, epochs)
 
     # -- host-driven stepwise execution (telemetry and resilience) --------
     @property

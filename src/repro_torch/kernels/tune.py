@@ -59,6 +59,7 @@ import time
 import numpy as np
 import torch
 
+from ..obs.trace import region
 from ..resilience import FaultInjected, ProbeTimeout, fault_point, note
 from ._build import launch_counts
 from .coo_push import build_push_plan, coo_push
@@ -336,7 +337,8 @@ def _probe_and_keep(key: str, kernel: str, probe, default):
     cache (a default taken after failed probes stays off disk)."""
     with _LOCK:
         _STATS["probes"] += 1
-    best, probed = _probe_guarded(kernel, probe, default)
+    with region("tune.probe"):
+        best, probed = _probe_guarded(kernel, probe, default)
     if probed:
         _cache_put(key, best)
     return best
@@ -362,9 +364,13 @@ def _cached_int(key: str):
 
 
 def tune_pull(n: int, d_ell: int, width: int, dtype, combine: str,
-              msg: str, device) -> int:
+              msg: str, device, layout: tuple | None = None) -> int:
     """Best ``block_n`` for an ELL pull of this shape on ``device``
-    (synthetic probe, shape-and-platform-keyed, persisted)."""
+    (shape-and-platform-keyed, persisted). With ``layout = (ell_idx,
+    ell_w, row_len)``, the graph's own layout and in-degrees, the probe
+    pulls it over its real slots, the work the kernel does on the path;
+    else a random full layout, on which the rungs can tie where the
+    graph's own rows set them apart."""
     device = torch.device(device)
     cands = pull_candidates(n, width)
     if len(cands) == 1:                   # nothing to probe
@@ -377,12 +383,16 @@ def tune_pull(n: int, d_ell: int, width: int, dtype, combine: str,
 
     def probe(in_time):
         t0, launches0 = time.perf_counter(), launch_counts()
-        gen = _generator(device, 0)
-        idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
-                            dtype=torch.int32, device=device)
-        w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+        if layout is None:
+            gen = _generator(device, 0)
+            idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
+                                dtype=torch.int32, device=device)
+            w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+            row_len = None
+        else:
+            idx, w, row_len = layout
         x = _ones(n + 1, width, dtype, device)
-        plan = ell_row_plan(None, n, d_ell, width, device)
+        plan = ell_row_plan(row_len, n, d_ell, width, device)
         return _ladder(key, cands, lambda b: _time(lambda: ell_spmv(
             x, idx, w, combine=combine, msg=msg, block_n=b, plan=plan),
             device), in_time, t0, launches0)

@@ -4,7 +4,9 @@ of ``repro.obs.export``.
 Two formats from the same event ring:
 
 * **JSONL** (:func:`write_jsonl`): one event per line. Line 1 is a
-  ``meta`` event with the schema id and the ring's drop count; the tail
+  ``meta`` event with the schema id, the ring's drop count and
+  ``epoch_ns``, the wall clock at ``ts_us`` 0 (the clock of a
+  ``torch.profiler`` trace, so the ring can be laid over one); the tail
   appends one ``counter`` event per registry entry, so the file stands
   alone.
 * **Chrome trace events** (:func:`write_chrome_trace`): the
@@ -185,7 +187,7 @@ def _final_events(tel) -> list[dict[str, Any]]:
     now = round(tel.now_us(), 3)
     out: list[dict[str, Any]] = [
         {"ts_us": 0.0, "kind": "meta", "schema": SCHEMA_ID,
-         "dropped": tel.dropped}]
+         "dropped": tel.dropped, "epoch_ns": tel.epoch_ns}]
     out.extend(tel.events)
     for name, value in tel.counters.as_dict().items():
         out.append({"ts_us": now, "kind": "counter", "name": name,
@@ -230,9 +232,13 @@ def write_chrome_trace(tel_or_events, path) -> int:
     events = (_final_events(tel_or_events)
               if hasattr(tel_or_events, "events") else list(tel_or_events))
     pid = 1
+    head: dict[str, Any] = {"name": "repro_torch"}
+    meta = next((ev for ev in events if ev.get("kind") == "meta"), {})
+    if "epoch_ns" in meta:          # the ring's wall-clock anchor
+        head["epoch_ns"] = meta["epoch_ns"]
     out: list[dict[str, Any]] = [
         {"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
-         "args": {"name": "repro_torch"}}]
+         "args": head}]
     for ev in events:
         kind, ts = ev.get("kind"), ev.get("ts_us", 0.0)
         tid = int(ev.get("run", -1)) + 1  # run n -> track n+1, misc on 0

@@ -7,7 +7,7 @@ One schema for the numbers every layer computes:
         collective_bytes / barriers / iterations   — §4 model totals
     engine.runs / steps / push_steps / pull_steps / trace_overflow
     backend.CudaBackend.kernel_pull / kernel_push / kernel_pull_frontier
-        / skip_empty_pull / fallback_pull / fallback_push
+        / skip_empty_pull / fallback_pull / fallback_push / pull_edges
     tuner.mem_hits / disk_hits / misses / probes / writes /
         write_errors / probe_retries / probe_failures /
         probe_timeouts / probe_degraded

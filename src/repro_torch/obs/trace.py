@@ -1,9 +1,16 @@
-"""The span and timer API and the bounded event ring. PyTorch port of
-``repro.obs.trace``.
+"""The program's ranges, the span and timer API and the bounded event
+ring. PyTorch port of ``repro.obs.trace``.
 
-1. **Nothing when absent.** Telemetry is a handle the caller passes, not
-   a global: ``api.solve(..., telemetry=None)`` never imports this
-   module and runs ``PushPullEngine.run`` unchanged.
+1. **One flag read when no profiler records.** :func:`region` marks a
+   layer boundary of the port (``repro.engine.step``,
+   ``repro.backend.pull``, ...). While a ``torch.profiler`` records, it
+   opens a range there, so the range lands in the same kineto trace as
+   the kernels and shares the device trace's clock. Otherwise it returns
+   a shared ``nullcontext`` after one read of the profiler's enabled
+   flag. It never synchronizes, never reads a device value and needs no
+   handle. A :class:`Telemetry` handle is what the caller passes for
+   more: ``api.solve(..., telemetry=None)`` runs ``PushPullEngine.run``
+   unchanged, with no event ring.
 2. **Times execution, not launches.** PyTorch returns before the card
    finishes, so a host clock read right after a launch times the
    launch. Step times come from the engine's
@@ -24,10 +31,35 @@ import time
 from typing import Any, Iterator
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from .metrics import MetricRegistry
 
-__all__ = ["Telemetry"]
+__all__ = ["Telemetry", "region"]
+
+#: The prefix of every range the program opens in a profiler trace.
+RANGE_PREFIX = "repro."
+_NO_RANGE = contextlib.nullcontext()
+
+
+def region(name: str):
+    """A context manager around one layer boundary of the port: a range
+    named ``"repro." + name`` while a profiler records, else a shared
+    ``nullcontext``.
+
+        with region("engine.step"):
+            st = self._step(g, ph, st)
+
+    The range is a function-scope ``RecordFunction``
+    (``_RecordFunctionFast``), which the profiler records as a host
+    operation. A ``torch.profiler.record_function`` range would be a user
+    annotation, which kineto mirrors on the device's timeline, and a
+    reader of kineto events without ``activity_type`` (torch 2.11) takes
+    that mirror for a kernel.
+    """
+    if not _profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return torch._C._profiler._RecordFunctionFast(RANGE_PREFIX + name)
 
 
 class Telemetry:
@@ -66,6 +98,10 @@ class Telemetry:
         self.counters = MetricRegistry()
         self._runs = 0
         self._t0 = time.perf_counter()
+        #: The wall clock (``time.time_ns``) at the moment ``ts_us`` is 0:
+        #: ``epoch_ns + 1000 * ts_us`` puts an event on the clock a
+        #: ``torch.profiler`` trace stamps its events with.
+        self.epoch_ns = time.time_ns()
 
     # -- clock -----------------------------------------------------------
     def now_us(self) -> float:
@@ -119,14 +155,17 @@ class Telemetry:
         ``ts_us`` is the span's start and ``dur_us`` its wall time, the
         pair the Chrome ``"X"`` exporter needs. With a CUDA ``device``
         the span ends with ``torch.cuda.synchronize(device)``, so it
-        times the work it launched, not the launches.
+        times the work it launched, not the launches. The span is also a
+        :func:`region` of the same name.
         """
-        t0 = self.now_us()
-        sp = dict(fields)
-        try:
-            yield sp
-        finally:
-            if device is not None and torch.device(device).type == "cuda":
-                torch.cuda.synchronize(device)
-            sp.setdefault("dur_us", round(self.now_us() - t0, 3))
-            self.emit("span", name, ts_us=t0, **sp)
+        with region(name):
+            t0 = self.now_us()
+            sp = dict(fields)
+            try:
+                yield sp
+            finally:
+                if (device is not None
+                        and torch.device(device).type == "cuda"):
+                    torch.cuda.synchronize(device)
+                sp.setdefault("dur_us", round(self.now_us() - t0, 3))
+                self.emit("span", name, ts_us=t0, **sp)

@@ -22,6 +22,7 @@ from ..core.cost_model import Cost
 from ..core.direction import DirectionPolicy
 from ..core.engine import PushPullEngine
 from ..graphs.structure import Graph
+from ..obs.trace import region
 from .programs import BatchSpec, _sources_array, get_batch_spec
 
 __all__ = ["BatchResult", "solve_batch", "run_chunk", "default_step_bound"]
@@ -97,12 +98,13 @@ def run_chunk(g: Graph, algorithm: str, batch: int, *, state, frontier,
     """One (possibly partial) batched engine run from a carried state —
     the scheduler's chunk primitive. Returns the raw ``EngineResult``
     and the per-query done mask."""
-    bspec, policy, backend, static_kw = _resolve(
-        g, algorithm, None, policy, backend, kw)
-    engine = _engine_for(g, algorithm, bspec, batch, policy, backend,
-                         max_steps, static_kw)
-    res = engine.run(g, state, frontier)
-    return res, bspec.done(g, res.state, None, **kw)
+    with region("batch.run_chunk"):
+        bspec, policy, backend, static_kw = _resolve(
+            g, algorithm, None, policy, backend, kw)
+        engine = _engine_for(g, algorithm, bspec, batch, policy, backend,
+                             max_steps, static_kw)
+        res = engine.run(g, state, frontier)
+        return res, bspec.done(g, res.state, None, **kw)
 
 
 def default_step_bound(g: Graph, algorithm: str, batch: int, *,
@@ -122,22 +124,23 @@ def solve_batch(g: Graph, algorithm: str, *, sources, policy=None,
                 telemetry=None, **kw) -> BatchResult:
     """Batched multi-query solve — see :func:`repro_torch.api.solve_batch`
     for the public contract."""
-    batch = int(_sources_array(sources).shape[0])
-    bspec, policy, backend, static_kw = _resolve(
-        g, algorithm, sources, policy, backend, kw)
-    tcap = api._DEFAULT_TRACE_CAPACITY if telemetry is not None else 0
-    engine = _engine_for(g, algorithm, bspec, batch, policy, backend,
-                         max_steps, static_kw, trace_capacity=tcap)
-    state0, frontier0 = bspec.init(g, sources, **kw)
-    if telemetry is None:
-        res = engine.run(g, state0, frontier0)
-    else:
-        res = api._solve_observed(telemetry, engine, g, state0, frontier0,
-                                  algorithm=algorithm, policy=policy,
-                                  backend=backend)
-    done = bspec.done(g, res.state, None, **kw)
-    states = [bspec.extract(g, res.state, i) for i in range(batch)]
-    return BatchResult(states=states, state=res.state, cost=res.cost,
-                       steps=res.steps, push_steps=res.push_steps,
-                       converged=res.converged, epochs=res.epochs,
-                       done=done, batch=batch)
+    with region("batch.solve_batch"):
+        batch = int(_sources_array(sources).shape[0])
+        bspec, policy, backend, static_kw = _resolve(
+            g, algorithm, sources, policy, backend, kw)
+        tcap = api._DEFAULT_TRACE_CAPACITY if telemetry is not None else 0
+        engine = _engine_for(g, algorithm, bspec, batch, policy, backend,
+                             max_steps, static_kw, trace_capacity=tcap)
+        state0, frontier0 = bspec.init(g, sources, **kw)
+        if telemetry is None:
+            res = engine.run(g, state0, frontier0)
+        else:
+            res = api._solve_observed(telemetry, engine, g, state0, frontier0,
+                                      algorithm=algorithm, policy=policy,
+                                      backend=backend)
+        done = bspec.done(g, res.state, None, **kw)
+        states = [bspec.extract(g, res.state, i) for i in range(batch)]
+        return BatchResult(states=states, state=res.state, cost=res.cost,
+                           steps=res.steps, push_steps=res.push_steps,
+                           converged=res.converged, epochs=res.epochs,
+                           done=done, batch=batch)

@@ -34,12 +34,16 @@ counted and noted for ``repro_torch.obs``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any, Optional
 
+import numpy as np
+
 from .. import api
 from ..graphs.structure import Graph
+from ..obs.trace import region
 from ..resilience import (AdmissionError, DeadlineExceeded, FaultInjected,
                           fault_point, note)
 from .batch import default_step_bound, run_chunk
@@ -47,6 +51,9 @@ from .cache import ResultCache, graph_fingerprint
 from .programs import batchable, get_batch_spec
 
 __all__ = ["QueryService", "QueryRecord"]
+
+#: Finished queries whose queue and in-slot waits ``stats()`` reports.
+WAITS_KEPT = 4096
 
 
 def _source_kwarg(algorithm: str) -> str:
@@ -69,6 +76,8 @@ class QueryRecord:
     error: Optional[Exception] = None   # the failure, if serving failed
     deadline_ms: Optional[float] = None  # wall budget from submit time
     submitted_at: float = 0.0  # clock() at submit (deadline anchor)
+    slotted_at: Optional[float] = None   # clock() on taking a slot
+    finished_at: Optional[float] = None  # clock() when its result landed
 
     @property
     def done(self) -> bool:
@@ -169,6 +178,10 @@ class QueryService:
         self.admission_rejected = 0
         self.cache_errors = 0
         self._failures: deque = deque(maxlen=64)
+        # (queue, in-slot) ms of the newest WAITS_KEPT slotted queries
+        # that finished, a ring: row n % WAITS_KEPT holds the n-th
+        self._waits = np.zeros((WAITS_KEPT, 2))
+        self._finished_waits = 0
 
     def _emit(self, name: str, **fields) -> None:
         if self.telemetry is not None:
@@ -280,10 +293,13 @@ class QueryService:
         """One scheduling action: run a chunk of the active batch (or
         start one, or serve one unbatchable query). Returns the number
         of queries completed by this step."""
-        if self._active is None and not self._start_next_group():
-            return 0
-        if self._active is None:                     # served unbatchable
-            return 1
+        if self._active is None:
+            with region("service.start"):
+                started = self._start_next_group()
+            if not started:
+                return 0
+            if self._active is None:                 # served unbatchable
+                return 1
         return self._run_chunk()
 
     def run_until_complete(self, max_rounds: int = 100_000) -> None:
@@ -309,7 +325,24 @@ class QueryService:
                 "admission_rejected": self.admission_rejected,
                 "cache_errors": self.cache_errors,
                 "failures": list(self._failures),
-                "cache": self.cache.stats()}
+                "cache": self.cache.stats(),
+                "waits": self._wait_stats()}
+
+    def _wait_stats(self) -> dict:
+        """``count`` of the kept waits and the nearest-rank p50 and p95
+        of each kind, in ms, where there are any: ``queue`` from submit
+        to slot, ``in_slot`` from slot to result. Cache hits, coalesced
+        followers and failed queries never held a slot and are left
+        out."""
+        count = min(self._finished_waits, len(self._waits))
+        out: dict = {"count": count}
+        if count:
+            waits = np.sort(self._waits[:count], axis=0)
+            for q in (50, 95):
+                row = waits[max(0, math.ceil(q / 100.0 * count) - 1)]
+                out[f"queue_p{q}_ms"] = float(row[0])
+                out[f"in_slot_p{q}_ms"] = float(row[1])
+        return out
 
     # -- internals -------------------------------------------------------
     def _cache_lookup(self, ckey):
@@ -391,10 +424,17 @@ class QueryService:
             cacheable = converged
         if cacheable:
             self._cache_store(ckey, (state, converged))
+        now = self._clock()
         first = True
         for rid in self._inflight.pop(ckey, ()):
             rec = self._records[rid]
             rec.state, rec.converged = state, converged
+            rec.finished_at = now
+            if rec.slotted_at is not None:
+                self._waits[self._finished_waits % len(self._waits)] = (
+                    (rec.slotted_at - rec.submitted_at) * 1e3,
+                    (now - rec.slotted_at) * 1e3)
+                self._finished_waits += 1
             # coalesced followers count as cache-served, for reproducible
             # (cacheable) results only
             rec.cached = cacheable and not first
@@ -440,6 +480,7 @@ class QueryService:
                 return True      # every requester timed out while queued
             if source is not None:
                 params[_source_kwarg(algorithm)] = source
+            self._records[rid].slotted_at = self._clock()
             try:
                 r = self._chunk_call(
                     lambda: api.solve(self.g, algorithm, policy=policy,
@@ -461,6 +502,9 @@ class QueryService:
         taken = [t for t in taken if self._reap_expired(t[1], "queued")]
         if not taken:
             return True          # the whole head timed out while queued
+        now = self._clock()
+        for t in taken:
+            self._records[t[0]].slotted_at = now
         width = len(taken)
         params = dict(taken[0][3])
         try:
@@ -489,76 +533,82 @@ class QueryService:
         # chunks never exceed the unchunked run's own step budget
         t0 = (self.telemetry.now_us() if self.telemetry is not None
               else 0.0)
-        try:
-            res, done = self._chunk_call(
-                lambda: run_chunk(
-                    self.g, act.algorithm, act.width, state=act.state,
-                    frontier=act.frontier, policy=act.policy,
-                    backend=act.backend,
-                    max_steps=min(self.chunk_steps, act.step_bound),
-                    **act.params))
-        except Exception as e:
-            for i, slot in enumerate(act.slot_rids):
-                if slot is not None:
-                    self._fail(slot[1], e, slot=i,
-                               chunk=act.slot_chunks[i])
-            self._active = None
-            return 0
-        self.chunks_run += 1
-        act.state = res.state
-        # lockstep batches consume the program's bound unit together;
-        # each query's budget counts from its admission
-        act.total_steps += int(res.epochs if bspec.bound_unit == "epochs"
-                               else res.steps)
-        done = (done | bool(res.converged)).cpu().tolist()
+        with region("service.chunk"):
+            try:
+                res, done = self._chunk_call(
+                    lambda: run_chunk(
+                        self.g, act.algorithm, act.width, state=act.state,
+                        frontier=act.frontier, policy=act.policy,
+                        backend=act.backend,
+                        max_steps=min(self.chunk_steps, act.step_bound),
+                        **act.params))
+            except Exception as e:
+                for i, slot in enumerate(act.slot_rids):
+                    if slot is not None:
+                        self._fail(slot[1], e, slot=i,
+                                   chunk=act.slot_chunks[i])
+                self._active = None
+                return 0
+            self.chunks_run += 1
+            act.state = res.state
+            # lockstep batches consume the program's bound unit together;
+            # each query's budget counts from its admission
+            act.total_steps += int(res.epochs
+                                   if bspec.bound_unit == "epochs"
+                                   else res.steps)
+            done = (done | bool(res.converged)).cpu().tolist()
         if self.telemetry is not None:
             # the done mask's host read synchronized the chunk, so the
-            # span covers its execution
+            # span covers its execution; it bears the range's name
             self.telemetry.emit(
                 "span", "service.chunk", ts_us=t0,
                 dur_us=round(self.telemetry.now_us() - t0, 3),
                 algorithm=act.algorithm, width=act.width, steps=res.steps)
-        finished = 0
-        queue = self._queues.get(act.group, deque())
-        # refill only a full-width batch with no other group waiting: an
-        # under-width batch drains and restarts wider, and a waiting
-        # group gets the slots once this batch drains
-        others_waiting = any(q for k, q in self._queues.items()
-                             if k != act.group and q)
-        can_refill = act.width >= self.slots and not others_waiting
-        for i in range(act.width):
-            if act.slot_rids[i] is not None:
-                # mid-batch deadline check: a slot nobody wants anymore
-                # is abandoned (its column keeps stepping, unread)
-                if not self._reap_expired(act.slot_rids[i][1],
-                                          "running"):
-                    act.slot_rids[i] = None
-                    finished += 1
-            if act.slot_rids[i] is not None:
-                act.slot_chunks[i] += 1
-                consumed = act.total_steps - act.slot_steps0[i]
-                exhausted = (act.slot_chunks[i]
-                             >= self.max_chunks_per_query
-                             or consumed >= act.step_bound)
-                if exhausted and not done[i]:
-                    self.force_retired += 1
-                    self._emit("service.force_retire",
-                               rid=act.slot_rids[i][0],
-                               algorithm=act.algorithm)
-                if done[i] or exhausted:
-                    _, ckey = act.slot_rids[i]
-                    self._finish(ckey, bspec.extract(self.g, act.state, i),
-                                 converged=bool(done[i]))
-                    act.slot_rids[i] = None
-                    finished += 1
-            if act.slot_rids[i] is None and queue and can_refill:
-                rid, ckey, source, params = queue.popleft()
-                act.state, act.frontier = bspec.admit(
-                    self.g, act.state, None, i, source, **act.params)
-                act.slot_rids[i] = (rid, ckey)
-                act.slot_chunks[i] = 0
-                act.slot_steps0[i] = act.total_steps
-        act.frontier = bspec.frontier_of(self.g, act.state)
+        with region("service.retire"):
+            finished = 0
+            queue = self._queues.get(act.group, deque())
+            # refill only a full-width batch with no other group waiting:
+            # an under-width batch drains and restarts wider, and a
+            # waiting group gets the slots once this batch drains
+            others_waiting = any(q for k, q in self._queues.items()
+                                 if k != act.group and q)
+            can_refill = act.width >= self.slots and not others_waiting
+            for i in range(act.width):
+                if act.slot_rids[i] is not None:
+                    # mid-batch deadline check: a slot nobody wants
+                    # anymore is abandoned (its column keeps stepping,
+                    # unread)
+                    if not self._reap_expired(act.slot_rids[i][1],
+                                              "running"):
+                        act.slot_rids[i] = None
+                        finished += 1
+                if act.slot_rids[i] is not None:
+                    act.slot_chunks[i] += 1
+                    consumed = act.total_steps - act.slot_steps0[i]
+                    exhausted = (act.slot_chunks[i]
+                                 >= self.max_chunks_per_query
+                                 or consumed >= act.step_bound)
+                    if exhausted and not done[i]:
+                        self.force_retired += 1
+                        self._emit("service.force_retire",
+                                   rid=act.slot_rids[i][0],
+                                   algorithm=act.algorithm)
+                    if done[i] or exhausted:
+                        _, ckey = act.slot_rids[i]
+                        self._finish(ckey,
+                                     bspec.extract(self.g, act.state, i),
+                                     converged=bool(done[i]))
+                        act.slot_rids[i] = None
+                        finished += 1
+                if act.slot_rids[i] is None and queue and can_refill:
+                    rid, ckey, source, params = queue.popleft()
+                    act.state, act.frontier = bspec.admit(
+                        self.g, act.state, None, i, source, **act.params)
+                    act.slot_rids[i] = (rid, ckey)
+                    self._records[rid].slotted_at = self._clock()
+                    act.slot_chunks[i] = 0
+                    act.slot_steps0[i] = act.total_steps
+            act.frontier = bspec.frontier_of(self.g, act.state)
         if not queue:
             self._queues.pop(act.group, None)
         if all(s is None for s in act.slot_rids):

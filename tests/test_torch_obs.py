@@ -14,12 +14,18 @@ the JAX package's ``repro.obs`` and ``PushPullEngine.run_stepwise``.
     reference's in every field but the times and the backend's name,
     ``decision_audit`` and ``render_report`` give the reference's result
     on the same events, and ``solve_batch`` and ``QueryService``
-    telemetry match the reference's.
+    telemetry match the reference's;
+  * the port's own: its ``repro.*`` profiler ranges (none entered with
+    no profiler recording, each layer's count under one), the backend's
+    ``pull_edges`` counter, and the ring's wall-clock anchor
+    ``epoch_ns``.
 """
 
+import collections
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +48,7 @@ from repro_torch.obs.export import (OBS_EVENT_SCHEMA, _final_events,
                                     load_jsonl, validate_events,
                                     validate_trace_file, write_chrome_trace,
                                     write_jsonl)
+from repro_torch.kernels import tune
 from repro_torch.obs.metrics import collect_tuner
 from repro_torch.obs.report import decision_audit, main, render_report
 from repro_torch.service import QueryService
@@ -408,10 +415,17 @@ def test_query_service_telemetry_matches_reference(pair):
     assert service_events(tel) == service_events(ref_tel)
     # the single wcc solve carries run and step events
     assert strip(tel.events) == strip(ref_tel.events)
+    # the port's own wait gauges (``stats()["waits"]``) aside
     service = {k: v for k, v in tel.counters.as_dict().items()
-               if k.startswith("service.")}
+               if k.startswith("service.")
+               and not k.startswith("service.waits.")}
     assert service == {k: v for k, v in ref_tel.counters.as_dict().items()
                        if k.startswith("service.")}
+    # folded in when the bfs batch drained: its two slotted queries (the
+    # duplicate coalesced); the wcc solve after it is the third
+    assert tel.counters.get("service.waits.count") == 2
+    assert tel.counters.get("service.waits.in_slot_p95_ms") >= 0
+    assert svc.stats()["waits"]["count"] == 3
     assert tel.counters.get("service.batches_started") >= 1
     assert validate_events(_final_events(tel)) == []
 
@@ -433,3 +447,162 @@ def test_tuner_and_backend_counters(pair):
     assert counters == be.stats and counters["kernel_push"] > 0
     assert tel.counters.get("backend.CudaBackend.kernel_push") == \
         counters["kernel_push"]
+
+
+# ---------------------------------------------------------------------
+# the program's ranges and counters
+
+
+def _session(tg, be, telemetry=None):
+    """A batched PPR solve, then a service session: a full-width batch
+    that refills, a coalesced duplicate, an unbatchable single solve."""
+    br = api.solve_batch(tg, "ppr", sources=[0, 5, 7], backend=be)
+    svc = QueryService(tg, slots=2, chunk_steps=3, backend=be,
+                       telemetry=telemetry)
+    for s in (1, 2, 3, 1):
+        svc.submit("ppr", s)
+    svc.submit("pagerank", iters=5)
+    svc.run_until_complete()
+    return br, svc
+
+
+def test_no_range_is_entered_without_a_profiler(pair, monkeypatch):
+    _, tg = pair
+    entered = []
+
+    def counting(real):
+        def enter(name, *a, **k):
+            entered.append(name)
+            return real(name, *a, **k)
+        return enter
+    for mod, attr in ((torch._C._profiler, "_RecordFunctionFast"),
+                      (torch.profiler, "record_function"),
+                      (torch.autograd.profiler, "record_function")):
+        monkeypatch.setattr(mod, attr, counting(getattr(mod, attr)))
+    be = pinned("cuda")
+    _session(tg, be)
+    _session(tg, be, telemetry=Telemetry())
+    assert entered == []
+    # the same calls do enter them while a profiler records
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _session(tg, be)
+    assert "repro.engine.step" in entered
+
+
+def _ranges(prof) -> collections.Counter:
+    return collections.Counter(
+        ev.name() for ev in prof.profiler.kineto_results.events()
+        if ev.name().startswith("repro."))
+
+
+def test_each_layer_opens_its_range_under_a_profiler(pair):
+    _, tg = pair
+    be = pinned("cuda")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        br = api.solve_batch(tg, "ppr", sources=[0, 5, 7], backend=be)
+    got = _ranges(prof)
+    # a fresh backend builds the pull's row plan once, then every step
+    # is one full-scan pull
+    assert got == {"repro.batch.solve_batch": 1, "repro.engine.run": 1,
+                   "repro.engine.step": br.steps,
+                   "repro.backend.pull": br.steps,
+                   "repro.backend.build": 1}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        br, svc = _session(tg, be)
+    got, st = _ranges(prof), svc.stats()
+    chunks, starts = st["chunks_run"], st["batches_started"] + 1
+    assert got["repro.batch.solve_batch"] == 1
+    assert got["repro.service.start"] == starts
+    assert got["repro.service.chunk"] == got["repro.service.retire"] \
+        == got["repro.batch.run_chunk"] == chunks
+    # one engine run per chunk, the batch's and the single solve's
+    assert got["repro.engine.run"] == chunks + 2
+    assert got["repro.engine.step"] >= br.steps + chunks
+    # a build only on a miss: the row plans of widths not seen before
+    assert got["repro.backend.build"] == len(be._plans) - 1
+
+
+def _sparse():
+    """A graph of low in-degree, so that a late BFS's unvisited rows fit
+    the frontier pull."""
+    from repro_torch.graphs import erdos_renyi
+    return erdos_renyi(300, 3.0, seed=2, device="cpu")
+
+
+def test_push_frontier_pull_and_probe_ranges(tmp_path, monkeypatch):
+    tg = _sparse()
+    be = CudaBackend(autotune=False, block_n=64, block_e=128,
+                     push_block_n=64, push_strategy="scan",
+                     pull_frontier_cap=1 << 20)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        r = api.solve(tg, "bfs", root=0, policy="auto", backend=be)
+        with Telemetry().span("work"):
+            pass
+    got = _ranges(prof)
+    assert got["repro.engine.step"] == r.steps
+    assert got["repro.backend.push"] == be.stats["kernel_push"] > 0
+    assert got["repro.backend.pull_frontier"] == \
+        be.stats["kernel_pull_frontier"] > 0
+    assert got["repro.work"] == 1                 # a Telemetry span
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))
+    tune.clear_memory_cache()
+    try:
+        probes = tune.tune_stats()["probes"]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            tune.tune_pull(300, 6, 4, torch.int32, "min", "copy", "cpu")
+        assert tune.tune_stats()["probes"] == probes + 1
+        assert _ranges(prof)["repro.tune.probe"] == 1
+    finally:
+        tune.clear_memory_cache()
+
+
+def test_pull_edges_counts_the_slots_each_kernel_pull_reads(pair):
+    _, tg = pair
+    be = pinned("cuda")
+    br = api.solve_batch(tg, "ppr", sources=[0, 5, 7], backend=be)
+    assert be.stats["pull_edges"] == br.steps * tg.m
+    assert be.stats["kernel_pull"] == br.steps
+    # a pull-only BFS: the touched (unvisited) rows' slots, or a full
+    # scan where they do not fit, as _pull_scan_stats prices each pull
+    tg = _sparse()
+    be = CudaBackend(autotune=False, block_n=64, block_e=128,
+                     push_block_n=64, push_strategy="scan",
+                     pull_frontier_cap=1 << 20)
+    priced = []
+    real = be._pull_scan_stats
+
+    def scan_stats(g, touched):
+        out = real(g, touched)
+        priced.append(out[0])
+        return out
+    object.__setattr__(be, "_pull_scan_stats", scan_stats)
+    r = api.solve(tg, "bfs", root=0, policy="pull", backend=be)
+    assert len(priced) == r.steps and be.stats["kernel_pull_frontier"] > 0
+    assert be.stats["pull_edges"] == sum(priced)
+    assert be.stats["pull_edges"] < r.steps * tg.m
+
+
+def test_ring_export_carries_its_wall_clock_anchor(pair, tmp_path):
+    before = time.time_ns()
+    tel = Telemetry()
+    after = time.time_ns()
+    assert before <= tel.epoch_ns <= after
+    _, tg = pair
+    api.solve(tg, "bfs", root=0, policy="auto", telemetry=tel)
+    path = tmp_path / "trace.jsonl"
+    write_jsonl(tel, path)
+    meta = load_jsonl(path)[0]
+    assert meta["kind"] == "meta" and meta["epoch_ns"] == tel.epoch_ns
+    assert validate_trace_file(path) and \
+        ref_export.validate_trace_file(path)
+    for source in (tel, load_jsonl(path)):
+        write_chrome_trace(source, tmp_path / "trace.json")
+        head = json.loads((tmp_path / "trace.json").read_text()
+                          )["traceEvents"][0]
+        assert head["ph"] == "M" and head["args"]["epoch_ns"] == \
+            tel.epoch_ns

@@ -200,3 +200,74 @@ def test_batched_results_do_not_alias_the_running_batch(pair):
         got = svc.poll(rid)
         for k in want:
             assert torch.equal(got[k], want[k])
+
+
+def _rank(values, q):
+    vals = sorted(values)
+    return vals[max(0, -(-q * len(vals) // 100) - 1)]
+
+
+def test_waits_are_stamped_on_the_services_clock(pair, monkeypatch):
+    """Queue and in-slot waits on an injected clock that moves only in a
+    chunk (1 s) and a single solve (0.25 s): exact for queries slotted
+    at a batch's start, at a refill and for a single solve; coalesced
+    followers and cache hits never hold a slot and are left out."""
+    from repro_torch.service import scheduler
+    _, tg = pair
+    now = [0.0]
+    chunks = []                      # the rids slotted in each chunk
+    run_chunk, solve = scheduler.run_chunk, api.solve
+
+    def timed_chunk(*a, **k):
+        chunks.append({s[0] for s in svc._active.slot_rids if s})
+        now[0] += 1.0
+        return run_chunk(*a, **k)
+
+    def timed_solve(*a, **k):
+        now[0] += 0.25
+        return solve(*a, **k)
+    monkeypatch.setattr(scheduler, "run_chunk", timed_chunk)
+    monkeypatch.setattr(api, "solve", timed_solve)
+    svc = QueryService(tg, slots=2, chunk_steps=1, clock=lambda: now[0])
+    assert svc.stats()["waits"] == {"count": 0}
+    batched = [svc.submit("bfs", s) for s in (0, 50, 60)]   # 60 refills
+    follower = svc.submit("bfs", 50)
+    now[0] = 2.0
+    svc.run_until_complete()
+    t_single = now[0]
+    single = svc.submit("pagerank", iters=3)
+    now[0] += 0.5
+    svc.run_until_complete()
+    hit = svc.submit("bfs", 0)
+    want = []
+    for rid in batched:
+        first = min(i for i, c in enumerate(chunks) if rid in c)
+        last = max(i for i, c in enumerate(chunks) if rid in c)
+        rec = svc.record(rid)
+        assert rec.slotted_at == 2.0 + first
+        assert rec.finished_at == 3.0 + last
+        want.append(((2.0 + first) * 1e3, (last - first + 1) * 1e3))
+    assert svc.record(batched[2]).slotted_at > 2.0      # a refill
+    rec = svc.record(single)
+    assert (rec.slotted_at, rec.finished_at) == (t_single + 0.5,
+                                                 t_single + 0.75)
+    want.append((500.0, 250.0))
+    assert svc.record(follower).slotted_at is None
+    assert svc.record(follower).finished_at == \
+        svc.record(batched[1]).finished_at
+    assert svc.record(hit).cached and svc.record(hit).slotted_at is None
+    got = svc.stats()["waits"]
+    assert got["count"] == 4
+    for q in (50, 95):
+        assert got[f"queue_p{q}_ms"] == _rank([w[0] for w in want], q)
+        assert got[f"in_slot_p{q}_ms"] == _rank([w[1] for w in want], q)
+    # only the newest WAITS_KEPT finished queries are kept
+    monkeypatch.setattr(scheduler, "WAITS_KEPT", 2)
+    svc = QueryService(tg, clock=lambda: now[0])
+    for iters, wait in ((3, 4.0), (4, 1.0), (5, 2.0)):
+        svc.submit("pagerank", iters=iters)
+        now[0] += wait
+        svc.run_until_complete()
+    got = svc.stats()["waits"]
+    assert got["count"] == 2
+    assert (got["queue_p50_ms"], got["queue_p95_ms"]) == (1000.0, 2000.0)

@@ -6,8 +6,8 @@
     ``cpu|...`` for CPU tensors) round-trips, a poisoned entry is
     re-probed, and a garbage file degrades to the memory tier;
   * push group pruning and the pull ladder's stop, on injected timings;
-  * the CUDA backend takes its blocks from the tuner, and a partial pin
-    overrides only its own part.
+  * the CUDA backend takes its blocks from the tuner, probed on the
+    graph's own layout, and a partial pin overrides only its own part.
 
 Every test points ``$REPRO_CACHE_DIR`` at ``tmp_path``.
 """
@@ -125,6 +125,31 @@ def test_pull_ladder_stops_at_a_slow_rung(cache, monkeypatch):
                           "cpu") == cands[1]
     rec = tune.probe_records()[-1]
     assert rec["timed"] == 4 and rec["pruned"] == len(cands) - 4
+
+
+def test_pulls_are_probed_on_the_graphs_own_layout(cache, monkeypatch):
+    """On a random layout of the graph's shape the pull's rungs can tie
+    where the graph's own rows set them apart, so the backend probes
+    both pulls on the graph's layout and in-degrees."""
+    g = erdos_renyi(600, 4.0, seed=4, device="cpu")
+    seen = []
+    for name in ("ell_spmv", "ell_pull_frontier"):
+        real = getattr(tune, name)
+
+        def record(x, idx, *a, _real=real, _name=name, **k):
+            seen.append((_name, idx is g.ell_idx))
+            return _real(x, idx, *a, **k)
+        monkeypatch.setattr(tune, name, record)
+    be = CudaBackend(pull_frontier_cap=1 << 20)
+    api.solve_batch(g, "ppr", sources=[0, 5], backend=be)
+    api.solve(g, "bfs", root=1, policy="pull", backend=be)
+    assert {k[0] for k in be._tuned} >= {"pull", "pullf"}
+    assert ("ell_spmv", True) in seen and ("ell_spmv", False) not in seen
+    assert ("ell_pull_frontier", True) in seen
+    # without a layout the probe still times a random one of the shape
+    seen.clear()
+    tune.tune_pull(300, 6, 4, torch.float32, "sum", "copy", "cpu")
+    assert seen and not any(own for _, own in seen)
 
 
 def test_backend_takes_the_tuner_and_partial_pins(cache):
