@@ -64,6 +64,10 @@ non-zero:
      row plan) at width 1 and at the serving width; the frontier pull
      (``row_len = in_deg``) beside the full-scan pull of the same payload,
      its yardstick, since it reads a subset of the full scan's bytes.
+     Then ``"ppr_step"``'s row (``ppr_step_row``): batched PPR's fused
+     pull and update (``ell_spmv_ppr_step``) on a uniform random graph
+     of 2^21 vertices at width 64, bit for bit the unfused step (the
+     padded payload, ``ell_spmv``, ``ppr_update``) and timed beside it.
   7. ``"model_kernel_grid"``: flash attention against its plain version
      over head dim {16, 32, 64, 128, 256} × T {1, 63, 129, 130, 300,
      4096} × GQA group {1, 2, 4, 8} × window {global, 17, 4096} ×
@@ -328,7 +332,8 @@ from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
     default_pull_cap, ell_pull_frontier, ell_pull_frontier_plain,
     frontier_plan, frontier_rows)
 from repro_torch.kernels.ell_spmv import (  # noqa: E402
-    _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain)
+    _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain, ell_spmv_ppr_step,
+    ell_spmv_ppr_step_plain, ppr_update)
 from repro_torch.kernels.roofline import (  # noqa: E402
     BF16_OPS_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, bound, cin_bwd_work,
     cin_tf32_floor_ms, cin_work, flash_bwd_work, flash_work,
@@ -368,6 +373,9 @@ flash_module = sys.modules["repro_torch.kernels.flash_attention"]
 KERNEL_INFO = {
     "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
                  "src/repro/kernels/ell_spmv.py:97"),
+    # the full-scan pull with batched PPR's update as its epilogue
+    "ell_spmv_ppr": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
+                     "src/repro/kernels/ell_spmv.py:97"),
     "ell_pull_frontier": ("src/repro_torch/kernels/csrc/ell_pull_frontier.cu",
                           "src/repro/kernels/ell_pull_frontier.py:112"),
     "coo_push": ("src/repro_torch/kernels/csrc/coo_push.cu",
@@ -1846,6 +1854,61 @@ def more_kernel_rows(gname: str, g, auto, results: dict,
                reps=reps, path="solve_more", graph=gname,
                launches=by_alg["pr_delta"]["coo_push"], strategy=strategy)
     torch.cuda.synchronize()
+
+
+def ppr_step_row(device, scale: int = 21, width: int = 64) -> dict:
+    """Row 1f: one batched PPR step on a uniform random graph of 2^scale
+    vertices and 32 · 2^scale directed edges (GAP's Urand at degree 16),
+    at ``width`` columns: the fused ``ell_spmv_ppr_step`` against the
+    unfused step (the padded payload, ``ell_spmv``, ``ppr_update``), bit
+    for bit, both timed in this call. The bound counts what the fused
+    step must move: the m int32 indices, row_len, the payload, base and
+    rank read once and the ranks written once."""
+    n = 1 << scale
+    g = card_erdos_renyi(n, 32 * n, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    rank = torch.rand((n, width), generator=gen, device=device) / n
+    base = torch.zeros((n, width), device=device)
+    base[torch.randint(0, n, (width,), generator=gen, device=device),
+         torch.arange(width, device=device)] = 0.15
+    resid = torch.full((width,), float("inf"), device=device)
+    resid[0] = 0.0                                 # one converged column
+    x = rank / g.out_deg.clamp(min=1).to(torch.float32)[:, None]
+    be = api.CudaBackend()
+    bn = be._pull_block_n(g, x, "sum", "copy")
+    plan = be.pull_plan(g, width)
+    kw = dict(damp=0.85, tol=1e-6, block_n=bn, plan=plan)
+
+    def fused():
+        return ell_spmv_ppr_step(x, g.ell_idx, g.ell_w, base, rank, resid,
+                                 **kw)
+
+    def unfused():
+        msgs = ell_spmv(pad_values(x), g.ell_idx, g.ell_w, "sum", "copy",
+                        block_n=bn, row_len=g.in_deg, plan=plan)
+        return ppr_update(base, rank, resid, msgs, 0.85, 1e-6)
+
+    got, want = fused(), unfused()
+    for a, b in zip(got, want):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail("ell_spmv_ppr_step differs from ell_spmv + ppr_update")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got, ell_spmv_ppr_step_plain(
+                  x, g.ell_idx, g.ell_w, base, rank, resid, damp=0.85,
+                  tol=1e-6, row_len=g.in_deg)))
+    shape = (f"x f32[{n}, {width}] idx[{n},{g.d_ell}] (m {g.m}) row_len "
+             f"in_deg block_n {bn} classes {list(plan.class_off)} hub "
+             f"pieces {plan.pieces} sum/copy + PPR update")
+    row = kernel_row("ell_spmv_ppr", shape, err, fused,
+                     lambda: ell_spmv_ppr_step_plain(
+                         x, g.ell_idx, g.ell_w, base, rank, resid,
+                         damp=0.85, tol=1e-6, row_len=g.in_deg),
+                     None, nbytes=g.m * 4 + n * 4 + 4 * n * width * 4,
+                     ops=g.m * width, reps=8, plain_reps=1,
+                     unfused_ms=time_ms(unfused, 8), graph=f"urand{scale}",
+                     path="ppr_step", bit_equal_unfused=True)
+    del g, x, base, rank, got, want
+    return row
 
 
 # -- slice 9: the sharded engine -------------------------------------------
@@ -4522,6 +4585,8 @@ def main() -> int:
     # the loop's g would hold kron16 (its ELL view is 5.2 GB) to the end
     del graphs, ways, more, g
     held("graph phases")
+    ppr_step_row(device)
+    held("ppr_step")
 
     errs.update(model_kernel_grid(device))
     lms, rec, model_counts = model_path(device)

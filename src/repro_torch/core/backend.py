@@ -39,7 +39,8 @@ from ..kernels.coo_push import (DEFAULT_BIN_N, MXU_MAX_BIN, build_push_plan,
 from ..kernels.ell_pull_frontier import (default_pull_cap,
                                          ell_pull_frontier_full,
                                          frontier_rows)
-from ..kernels.ell_spmv import _out_dtype, col_lanes, ell_row_plan, ell_spmv
+from ..kernels.ell_spmv import (PPR_STEP_MAX_WIDTH, _out_dtype, col_lanes,
+                                ell_row_plan, ell_spmv, ell_spmv_ppr_step)
 from ..kernels.layout import build_dual_ell
 from ..obs.trace import region
 from .cost_model import COUNTER, Cost, counter
@@ -115,6 +116,14 @@ class ExchangeBackend:
                                combine=combine, msg_fn=msg_fn,
                                touched=touched, cost=cost)
         return out, cost, xstate
+
+    def pull_update(self, g: Graph, values, state, spec, cost: Cost):
+        """A full-scan pull of ``values`` and the program's update fused
+        into one step, for a program whose ``pull_update`` is ``spec``:
+        ``(state, frontier, converged, cost)``, exactly what the pull and
+        ``update_fn`` give, or None where this backend does not fuse
+        them (the default), and the engine runs the two."""
+        return None
 
     def predict_comm_bytes(self, g: Graph, values, frontier) -> tuple:
         """Predicted inter-device wire bytes of one (push, pull) step,
@@ -231,7 +240,11 @@ class CudaBackend(EllBackend):
     ``push`` runs ``coo_push`` over a bin plan built once per (graph,
     bin width). Charges equal ``predict_pull_scan``
     (pull) and ``m`` reads + ``m`` writes of binning plus ``k·width``
-    (push).
+    (push). A batched PPR step (``pull_update`` spec ``("ppr", damp,
+    tol)``) on a float32 payload of at most ``PPR_STEP_MAX_WIDTH``
+    columns runs its full-scan pull and update as one launch,
+    ``ell_spmv_ppr_step``, with the full scan's charges, and counts it
+    in ``stats["fused_pull_update"]`` as well as ``kernel_pull``.
 
     Block sizes and the push reduce strategy come from
     ``kernels/tune.py``, probed once per (graph shape, payload shape,
@@ -263,7 +276,7 @@ class CudaBackend(EllBackend):
                                  "kernel_pull_frontier": 0,
                                  "skip_empty_pull": 0,
                                  "fallback_pull": 0, "fallback_push": 0,
-                                 "pull_edges": 0})
+                                 "pull_edges": 0, "fused_pull_update": 0})
     _tuned: dict = dataclasses.field(default_factory=dict, repr=False)
     _plans: dict = dataclasses.field(default_factory=dict, repr=False)
     _layouts: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -277,9 +290,11 @@ class CudaBackend(EllBackend):
 
     def telemetry_counters(self) -> dict:
         """``stats``: kernel launches by kind, empty pulls skipped,
-        fallbacks to the plain paths, and ``pull_edges``, the in-edge
-        slots the kernel pulls read: ``m`` a full scan, ``rows · d_ell``
-        a frontier pull, the host integers the Cost charge uses."""
+        fallbacks to the plain paths, ``pull_edges``, the in-edge slots
+        the kernel pulls read (``m`` a full scan, ``rows · d_ell`` a
+        frontier pull, the host integers the Cost charge uses), and
+        ``fused_pull_update``, the full-scan pulls that ran with their
+        program's update (counted in ``kernel_pull`` too)."""
         return dict(self.stats)
 
     def _mode(self, values, combine, msg_fn) -> Optional[str]:
@@ -449,6 +464,27 @@ class CudaBackend(EllBackend):
                     touched, combine)
         return out, cost.charge(reads=counter(edges * width, g.device),
                                 writes=counter(verts * width, g.device))
+
+    def pull_update(self, g, values, state, spec, cost):
+        if (spec[0] != "ppr" or values.dtype != torch.float32
+                or values.ndim != 2 or _width(values) > PPR_STEP_MAX_WIDTH):
+            return None
+        _, damp, tol = spec
+        width = _width(values)
+        self.stats["kernel_pull"] += 1
+        self.stats["pull_edges"] += g.m
+        self.stats["fused_pull_update"] += 1
+        with region("backend.pull_update"):
+            rank, resid = ell_spmv_ppr_step(
+                values, g.ell_idx, g.ell_w, state["base"], state["rank"],
+                state["resid"], damp=damp, tol=tol,
+                block_n=self._pull_block_n(g, values, "sum", "copy"),
+                plan=self.pull_plan(g, width))
+        state = {"rank": rank, "base": state["base"], "resid": resid}
+        frontier = torch.ones((g.n,), dtype=torch.bool, device=values.device)
+        return state, frontier, (resid < tol).all(), cost.charge(
+            reads=counter(g.m, g.device) * width,
+            writes=counter(g.n, g.device) * width)
 
     def push(self, g, values, frontier, combine, msg_fn, cost):
         mode = self._mode(values, combine, msg_fn)

@@ -13,6 +13,9 @@ A *vertex program* is (msg_fn, combine, update_fn) plus optional hooks:
     local_fn(g, state, frontier, step, do_push, cost)  (a step that never
         -> (state, frontier, converged, cost)           touches the
                                                         exchange backend)
+    pull_update: a spec, e.g. ``("ppr", damp, tol)``, that lets a
+        backend run a full-scan pull and ``update_fn`` as one step
+        (``ExchangeBackend.pull_update``)
 
 A :class:`PhaseProgram` runs a sequence of :class:`Phase` s under an
 epoch loop (Δ-stepping's buckets, BC's forward/backward pair per source,
@@ -87,6 +90,9 @@ class VertexProgram:
     # edge maps); the decided direction arrives as the python bool
     # ``do_push`` so the step can charge the direction's cost
     local_fn: Optional[Callable] = None
+    # a frozen spec of update_fn (("ppr", damp, tol)) that a backend may
+    # fuse into a full-scan pull: ExchangeBackend.pull_update
+    pull_update: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,9 +311,15 @@ class PushPullEngine:
             do_push = bool(self.policy.decide(g, frontier, stats))
         cost0 = st.cost
         xstate = st.xstate
+        fused = None
+        if not do_push and touched is None and prog.pull_update is not None:
+            fused = self.backend.pull_update(g, values, st.state,
+                                             prog.pull_update, cost0)
         if prog.local_fn is not None:
             state, new_frontier, conv, cost = prog.local_fn(
                 g, st.state, frontier, step, do_push, cost0)
+        elif fused is not None:
+            state, new_frontier, conv, cost = fused
         else:
             msgs, cost, xstate = self.backend.relax_ex(
                 g, values, frontier,

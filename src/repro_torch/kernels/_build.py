@@ -39,11 +39,12 @@ __all__ = ["KERNELS", "SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("ell_spmv", "ell_pull_frontier", "coo_push", "coo_push_mxu",
-           "flash_attention", "flash_attention_bwd", "cin", "cin_dw",
-           "cin_dx0")
+KERNELS = ("ell_spmv", "ell_spmv_ppr", "ell_pull_frontier", "coo_push",
+           "coo_push_mxu", "flash_attention", "flash_attention_bwd", "cin",
+           "cin_dw", "cin_dx0")
 # kernels that share a source file (the others are built from their name)
-SOURCES = {"cin_dw": "cin_bwd", "cin_dx0": "cin_bwd"}
+SOURCES = {"ell_spmv_ppr": "ell_spmv", "cin_dw": "cin_bwd",
+           "cin_dx0": "cin_bwd"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +58,10 @@ _SIGNATURES = {
     "ell_spmv": ("repro_ell_spmv",
                  [_P, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P, _P,
                   _L, _L, _L, _L, _L, _L, _P, _P, _P, _P, _P]),
+    "ell_spmv_ppr": ("repro_ell_spmv_ppr",
+                     [_P, _P, _P, _L, _L, _L, _L, _P, _P, _L, _L, _L, _L,
+                      _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _F,
+                      _F, _P]),
     "ell_pull_frontier": ("repro_ell_pull_frontier",
                           [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
                            _L, _I, _I, _I, _I, _L, _L, _P, _P, _P]),

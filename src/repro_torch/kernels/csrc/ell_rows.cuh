@@ -118,20 +118,34 @@ __device__ __forceinline__ A group_reduce(A acc, int G, int col_lanes) {
 
 // A row's `count` pieces stored their partials at partial[(first + q) *
 // B + c], q < count: combined in piece order for columns c0, c0 + step,
-// ... < B (past L1: other CTAs wrote them)
+// ... < B (past L1: other CTAs wrote them), and each column's result
+// handed to put(c, r)
+template <typename A, int C, typename Put>
+__device__ __forceinline__ void combine_pieces_into(const A* partial,
+                                                    long long first,
+                                                    long long count,
+                                                    long long B, long long c0,
+                                                    long long step, Put put) {
+  for (long long c = c0; c < B; c += step) {
+    A r = identity<A, C>();
+    for (long long q = first; q < first + count; ++q)
+      r = combine<A, C>(
+          r, *reinterpret_cast<const volatile A*>(partial + q * B + c));
+    put(c, r);
+  }
+}
+
+// the same, stored to out_row[c]
 template <typename A, int C, typename O>
 __device__ __forceinline__ void combine_pieces(const A* partial,
                                                long long first,
                                                long long count, long long B,
                                                long long c0, long long step,
                                                O* out_row) {
-  for (long long c = c0; c < B; c += step) {
-    A r = identity<A, C>();
-    for (long long q = first; q < first + count; ++q)
-      r = combine<A, C>(
-          r, *reinterpret_cast<const volatile A*>(partial + q * B + c));
-    out_row[c] = from_acc<O, A>(r);
-  }
+  combine_pieces_into<A, C>(partial, first, count, B, c0, step,
+                            [out_row](long long c, A r) {
+                              out_row[c] = from_acc<O, A>(r);
+                            });
 }
 
 // ---- host: the grid of a launch over `units` pieces of work, per_pass

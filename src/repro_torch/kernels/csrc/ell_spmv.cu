@@ -37,6 +37,26 @@
 // kernel is latency-bound (a pass is rows -> row length and indices ->
 // payload), so it is held to 40 registers for six CTAs per SM, which
 // timed faster on the H100 than 48 registers at five (PERF.md).
+//
+// Epilogues: what a finished (row, column) does with its combined value.
+// StoreRows writes it to out, as above. PprStep (float32 payload, copy
+// message, sum, at most 64 columns; entry point repro_ell_spmv_ppr) is
+// one personalized-PageRank power step fused into the pull: for row v,
+// column c and the row's float32 message m,
+//   rank_out[v, c] = resid[c] >= tol ? base[v, c] + damp * m : rank[v, c]
+// (each operation rounded on its own, as PyTorch's separate passes round
+// them), and |rank_out - rank| folded into the column's running maximum.
+// A thread holds the maxima of its two columns (t % C and that + C, for
+// C column lanes) in registers; each CTA reduces them in shared memory
+// and adds them into slot (CTA % nslots) of an [nslots, B] array with an
+// unsigned atomicMax on the float bits (the values are >= 0, and a NaN
+// wins, as in torch.amax); the wrapper takes the maximum over the slots.
+// Slots and not one [B] row: at width 64 every row longer than 32 slots
+// is a CTA of its own, a million of them a step on a degree-32 graph,
+// and the slots spread their atomics over 1,024 addresses a column.
+// Each row's base and rank are prefetched into L2 when the row starts.
+// The fused step never writes the [n, B] message array, and reads the
+// payload unpadded (num_sources = n).
 #include "ell_rows.cuh"
 
 namespace rk {
@@ -71,7 +91,69 @@ struct PullArgs {
   cudaStream_t stream;
 };
 
-template <typename T, typename M, typename O, int C, int MSG>
+// the plain store of a finished (row v, column c)
+struct StoreRows {
+  template <typename O>
+  __device__ __forceinline__ void put(O* out, long long v, long long B,
+                                      long long c, bool, O r) {
+    out[v * B + c] = r;
+  }
+  __device__ __forceinline__ void prefetch(long long, long long, int, int) {}
+  __device__ __forceinline__ void finish(long long, long long, int, int) {}
+};
+
+// one PPR power step on a finished (row v, column c): see the note above
+struct PprStep {
+  static constexpr int kMaxCols = 64;
+  const float* base;
+  const float* rank;
+  const float* resid;
+  float* rank_out;
+  unsigned int* slots;       // [nslots, B] float bits of the largest change
+  long long nslots;
+  float damp, tol;
+  unsigned int lo = 0, hi = 0;   // this thread's maxima: columns t % C, + C
+
+  // base and rank of row v's columns cl, cl + C, ... into L2 while the
+  // row's gathers run: the put would otherwise wait a DRAM round trip
+  // for them at the end of each row (13.6 against 12.4 ms a step on
+  // scale-21 Urand at width 64 on the H100, PERF.md)
+  __device__ __forceinline__ void prefetch(long long v, long long B, int cl,
+                                           int col_lanes) {
+    for (long long c = cl; c < B; c += col_lanes) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(rank + v * B + c));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(base + v * B + c));
+    }
+  }
+
+  __device__ __forceinline__ void put(float*, long long v, long long B,
+                                      long long c, bool second, float m) {
+    const long long i = v * B + c;
+    const float old = rank[i];
+    const float r = __ldg(resid + c) >= tol
+                        ? __fadd_rn(base[i], __fmul_rn(damp, m))
+                        : old;
+    rank_out[i] = r;
+    const unsigned int d = __float_as_uint(fabsf(__fsub_rn(r, old)));
+    if (second) hi = d > hi ? d : hi;
+    else lo = d > lo ? d : lo;
+  }
+
+  // the CTA's maxima into its slot; every thread of the CTA calls it
+  __device__ __forceinline__ void finish(long long blk, long long B, int t,
+                                         int col_lanes) {
+    __shared__ unsigned int red[kMaxCols];
+    if (t < kMaxCols) red[t] = 0u;
+    __syncthreads();
+    const int cl = t % col_lanes;
+    if (lo) atomicMax(red + cl, lo);
+    if (hi) atomicMax(red + cl + col_lanes, hi);
+    __syncthreads();
+    if (t < B && red[t]) atomicMax(slots + (blk % nslots) * B + t, red[t]);
+  }
+};
+
+template <typename T, typename M, typename O, int C, int MSG, typename E>
 __global__ void __launch_bounds__(kPullThreads, 6)
 ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                 const float* __restrict__ w,
@@ -82,7 +164,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                 long long pieces, long long piece,
                 const int32_t* __restrict__ piece_hub,
                 const int32_t* __restrict__ hub_first,
-                int32_t* __restrict__ counters, A_of<M, C>* partial) {
+                int32_t* __restrict__ counters, A_of<M, C>* partial, E ep) {
   using A = A_of<M, C>;
   const long long blk = blockIdx.x;
   const int t = threadIdx.x;
@@ -116,6 +198,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
       const long long len = live ? row_length(row_len, v, d_ell) : 0;
       const int32_t* ri = idx + v * d_ell;
       const float* rw = w + v * d_ell;
+      if (live && sl == 0) ep.prefetch(v, B, cl, col_lanes);
       for (long long c0 = 0; c0 < B; c0 += col_lanes) {
         const long long c = c0 + cl;
         A acc = c < B ? walk_chunks<T, M, A, C, MSG>(
@@ -123,9 +206,11 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                             num_sources)
                       : identity<A, C>();
         acc = group_reduce<A, C>(acc, G, col_lanes);
-        if (live && sl == 0 && c < B) out[v * B + c] = from_acc<O, A>(acc);
+        if (live && sl == 0 && c < B)
+          ep.put(out, v, B, c, c0 != 0, from_acc<O, A>(acc));
       }
     }
+    ep.finish(blk, B, t, col_lanes);
     return;
   }
   // ---- one piece of a hub row: the whole CTA, (256 / C) slot lanes
@@ -143,6 +228,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   const int warp = t / 32, lane = t % 32;
   const int32_t* ri = idx + v * d_ell;
   const float* rw = w + v * d_ell;
+  if (count == 1 && t < col_lanes) ep.prefetch(v, B, cl, col_lanes);
   for (long long c0 = 0; c0 < B; c0 += col_lanes) {
     const long long c = c0 + cl;
     A acc = c < B ? walk_chunks<T, M, A, C, MSG>(x, ri, rw, lo, hi, sl, S,
@@ -156,12 +242,15 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
       A r = red[0][t];
       for (int q = 1; q < kPullThreads / 32; ++q)
         r = combine<A, C>(r, red[q][t]);
-      if (count == 1) out[v * B + c] = from_acc<O, A>(r);
+      if (count == 1) ep.put(out, v, B, c, c0 != 0, from_acc<O, A>(r));
       else partial[p * B + c] = r;
     }
     __syncthreads();
   }
-  if (count == 1) return;
+  if (count == 1) {
+    ep.finish(blk, B, t, col_lanes);
+    return;
+  }
   // the last piece of this hub to arrive combines the partials in order
   __threadfence();
   __syncthreads();
@@ -169,14 +258,24 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  combine_pieces<A, C>(partial, first, count, B, t, kPullThreads, out + v * B);
+  combine_pieces_into<A, C>(partial, first, count, B, t, kPullThreads,
+                            [&](long long c, A r) {
+                              ep.put(out, v, B, c, c >= col_lanes,
+                                     from_acc<O, A>(r));
+                            });
   if (t == 0) counters[h] = 0;     // ready for the next launch
+  ep.finish(blk, B, t, col_lanes);
 }
 
 struct PullLauncher {
   using Args = PullArgs;
   template <typename T, int C, int MSG>
   static cudaError_t run(const Args& a) {
+    return launch<T, C, MSG>(a, StoreRows{});
+  }
+
+  template <typename T, int C, int MSG, typename E>
+  static cudaError_t launch(const Args& a, E ep) {
     using M = typename MsgType<T, MSG>::type;
     using O = typename PullOut<M, C>::type;
     int col_lanes = 1;
@@ -203,13 +302,13 @@ struct PullLauncher {
                      reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
     if (blocks == 0) return cudaSuccess;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    ell_spmv_kernel<T, M, O, C, MSG>
+    ell_spmv_kernel<T, M, O, C, MSG, E>
         <<<static_cast<unsigned>(blocks), kPullThreads, 0, a.stream>>>(
             static_cast<const T*>(a.x), a.idx, a.w, a.row_len, a.rows,
             static_cast<O*>(a.out), a.d_ell, a.num_sources, a.B, vec, col_lanes,
             sec, a.class_off[kPullClasses], a.pieces, a.piece, a.piece_hub,
             a.hub_first,
-            a.counters, static_cast<A_of<M, C>*>(a.partial));
+            a.counters, static_cast<A_of<M, C>*>(a.partial), ep);
     return cudaGetLastError();
   }
 };
@@ -236,4 +335,35 @@ extern "C" int repro_ell_spmv(
                  static_cast<cudaStream_t>(stream)};
   return static_cast<int>(rk::dispatch<rk::PullLauncher>(dtype, combine, msg,
                                                           a));
+}
+
+// one PPR power step: the full-scan pull of x [n, B] (float32, copy, sum;
+// B <= 64) with the PprStep epilogue (see the note at the top)
+extern "C" int repro_ell_spmv_ppr(
+    const void* x, const void* idx, const void* w, long long n,
+    long long d_ell, long long B, long long block_n, const void* row_len,
+    const void* rows, long long o1, long long o2, long long o3,
+    long long hubs_at, long long pieces, long long piece,
+    const void* piece_hub, const void* hub_first, void* counters,
+    void* partial, const void* base, const void* rank, const void* resid,
+    void* rank_out, void* slots, long long nslots, float damp, float tol,
+    void* stream) {
+  if (B < 1 || B > rk::PprStep::kMaxCols || nslots < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rk::PullArgs a{x, static_cast<const int32_t*>(idx),
+                 static_cast<const float*>(w),
+                 static_cast<const int32_t*>(row_len),
+                 static_cast<const int32_t*>(rows), nullptr, n, d_ell, n, B,
+                 block_n, {0, o1, o2, o3, hubs_at}, pieces, piece,
+                 static_cast<const int32_t*>(piece_hub),
+                 static_cast<const int32_t*>(hub_first),
+                 static_cast<int32_t*>(counters), partial,
+                 static_cast<cudaStream_t>(stream)};
+  rk::PprStep ep{static_cast<const float*>(base),
+                 static_cast<const float*>(rank),
+                 static_cast<const float*>(resid),
+                 static_cast<float*>(rank_out),
+                 static_cast<unsigned int*>(slots), nslots, damp, tol};
+  return static_cast<int>(
+      rk::PullLauncher::launch<float, rk::SUM, rk::COPY>(a, ep));
 }

@@ -23,6 +23,11 @@ any index ≥ ``num_sources`` is masked to the combine identity, so empty
 rows hold the identity. The output dtype follows :func:`_out_dtype`: the
 message promotion, and an int32 sum widens to int64. Float sums
 accumulate in float64 and round once.
+
+:func:`ell_spmv_ppr_step` is the same launch with one personalized
+PageRank power step as its epilogue (float32, copy, sum, at most
+``PPR_STEP_MAX_WIDTH`` columns): it returns the updated ranks and
+residuals of :func:`ppr_update` without writing the messages.
 """
 
 from __future__ import annotations
@@ -35,9 +40,11 @@ import torch
 from ..sparse.segment import reduce_identity
 from ._build import check_status, load
 
-__all__ = ["ell_spmv", "ell_spmv_plain", "ell_row_plan", "EllRowPlan",
-           "row_class_bounds", "col_lanes", "DTYPE_CODES", "COMBINE_CODES",
-           "MSG_CODES", "DEFAULT_BLOCK_ROWS"]
+__all__ = ["ell_spmv", "ell_spmv_plain", "ell_spmv_ppr_step",
+           "ell_spmv_ppr_step_plain", "ppr_update", "ell_row_plan",
+           "EllRowPlan", "row_class_bounds", "col_lanes", "DTYPE_CODES",
+           "COMBINE_CODES", "MSG_CODES", "DEFAULT_BLOCK_ROWS",
+           "PPR_STEP_MAX_WIDTH"]
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                torch.int64: 3}
@@ -64,6 +71,12 @@ PULL_THREADS = 256
 
 # bound on gathered slots per chunk of the plain version (memory, not speed)
 _PLAIN_CHUNK = 1 << 25
+
+# the widest payload of the fused PPR step: two column tiles, whose
+# running maxima each thread holds in two registers
+PPR_STEP_MAX_WIDTH = 64
+# rows of the fused step's [slots, B] maxima: CTA b adds into row b % 1024
+PPR_STEP_SLOTS = 1024
 
 
 def _msg_dtype(x_dtype: torch.dtype, w_dtype: torch.dtype, msg: str):
@@ -322,3 +335,97 @@ def ell_spmv(x_padded: torch.Tensor, ell_idx: torch.Tensor,
             partial.data_ptr(), _stream())
     check_status(rc, "ell_spmv")
     return out
+
+
+def ppr_update(base: torch.Tensor, rank: torch.Tensor, resid: torch.Tensor,
+               msgs: torch.Tensor, damp: float, tol: float):
+    """One personalized-PageRank power step on [n, B] ranks from the
+    pulled messages ``msgs``: ``base + damp · msgs`` in each column whose
+    residual ``resid`` [B] is at least ``tol``, the old rank in the
+    others; and each such column's new residual, the largest change of
+    its ranks (the others keep theirs). ``damp`` is taken in the ranks'
+    dtype. Returns ``(rank, resid)``."""
+    active = resid >= tol
+    new = torch.where(active[None, :], base + damp * msgs, rank)
+    return new, torch.where(active, (new - rank).abs().amax(dim=0), resid)
+
+
+def ell_spmv_ppr_step_plain(x: torch.Tensor, ell_idx: torch.Tensor,
+                            ell_w: torch.Tensor, base: torch.Tensor,
+                            rank: torch.Tensor, resid: torch.Tensor, *,
+                            damp: float, tol: float,
+                            row_len: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of :func:`ell_spmv_ppr_step`: the full-scan
+    sum of copied payloads, then :func:`ppr_update`."""
+    msgs = ell_spmv_plain(x, ell_idx, ell_w, "sum", "copy", x.shape[0],
+                          row_len)
+    return ppr_update(base, rank, resid, msgs, damp, tol)
+
+
+def ell_spmv_ppr_step(x: torch.Tensor, ell_idx: torch.Tensor,
+                      ell_w: torch.Tensor, base: torch.Tensor,
+                      rank: torch.Tensor, resid: torch.Tensor, *,
+                      damp: float, tol: float,
+                      block_n: int = DEFAULT_BLOCK_ROWS,
+                      plan: Optional[EllRowPlan] = None):
+    """One PPR power step fused into the full-scan pull: the messages
+    ``ell_spmv(x, ..., "sum", "copy")`` of the float32 payload ``x``
+    [n, B] (unpadded: ``num_sources = n``; B ≤ ``PPR_STEP_MAX_WIDTH``)
+    go straight into :func:`ppr_update` with ``base``, ``rank`` [n, B]
+    and ``resid`` [B], each finished row in the kernel's epilogue, so
+    the [n, B] messages are never written. ``damp`` and ``tol`` are
+    taken in float32. Returns ``(rank, resid)``, bit for bit those of
+    ``ell_spmv`` followed by :func:`ppr_update`. ``plan`` (with its
+    ``row_len``) and ``block_n`` are :func:`ell_spmv`'s. On a CPU tensor
+    it runs :func:`ell_spmv_ppr_step_plain`."""
+    n, d_ell = ell_idx.shape
+    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[0] != n \
+            or not 1 <= x.shape[1] <= PPR_STEP_MAX_WIDTH:
+        raise ValueError(f"ell_spmv_ppr_step takes a float32 [{n}, B] "
+                         f"payload, B <= {PPR_STEP_MAX_WIDTH}, not "
+                         f"{x.dtype} {tuple(x.shape)}")
+    width = x.shape[1]
+    if base.shape != x.shape or rank.shape != x.shape \
+            or resid.shape != (width,) or any(
+                t.dtype != torch.float32 for t in (base, rank, resid)):
+        raise ValueError("base and rank must be float32 like x, resid "
+                         f"float32 [{width}]")
+    _check(x, ell_idx, ell_w, "sum", "copy", n)
+    if plan is None:
+        plan = ell_row_plan(None, n, d_ell, width, x.device)
+    if (plan.n, plan.d_ell, plan.col_lanes) != (n, d_ell, col_lanes(width)):
+        raise ValueError(f"ell_spmv_ppr_step: plan for [{plan.n}, "
+                         f"{plan.d_ell}] with {plan.col_lanes} column "
+                         f"lanes, called on [{n}, {d_ell}] with "
+                         f"{col_lanes(width)}")
+    rl = plan.row_len
+    if x.device.type == "cpu":
+        return ell_spmv_ppr_step_plain(x, ell_idx, ell_w, base, rank, resid,
+                                       damp=damp, tol=tol, row_len=rl)
+    if x.device.type != "cuda":
+        raise ValueError(f"ell_spmv_ppr_step runs on cuda or cpu, not "
+                         f"{x.device}")
+    x, base, rank = x.contiguous(), base.contiguous(), rank.contiguous()
+    resid = resid.contiguous()
+    ell_idx, ell_w = ell_idx.contiguous(), ell_w.contiguous()
+    rank_out = torch.empty_like(rank)
+    # each CTA's largest changes (float bits) by atomicMax into a slot
+    slots = torch.zeros((PPR_STEP_SLOTS, width), dtype=torch.float32,
+                        device=x.device)
+    split = plan.pieces > plan.counters.shape[0]
+    partial = torch.empty((plan.pieces * width if split else 0,),
+                          dtype=torch.float64, device=x.device)
+    off = plan.class_off
+    if n:
+        fn = load("ell_spmv_ppr")
+        rc = fn(x.data_ptr(), ell_idx.data_ptr(), ell_w.data_ptr(), n,
+                d_ell, width, int(block_n),
+                rl.data_ptr() if rl is not None else None,
+                plan.rows.data_ptr(), off[1], off[2], off[3], off[4],
+                plan.pieces, plan.piece, plan.piece_hub.data_ptr(),
+                plan.hub_first.data_ptr(), plan.counters.data_ptr(),
+                partial.data_ptr(), base.data_ptr(), rank.data_ptr(),
+                resid.data_ptr(), rank_out.data_ptr(), slots.data_ptr(),
+                PPR_STEP_SLOTS, float(damp), float(tol), _stream())
+        check_status(rc, "ell_spmv_ppr")
+    return rank_out, torch.where(resid >= tol, slots.amax(dim=0), resid)

@@ -36,6 +36,7 @@ import torch
 from ..core.backend import DenseBackend, EllBackend, require_backend
 from ..core.engine import Phase, PhaseProgram, VertexProgram
 from ..graphs.structure import Graph
+from ..kernels.ell_spmv import ppr_update
 from ..shard.backend import ShardedBackend
 
 __all__ = ["BatchSpec", "register_batch", "batchable", "get_batch_spec"]
@@ -220,28 +221,25 @@ def ppr_batch_program(g: Graph, batch: int, iters: int = 100,
     require_backend("ppr (batched)", backend, DenseBackend, EllBackend,
                     ShardedBackend)
     n = g.n
-    damp_t = _f32(damp, "cpu")
-    tol = float(tol)
+    damp, tol = float(damp), float(tol)
 
     def values_fn(g_, state, frontier):
         deg = g_.out_deg.clamp(min=1).to(torch.float32)[:, None]
         return state["rank"] / deg
 
     def update(state, msgs, step):
-        active = state["resid"] >= tol                   # [B]
-        rank = torch.where(active[None, :],
-                           state["base"] + damp_t.to(msgs.device) * msgs,
-                           state["rank"])
-        resid = torch.where(active,
-                            (rank - state["rank"]).abs().amax(dim=0),
-                            state["resid"])
+        rank, resid = ppr_update(state["base"], state["rank"],
+                                 state["resid"], msgs, damp, tol)
         new = {"rank": rank, "base": state["base"], "resid": resid}
         ones = torch.ones((n,), dtype=torch.bool, device=msgs.device)
         return new, ones, (resid < tol).all()
 
+    # a backend may run the full-scan pull and this update as one step
+    # (ExchangeBackend.pull_update)
     prog = VertexProgram(combine="sum", update_fn=update,
                          values_fn=values_fn,
-                         step_charges=(("reads", 2 * n * batch),))
+                         step_charges=(("reads", 2 * n * batch),),
+                         pull_update=("ppr", damp, tol))
     return prog, iters
 
 

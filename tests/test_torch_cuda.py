@@ -37,7 +37,9 @@ from repro_torch.kernels.ell_pull_frontier import (ell_pull_frontier,
                                                    ell_pull_frontier_plain,
                                                    frontier_rows)
 from repro_torch.kernels.ell_spmv import (ell_row_plan, ell_spmv,
-                                          ell_spmv_plain)
+                                          ell_spmv_plain, ell_spmv_ppr_step,
+                                          ell_spmv_ppr_step_plain,
+                                          ppr_update)
 from repro_torch.kernels import cin as cin_mod
 from repro_torch.kernels.cin import (cin_dx0, cin_dx0_plain, cin_layer,
                                      cin_layer_plain, cin_weight_grad,
@@ -125,9 +127,13 @@ def test_each_wrapper_counts_its_launches(graphs, cuda):
     g = torch.ones((3, 2, 5), device=cuda)
     cin_weight_grad(g, xk, xk)
     cin_dx0(g, xk, torch.ones((2, 4, 4), device=cuda))
+    r = torch.ones((3, 2), device=cuda)
+    ell_spmv_ppr_step(r, r.new_zeros((3, 4), dtype=torch.int32),
+                      r.new_zeros((3, 4)), r, r, r[0], damp=0.85, tol=1e-6)
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "ell_spmv": 1, "ell_pull_frontier": 1, "coo_push": 1,
+        "ell_spmv": 1, "ell_spmv_ppr": 1, "ell_pull_frontier": 1,
+        "coo_push": 1,
         "coo_push_mxu": 1, "flash_attention": 1, "flash_attention_bwd": 1,
         "cin": 1, "cin_dw": 1, "cin_dx0": 1}
 
@@ -448,6 +454,159 @@ def test_ell_spmv_hub_plan_matches_plain(graphs, cuda, width):
             again = ell_spmv(x, g.ell_idx, g.ell_w, combine, msg,
                              block_n=block_n, row_len=g.in_deg, plan=plan)
             assert torch.equal(got, again)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def _ppr_step_case(g, width: int, seed: int, cuda, dyadic: bool):
+    """(x, base, rank, resid) of one batched PPR step on ``g``; with
+    ``dyadic`` every value is a small multiple of 2^-10, so that the
+    float64 sums are exact in any order. From three columns on, column 0
+    is frozen (residual below tol) and column 1 carries a NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (g.n, width)
+    if dyadic:
+        rank = torch.randint(0, 64, shape, generator=gen, device=cuda) / 1024
+    else:
+        rank = torch.rand(shape, generator=gen, device=cuda)
+    base = torch.where(torch.rand(shape, generator=gen, device=cuda) < 0.2,
+                       0.15, 0.0)
+    resid = torch.rand((width,), generator=gen, device=cuda) + 1e-3
+    if width >= 3:
+        resid[0] = 1e-7
+        rank[g.n // 3 + 1, 1] = float("nan")
+    x = rank / g.out_deg.clamp(min=1).to(torch.float32)[:, None]
+    if dyadic:
+        x = rank
+    return x, base, rank, resid
+
+
+@pytest.mark.parametrize("width", (1, 3, 8, 33, 64), ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("case", ("hub", "dense"))
+def test_ppr_step_kernel_matches_plain(graphs, cuda, case, width):
+    """The fused PPR step on the hub graph (its hub split into pieces at
+    every width) and on a graph of in-degree about 40 (every row longer
+    than 32 slots a one-piece hub at 32 column lanes): on dyadic
+    payloads bit for bit its plain version, on random ones bit for bit
+    ``ell_spmv`` then ``ppr_update``; the same bits when called again
+    (the hub counters reset themselves)."""
+    g = (graphs["hub"] if case == "hub"
+         else erdos_renyi(300, 20.0, seed=5, device=cuda))
+    plan = ell_row_plan(g.in_deg, g.n, g.d_ell, width)
+    if case == "hub":
+        assert plan.pieces > plan.counters.shape[0]      # a split hub
+    elif width > 16:
+        assert plan.pieces == plan.counters.shape[0] > 100
+    damp, tol = 0.85, 1e-6
+    for dyadic in (True, False):
+        x, base, rank, resid = _ppr_step_case(g, width, width, cuda, dyadic)
+        if dyadic:
+            want = ell_spmv_ppr_step_plain(x, g.ell_idx, g.ell_w, base,
+                                           rank, resid, damp=damp, tol=tol,
+                                           row_len=g.in_deg)
+        else:
+            msgs = ell_spmv(pad_values(x), g.ell_idx, g.ell_w, "sum",
+                            "copy", row_len=g.in_deg, plan=plan)
+            want = ppr_update(base, rank, resid, msgs, damp, tol)
+        for _ in range(2):
+            for block_n in (8, 128):
+                got = ell_spmv_ppr_step(x, g.ell_idx, g.ell_w, base, rank,
+                                        resid, damp=damp, tol=tol,
+                                        block_n=block_n, plan=plan)
+                for a, b in zip(got, want):
+                    assert torch.equal(_bits(a), _bits(b)), (dyadic,
+                                                             block_n)
+        if width >= 3:
+            assert got[1][1].isnan() and got[1][0] == resid[0]
+
+
+@pytest.mark.parametrize("loop", ("run", "run_stepwise"))
+def test_fused_ppr_batch_equals_the_unfused_steps_on_card(cuda, loop,
+                                                         monkeypatch):
+    """``solve_batch(g, "ppr")`` on the card at widths 64 and 3 (and a
+    star, whose hub row is split at width 64): fused, one launch a step,
+    against the same backend forced to pull and update apart, states,
+    steps and ``Cost`` bit for bit."""
+    from repro_torch.core import CudaBackend
+    from repro_torch.obs import Telemetry
+    pins = dict(autotune=False, block_n=1024, block_e=1024,
+                push_block_n=1024, push_strategy="scan")
+    cases = [(erdos_renyi(20000, 12.0, seed=3, device=cuda), 64),
+             (erdos_renyi(20000, 12.0, seed=3, device=cuda), 3),
+             (star(5000, device=cuda), 64)]
+    for g, width in cases:
+        sources = list(range(1, 2 * width, 2))
+
+        def solve(be):
+            kw = {} if loop == "run" else {"telemetry": Telemetry()}
+            return api.solve_batch(g, "ppr", sources=sources, backend=be,
+                                   **kw)
+        fused = CudaBackend(**pins)
+        _build.reset_launch_counts()
+        got = solve(fused)
+        launches = _build.launch_counts()
+        assert launches["ell_spmv_ppr"] == fused.stats[
+            "fused_pull_update"] == fused.stats["kernel_pull"] > 0
+        assert launches["ell_spmv"] == 0
+        with monkeypatch.context() as mp:
+            mp.setattr(CudaBackend, "pull_update",
+                       lambda self, *a, **k: None)
+            apart = CudaBackend(**pins)
+            want = solve(apart)
+        assert apart.stats["fused_pull_update"] == 0
+        assert (got.steps, got.cost.as_dict()) == (want.steps,
+                                                   want.cost.as_dict())
+        for k in want.state:
+            assert torch.equal(_bits(got.state[k]), _bits(want.state[k])), k
+
+
+# registers and spill bytes of the float32 sum/copy ell_spmv_kernel
+# instance (the one PPR's unfused pulls run), from `ptxas -v` on the
+# H100's toolkit before the epilogue parameter was added
+F32_SUM_COPY_PTXAS = (40, 0)
+
+
+def _ptxas_entries(text: str) -> dict:
+    """{mangled entry: (registers, spill bytes)} of a ``ptxas -v`` log."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def test_ell_spmv_instances_keep_their_registers(cuda):
+    """The 36 ``ell_spmv_kernel`` instances with the plain store stay
+    within the launch bounds' 40 registers, and the float32 sum/copy one
+    keeps the registers and spills it had before the epilogue parameter;
+    the fused PPR instance fits the same bounds and spills nothing."""
+    _build.load("ell_spmv")
+    entries = _ptxas_entries(
+        _build.lib_path("ell_spmv").with_suffix(".log").read_text())
+    store = {k: v for k, v in entries.items()
+             if "ell_spmv_kernel" in k and "StoreRows" in k}
+    fused = [v for k, v in entries.items()
+             if "ell_spmv_kernel" in k and "PprStep" in k]
+    assert len(store) == 36 and len(fused) == 1
+    assert all(regs <= 40 for regs, _ in store.values())
+    assert [v for k, v in store.items()
+            if "ell_spmv_kernelIfffLi0ELi0E" in k] == [F32_SUM_COPY_PTXAS]
+    assert fused[0][0] <= 40 and fused[0][1] == 0
 
 
 @pytest.mark.parametrize("width", (None, 8, 33), ids=lambda b: f"B{b}")

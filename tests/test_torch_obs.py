@@ -504,10 +504,10 @@ def test_each_layer_opens_its_range_under_a_profiler(pair):
         br = api.solve_batch(tg, "ppr", sources=[0, 5, 7], backend=be)
     got = _ranges(prof)
     # a fresh backend builds the pull's row plan once, then every step
-    # is one full-scan pull
+    # is one full-scan pull fused with its update
     assert got == {"repro.batch.solve_batch": 1, "repro.engine.run": 1,
                    "repro.engine.step": br.steps,
-                   "repro.backend.pull": br.steps,
+                   "repro.backend.pull_update": br.steps,
                    "repro.backend.build": 1}
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:

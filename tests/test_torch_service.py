@@ -271,3 +271,120 @@ def test_waits_are_stamped_on_the_services_clock(pair, monkeypatch):
     got = svc.stats()["waits"]
     assert got["count"] == 2
     assert (got["queue_p50_ms"], got["queue_p95_ms"]) == (1000.0, 2000.0)
+
+
+# -- batched PPR's pull and update in one launch (CudaBackend.pull_update)
+def _ppr_step_inputs(g, width: int, seed: int):
+    """(x, base, rank, resid) of one batched PPR step at ``width``
+    columns, ``x`` the program's ``rank / deg``; from three columns on,
+    column 0 is frozen (residual below tol) and column 1 carries a NaN."""
+    gen = torch.Generator().manual_seed(seed)
+    rank = torch.rand((g.n, width), generator=gen)
+    base = torch.where(torch.rand((g.n, width), generator=gen) < 0.1,
+                       0.15, 0.0)
+    resid = torch.rand((width,), generator=gen) + 1e-3
+    if width >= 3:
+        resid[0] = 1e-7
+        rank[g.n // 2, 1] = float("nan")
+    x = rank / g.out_deg.clamp(min=1).to(torch.float32)[:, None]
+    return x, base, rank, resid
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("width", (1, 3, 64))
+@pytest.mark.parametrize("graph", ("erdos_renyi", "star"))
+def test_ppr_step_plain_is_the_pull_then_the_update(graph, width):
+    """``ell_spmv_ppr_step`` on the CPU against ``ell_spmv_plain`` and
+    the batched PPR update as the program wrote it before the fusion
+    (damp a float32 tensor), bit for bit: frozen columns keep their
+    ranks and residuals, a NaN column's residual is NaN."""
+    from repro_torch.graphs import erdos_renyi, star
+    from repro_torch.kernels.ell_spmv import (ell_row_plan, ell_spmv_plain,
+                                              ell_spmv_ppr_step)
+    g = (erdos_renyi(150, 5.0, seed=4, device="cpu") if graph ==
+         "erdos_renyi" else star(90, device="cpu"))
+    x, base, rank, resid = _ppr_step_inputs(g, width, seed=width)
+    damp, tol = 0.85, 1e-6
+    plan = ell_row_plan(g.in_deg, g.n, g.d_ell, width)
+    got_rank, got_resid = ell_spmv_ppr_step(
+        x, g.ell_idx, g.ell_w, base, rank, resid, damp=damp, tol=tol,
+        plan=plan)
+    msgs = ell_spmv_plain(torch.cat([x, x.new_zeros((1, width))]),
+                          g.ell_idx, g.ell_w, "sum", "copy",
+                          row_len=g.in_deg)
+    active = resid >= tol
+    want_rank = torch.where(active[None, :],
+                            base + torch.tensor(damp) * msgs, rank)
+    want_resid = torch.where(active,
+                             (want_rank - rank).abs().amax(dim=0), resid)
+    assert torch.equal(_bits(got_rank), _bits(want_rank))
+    assert torch.equal(_bits(got_resid), _bits(want_resid))
+    if width >= 3:
+        assert torch.equal(got_rank[:, 0], rank[:, 0])
+        assert got_resid[0] == resid[0] and got_resid[1].isnan()
+
+
+def _unfused(monkeypatch):
+    monkeypatch.setattr(CudaBackend, "pull_update",
+                        lambda self, *a, **k: None)
+
+
+@pytest.mark.parametrize("loop", ("run", "run_stepwise"))
+def test_fused_ppr_batch_equals_the_unfused_steps(pair, loop, monkeypatch):
+    """``solve_batch(g, "ppr")`` on the CUDA backend's plain versions:
+    every step fused (one launch each), and states, steps and ``Cost``
+    bit for bit those of the same backend forced to pull and update
+    apart; steps and ``Cost`` equal to the ``"ell"`` backend's, states
+    to rtol = atol = 1e-5, as the reference comparisons hold them."""
+    from repro_torch.obs import Telemetry
+    _, tg = pair
+    pins = dict(autotune=False, block_n=64, block_e=128, push_block_n=64,
+                push_strategy="scan")
+    sources = [0, 3, 7, 3, 101]
+
+    def solve(be):
+        kw = {} if loop == "run" else {"telemetry": Telemetry()}
+        return api.solve_batch(tg, "ppr", sources=sources, backend=be, **kw)
+    # run_stepwise takes one step more first, on a copy, and drops it
+    warm = 0 if loop == "run" else 1
+    be = CudaBackend(**pins)
+    got = solve(be)
+    assert be.stats["fused_pull_update"] == be.stats["kernel_pull"] \
+        == got.steps + warm > warm
+    ell = api.solve_batch(tg, "ppr", sources=sources, backend="ell")
+    assert got.cost.as_dict() == ell.cost.as_dict()
+    assert got.steps == ell.steps
+    for k in ell.state:        # the ell pull sums in another order
+        torch.testing.assert_close(got.state[k], ell.state[k], rtol=1e-5,
+                                   atol=1e-5)
+    with monkeypatch.context() as mp:
+        _unfused(mp)
+        apart = CudaBackend(**pins)
+        want = solve(apart)
+    assert apart.stats["fused_pull_update"] == 0
+    assert apart.stats["kernel_pull"] == want.steps + warm
+    assert want.steps == got.steps
+    assert got.cost.as_dict() == want.cost.as_dict()
+    for k in want.state:
+        assert torch.equal(_bits(got.state[k]), _bits(want.state[k])), k
+
+
+@pytest.mark.parametrize("case", ("ppr_width_65", "bfs"))
+def test_other_pulls_are_not_fused(pair, case):
+    """A PPR batch wider than the fused step takes and a batched BFS
+    pull run the plain full-scan pull: no fused launch."""
+    _, tg = pair
+    be = CudaBackend(autotune=False, block_n=64, block_e=128,
+                     push_block_n=64, push_strategy="scan")
+    if case == "bfs":
+        br = api.solve_batch(tg, "bfs", sources=[0, 3, 7], policy="pull",
+                             backend=be)
+    else:
+        br = api.solve_batch(tg, "ppr", sources=list(range(65)),
+                             backend=be)
+    assert br.steps > 0
+    assert be.stats["kernel_pull"] + be.stats["kernel_pull_frontier"] > 0
+    assert be.stats["fused_pull_update"] == 0
