@@ -332,8 +332,9 @@ from repro_torch.kernels.ell_pull_frontier import (  # noqa: E402
     default_pull_cap, ell_pull_frontier, ell_pull_frontier_plain,
     frontier_plan, frontier_rows)
 from repro_torch.kernels.ell_spmv import (  # noqa: E402
-    _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain, ell_spmv_ppr_step,
-    ell_spmv_ppr_step_plain, ppr_update)
+    PPR_STEP_MAX_WIDTH, _msg_dtype, apply_msg, ell_spmv, ell_spmv_plain,
+    ell_spmv_ppr_step, ell_spmv_ppr_step_plain, gather_rows_plain,
+    ppr_update)
 from repro_torch.kernels.roofline import (  # noqa: E402
     BF16_OPS_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, bound, cin_bwd_work,
     cin_tf32_floor_ms, cin_work, flash_bwd_work, flash_work,
@@ -512,14 +513,25 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor, combine: str,
     return float(gap.max())
 
 
+def own_layout(g) -> tuple:
+    """``(idx, w, kw)``: the arrays the pull kernels read on ``g``'s own
+    layout (``Graph.pull_arrays``: the dense ELL, or the CSR) and the
+    keywords that name the row layout (``row_ptr``, ``d_ell``) where
+    ``g`` has it; the kernels and their plain versions take both."""
+    idx, w, row_ptr = g.pull_arrays
+    return idx, w, ({} if row_ptr is None
+                    else {"row_ptr": row_ptr, "d_ell": g.d_ell})
+
+
 def kernel_grid(device) -> dict:
     """Phase 2: every (combine, dtype, msg, width) cell of every kernel
     against its plain version on the small graphs; both pulls over whole
     rows and over ``row_len = in_deg`` (the main path's call), the
     frontier pull also on a list of sentinels only and twice (the same
-    bits); at width 33 the three redesigned graph kernels only."""
+    bits); at width 33 the three redesigned graph kernels only. Each
+    graph's pulls read its own layout (the hub cases the row layout)."""
     errs = {k: 0.0 for k in ("ell_spmv", "ell_pull_frontier", "coo_push")}
-    cells = 0
+    cells, row_cases = 0, []
     gen = torch.Generator(device=device).manual_seed(0)
     for case, g in small_graphs(device).items():
         plans = [build_push_plan(g.coo_src, g.coo_dst, g.coo_w, g.n, b,
@@ -529,6 +541,9 @@ def kernel_grid(device) -> dict:
         lists = (frontier_rows(touched, 16),
                  frontier_rows(torch.zeros_like(touched), 5))
         active = torch.rand(g.n, generator=gen, device=device) < 0.5
+        idx, w, lk = own_layout(g)
+        if lk:
+            row_cases.append(case)
         for c in COMBINES:
             for dt in DTYPES:
                 for msg in MSGS:
@@ -539,29 +554,30 @@ def kernel_grid(device) -> dict:
                         x[-1] = 0
                         tag = f"{case}/{c}/{dt}/{msg}/w{width}"
                         for row_len in (None, g.in_deg):
-                            got = ell_spmv(x, g.ell_idx, g.ell_w, c, msg,
-                                           row_len=row_len)
-                            want = ell_spmv_plain(x, g.ell_idx, g.ell_w, c,
-                                                  msg, row_len=row_len)
+                            got = ell_spmv(x, idx, w, c, msg,
+                                           row_len=row_len, **lk)
+                            want = ell_spmv_plain(x, idx, w, c, msg,
+                                                  row_len=row_len, **lk)
                             errs["ell_spmv"] = max(
                                 errs["ell_spmv"], max_abs_err(
                                     got, want, c, f"ell_spmv {tag} row_len "
                                     f"{row_len is not None}"))
                         for rows in lists:
                             for row_len in (None, g.in_deg):
-                                args = (x, g.ell_idx, g.ell_w, rows, c, msg)
+                                args = (x, idx, w, rows, c, msg)
                                 got = ell_pull_frontier(*args,
-                                                        row_len=row_len)
+                                                        row_len=row_len,
+                                                        **lk)
                                 what = (f"ell_pull_frontier {tag} rows "
                                         f"{rows.shape[0]} row_len "
                                         f"{row_len is not None}")
                                 errs["ell_pull_frontier"] = max(
                                     errs["ell_pull_frontier"], max_abs_err(
                                         got, ell_pull_frontier_plain(
-                                            *args, row_len=row_len), c,
-                                        what))
+                                            *args, row_len=row_len, **lk),
+                                        c, what))
                                 if not torch.equal(got, ell_pull_frontier(
-                                        *args, row_len=row_len)):
+                                        *args, row_len=row_len, **lk)):
                                     fail(what + ": a second call differs")
                         for plan in plans:
                             got = coo_push(x[:-1], active, g.coo_src,
@@ -579,6 +595,7 @@ def kernel_grid(device) -> dict:
                         cells += 1
     torch.cuda.synchronize()
     emit({"phase": "kernel_grid", "cases": list(SMALL_CASES),
+          "row_layout": row_cases,
           "widths": [w for w in WIDTHS + (WIDE,)],
           "cells_per_case": cells // len(SMALL_CASES),
           "max_abs_err": errs})
@@ -800,11 +817,11 @@ def run_kwargs(alg: str, delta: float) -> dict:
             "sssp_delta": {"source": 0, "delta": delta}}[alg]
 
 
-def main_path(graphs: dict) -> tuple[dict, dict, dict]:
+def main_path(graphs: dict) -> tuple[dict, dict, dict, dict]:
     """Slice 1's main path: every solve through the CUDA backend, with
     the launch counts zeroed just before and read just after. Returns
-    the results and their walls (ms), by (graph, alg, policy), and the
-    launch counts."""
+    the results and their walls (ms), by (graph, alg, policy), the
+    launch counts and the backend's dispatch counters."""
     be = api.BACKEND_SHORTHANDS["cuda"]
     results, walls = {}, {}
     stats0 = dict(be.stats)
@@ -839,7 +856,9 @@ def main_path(graphs: dict) -> tuple[dict, dict, dict]:
     for k in ("fallback_pull", "fallback_push"):
         if stats[k] != 0:
             fail(f"{stats[k]} main-path steps fell back ({k})")
-    return results, walls, counts
+    if not stats["row_layout_pulls"]:
+        fail("no main-path pull read the row layout (kron16's)")
+    return results, walls, counts, stats
 
 
 def host_reference(g, alg: str, kw: dict):
@@ -1743,6 +1762,14 @@ def observe_path(graphs: dict, more: dict) -> dict:
     return counts
 
 
+def distinct_sources(g, rows: torch.Tensor) -> int:
+    """Distinct sources of the in-edges of ``rows`` (int64 ids), read
+    from the CSR, whatever the graph's pull layout."""
+    mine = torch.zeros(g.n, dtype=torch.bool, device=rows.device)
+    mine[rows] = True
+    return int(torch.unique(g.coo_src[mine[g.coo_dst.long()]]).numel())
+
+
 def kernel_row(name: str, shape: str, err: float, kernel, plain, library,
                nbytes: float, ops: float, reps: int,
                rate: float = F32_OPS_PER_S, plain_reps: int = 0,
@@ -1800,25 +1827,24 @@ def more_kernel_rows(gname: str, g, auto, results: dict,
     xp = pad_values(xf)
     live = rows[rows < n].long()
     slots = int(g.in_deg[live].sum())
-    srcs = g.ell_idx[live]
-    distinct = int(torch.unique(srcs[srcs < n]).numel())
+    distinct = distinct_sources(g, live)
+    idx, w, lk = own_layout(g)
     br = auto._pull_frontier_block(g, rows_n, xf, "sum", "copy")
-    fkw = dict(block_r=br, row_len=g.in_deg)
+    fkw = dict(block_r=br, row_len=g.in_deg, **lk)
     shape = (f"x f32[{n + 1}] rows[{rows_n}] (level {lvl}: {cnt} live, "
-             f"{slots} real slots) idx[{n},{d}] row_len in_deg block_r "
-             f"{br} sum/copy (the BC backward pull)")
+             f"{slots} real slots) idx[{n},{d}] ({g.pull_layout}) row_len "
+             f"in_deg block_r {br} sum/copy (the BC backward pull)")
     err = max_abs_err(
-        ell_pull_frontier(xp, g.ell_idx, g.ell_w, rows, "sum", "copy",
-                          **fkw),
-        ell_pull_frontier_plain(xp, g.ell_idx, g.ell_w, rows, "sum", "copy",
-                                row_len=g.in_deg), "sum",
+        ell_pull_frontier(xp, idx, w, rows, "sum", "copy", **fkw),
+        ell_pull_frontier_plain(xp, idx, w, rows, "sum", "copy",
+                                row_len=g.in_deg, **lk), "sum",
         f"ell_pull_frontier at {gname} {shape}")
     kernel_row("ell_pull_frontier", shape, err,
-               lambda: ell_pull_frontier(xp, g.ell_idx, g.ell_w, rows,
-                                         "sum", "copy", **fkw),
-               lambda: ell_pull_frontier_plain(xp, g.ell_idx, g.ell_w, rows,
-                                               "sum", "copy",
-                                               row_len=g.in_deg),
+               lambda: ell_pull_frontier(xp, idx, w, rows, "sum", "copy",
+                                         **fkw),
+               lambda: ell_pull_frontier_plain(xp, idx, w, rows, "sum",
+                                               "copy", row_len=g.in_deg,
+                                               **lk),
                None, nbytes=slots * 4 + cnt * 4 + rows_n * 4 + distinct * 4
                + rows_n * 4, ops=slots, reps=reps, path="solve_more",
                graph=gname,
@@ -1909,6 +1935,216 @@ def ppr_step_row(device, scale: int = 21, width: int = 64) -> dict:
                      path="ppr_step", bit_equal_unfused=True)
     del g, x, base, rank, got, want
     return row
+
+
+# -- the row layout: pulls through the CSR's row offsets --------------------
+ROW_SAMPLE = 256          # rows held against the plain gather: the longest
+HUB_SAMPLE = 64           # rows and others drawn at random
+
+
+def card_kron(scale: int, degree: int, seed: int, device) -> "Graph":
+    """GAP's Kron graph as the benchmark's ``gap-kron-s21`` cell draws it
+    (``perfbench/generators/kron.py``, on the card), every view built on
+    the card in the row layout, which ``build_graph`` gives it."""
+    from perfbench.generators import kron
+    e = kron.generate(scale, degree, seed, device=device)
+    return card_graph(torch.from_numpy(e["src"]), torch.from_numpy(e["dst"]),
+                      e["n"], device, dense=False)
+
+
+def csr_sums(x: torch.Tensor, g, cols: int = 8) -> torch.Tensor:
+    """The plain full-scan sum of copied payloads over ``g``'s CSR, in
+    float64: for each row, the sum of x's rows at its in-edges' sources
+    (``index_add_``, ``cols`` columns at a time), [n, B]."""
+    n, width = g.n, x.shape[1]
+    src, dst = g.coo_src.long(), g.coo_dst.long()
+    out = torch.empty((n, width), dtype=torch.float64, device=x.device)
+    for c in range(0, width, cols):
+        part = torch.zeros((n, min(cols, width - c)), dtype=torch.float64,
+                           device=x.device)
+        part.index_add_(0, dst, x[:n, c:c + cols][src].double())
+        out[:, c:c + cols] = part
+    return out
+
+
+def within_an_ulp(got: torch.Tensor, want64: torch.Tensor,
+                  what: str) -> float:
+    """Hold float32 sums ``got`` against the float64 sums ``want64`` of
+    the same terms: each within 2^-23 · |want| (one float32 ulp or less;
+    a float64 sum rounded once to float32, as the kernels give it, lies
+    within half an ulp), an empty row exactly 0. A term dropped or
+    counted twice moves its row by the term, further than that wherever
+    the term is above 2^-23 of the row's sum. Returns the largest gap in
+    units of 2^-23 · |want|."""
+    gap = (got.double() - want64).abs()
+    lim = want64.abs() * 2.0 ** -23
+    bad = int((gap > lim).sum())
+    if bad:
+        fail(f"{what}: {bad} of {got.numel()} sums further than 2^-23 of "
+             f"the float64 sum over the CSR")
+    return float((gap / lim.clamp(min=1e-300)).max())
+
+
+def row_layout_rows(gname: str, g, width: int, device, main: dict) -> list:
+    """The row layout's kernel instances (``ROWS``: each row read from
+    the CSR through its offsets, ``row_ptr = in_ptr``) on ``g``, which
+    has no dense ELL: each held against a plain version and timed. The
+    full-scan ``ell_spmv`` with the backend's plan, float32 sum/copy at
+    ``width``, against the float64 sums over the CSR (:func:`csr_sums`,
+    its plain timing) within an ulp, and on ``ROW_SAMPLE`` rows (the
+    ``HUB_SAMPLE`` longest, the others drawn) against the plain version's
+    rows (``gather_rows_plain``); int32 min/copy at width 1 against
+    ``scatter_reduce`` over the CSR, bit for bit. ``ell_pull_frontier``
+    on those rows, int32 min/copy and float32 sum/copy at ``width``,
+    against ``ell_pull_frontier_plain``. ``ell_spmv_ppr_step`` at
+    min(width, 64) columns against the unfused step (the row layout's
+    ``ell_spmv`` and ``ppr_update``), bit for bit. The bounds count the
+    int32 indices (a copy reads no weight), the n + 1 row offsets, the
+    payload and the output; each line carries the main path's launches
+    of the kernel and its row-layout pulls (``main``)."""
+    if g.pull_layout != "rows":
+        fail(f"{gname}: row_layout_rows takes a row-layout graph")
+    gen = torch.Generator(device=device).manual_seed(5)
+    n, m, d = g.n, g.m, g.d_ell
+    idx, w, lk = own_layout(g)
+    be = api.CudaBackend()
+    reps = 8
+    tag = dict(graph=gname, path="row_layout",
+               main_path_row_layout_pulls=main["dispatch"][
+                   "row_layout_pulls"])
+    out = []
+
+    # the sampled rows: the longest, then drawn ones
+    top = torch.argsort(g.in_deg, descending=True)[:HUB_SAMPLE]
+    drawn = torch.randperm(n, generator=gen, device=device)[
+        :ROW_SAMPLE - HUB_SAMPLE]
+    touched = torch.zeros(n, dtype=torch.bool, device=device)
+    touched[top] = touched[drawn] = True
+    rows = frontier_rows(touched, ROW_SAMPLE)
+    live = rows[rows < n].long()
+    cnt, slots = int(live.numel()), int(g.in_deg[live].sum())
+
+    # ell_spmv, float32 sum/copy at width
+    xp = pad_values(torch.rand((n, width), generator=gen, device=device))
+    plan = be.pull_plan(g, width)
+    bn = be._pull_block_n(g, xp[:n], "sum", "copy")
+    kw = dict(block_n=bn, plan=plan, **lk)
+    got = ell_spmv(xp, idx, w, "sum", "copy", **kw)
+    exact = csr_sums(xp, g)
+    shape = (f"x f32[{n + 1}, {width}] CSR idx[{m}] row_ptr[{n + 1}] "
+             f"(d_ell {d}) block_n {bn} classes {list(plan.class_off)} hub "
+             f"pieces {plan.pieces} ({plan.hub_slots} slots) sum/copy")
+    ulps = within_an_ulp(got, exact, f"ell_spmv at {gname} {shape}")
+    err = max_abs_err(got, exact.float(), "sum", f"ell_spmv at {gname}")
+    sample = gather_rows_plain(xp, idx, w, rows.long(), "sum", "copy", n, n,
+                               None, lk["row_ptr"], d)
+    ulps = max(ulps, within_an_ulp(
+        got[live], sample[:cnt].double(), f"ell_spmv at {gname}: plain rows"))
+    del exact, sample
+    a = torch.sparse_csr_tensor(g.in_ptr, g.coo_src,
+                                torch.ones(m, device=device), (n, n))
+    out.append(kernel_row(
+        "ell_spmv", shape, err, lambda: ell_spmv(xp, idx, w, "sum", "copy",
+                                                 **kw),
+        lambda: csr_sums(xp, g), lambda: torch.sparse.mm(a, xp[:n]),
+        nbytes=m * 4 + (n + 1) * 4 + (2 * n + 1) * width * 4,
+        ops=m * width, reps=reps, plain_reps=1, width=width,
+        ulps_of_the_exact_sum=ulps,
+        main_path_launches=main["launches"]["ell_spmv"], **tag))
+    del got, a
+
+    # ell_spmv, int32 min/copy at width 1, bit for bit
+    xi = pad_values(torch.randint(0, n + 8, (n,), generator=gen,
+                                  device=device, dtype=torch.int32))
+    want = torch.full((n,), reduce_identity("min", torch.int32),
+                      dtype=torch.int32, device=device)
+    want.scatter_reduce_(0, g.coo_dst.long(), xi[g.coo_src.long()], "amin")
+    ikw = dict(block_n=be._pull_block_n(g, xi[:n], "min", "copy"),
+               plan=be.pull_plan(g, 1), **lk)
+    max_abs_err(ell_spmv(xi, idx, w, "min", "copy", **ikw), want, "min",
+                f"ell_spmv at {gname} int32 min/copy")
+    del want
+
+    # ell_pull_frontier on the sampled rows
+    distinct = distinct_sources(g, live)
+    for xf, comb, wd in ((xi, "min", 1), (xp, "sum", width)):
+        br = be._pull_frontier_block(g, ROW_SAMPLE, xf[:n], comb, "copy")
+        fkw = dict(block_r=br, **lk)
+        fplan = frontier_plan(d, wd)
+        got = ell_pull_frontier(xf, idx, w, rows, comb, "copy", **fkw)
+        want = ell_pull_frontier_plain(xf, idx, w, rows, comb, "copy", **lk)
+        what = f"ell_pull_frontier at {gname} {comb} width {wd}"
+        err = max_abs_err(got, want, comb, what)
+        extra = {}
+        if comb == "sum":
+            extra["ulps_of_the_plain_sum"] = within_an_ulp(
+                got, want.double(), what)
+        if not torch.equal(got, ell_pull_frontier(xf, idx, w, rows, comb,
+                                                  "copy", **fkw)):
+            fail(what + ": a second call differs")
+        item = xf.element_size()
+        out.append(kernel_row(
+            "ell_pull_frontier",
+            f"x {str(xf.dtype)[6:]}[{n + 1}, {wd}] rows[{ROW_SAMPLE}] "
+            f"({cnt} live: the {HUB_SAMPLE} longest and drawn ones, "
+            f"{slots} real slots) "
+            f"CSR row_ptr (d_ell {d}) block_r {br} lanes {fplan.group} "
+            f"pieces {fplan.pieces} of {fplan.piece} {comb}/copy", err,
+            lambda xf=xf, comb=comb, fkw=fkw: ell_pull_frontier(
+                xf, idx, w, rows, comb, "copy", **fkw),
+            lambda xf=xf, comb=comb: ell_pull_frontier_plain(
+                xf, idx, w, rows, comb, "copy", **lk),
+            None, nbytes=slots * 4 + cnt * 8 + ROW_SAMPLE * 4
+            + (distinct + ROW_SAMPLE) * wd * item, ops=slots * wd,
+            reps=reps, plain_reps=1, width=wd,
+            main_path_launches=main["launches"]["ell_pull_frontier"],
+            **extra, **tag))
+        del got, want
+
+    # ell_spmv_ppr_step at min(width, 64) columns, against the unfused step
+    b = min(width, PPR_STEP_MAX_WIDTH)
+    rank = torch.rand((n, b), generator=gen, device=device) / n
+    base = torch.zeros((n, b), device=device)
+    base[torch.randint(0, n, (b,), generator=gen, device=device),
+         torch.arange(b, device=device)] = 0.15
+    resid = torch.full((b,), float("inf"), device=device)
+    resid[0] = 0.0                                 # one converged column
+    x = rank / g.out_deg.clamp(min=1).to(torch.float32)[:, None]
+    plan = be.pull_plan(g, b)
+    pkw = dict(damp=0.85, tol=1e-6, block_n=be._pull_block_n(
+        g, x, "sum", "copy"), plan=plan, row_ptr=lk["row_ptr"])
+
+    def fused():
+        return ell_spmv_ppr_step(x, idx, w, base, rank, resid, **pkw)
+
+    def unfused():
+        msgs = ell_spmv(pad_values(x), idx, w, "sum", "copy",
+                        block_n=pkw["block_n"], plan=plan, **lk)
+        return ppr_update(base, rank, resid, msgs, 0.85, 1e-6)
+
+    def plain():
+        return ppr_update(base, rank, resid,
+                          csr_sums(pad_values(x), g).float(), 0.85, 1e-6)
+
+    got, want = fused(), unfused()
+    for p, q in zip(got, want):
+        if not torch.equal(p.view(torch.int32), q.view(torch.int32)):
+            fail(f"ell_spmv_ppr_step at {gname} differs from the row "
+                 "layout's ell_spmv + ppr_update")
+    err = max(max_abs_err(p, q, "sum", f"ell_spmv_ppr_step at {gname}")
+              for p, q in zip(got, plain()))
+    out.append(kernel_row(
+        "ell_spmv_ppr",
+        f"x f32[{n}, {b}] CSR idx[{m}] row_ptr[{n + 1}] (d_ell {d}) "
+        f"block_n {pkw['block_n']} hub pieces {plan.pieces} sum/copy + PPR "
+        f"update", err, fused, plain, None,
+        nbytes=m * 4 + (n + 1) * 4 + 4 * n * b * 4, ops=m * b, reps=reps,
+        plain_reps=1, width=b, unfused_ms=time_ms(unfused, reps),
+        bit_equal_unfused=True,
+        main_path_launches=main["launches"]["ell_spmv_ppr"], **tag))
+    del got, want, x, rank, base, xp, xi
+    torch.cuda.synchronize()
+    return out
 
 
 # -- slice 9: the sharded engine -------------------------------------------
@@ -2293,9 +2529,13 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
     """Phase 5 on one graph: each kernel at the shape the main path gives
     it, checked against its plain version and timed. The main path's
     messages are all "copy" (PageRank and BFS), so the bounds count the
-    int32 indices and not the weights, which a copy never reads."""
+    int32 indices and not the weights, which a copy never reads. The
+    pulls read the graph's own layout, as the main path does (kron16's
+    is the row layout)."""
     gen = torch.Generator(device=device).manual_seed(1)
     out = []
+    idx, w, lk = own_layout(g)
+    lay = "rows" if lk else "dense"
 
     def record(name, shape, got, want, combine, *timed, extra=None,
                **work):
@@ -2320,18 +2560,18 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
                                    generator=gen, device=device))
         bn = auto._pull_block_n(g, xp[:n], "sum", "copy")
         plan = auto.pull_plan(g, width)
-        kw = dict(block_n=bn, row_len=g.in_deg, plan=plan)
+        kw = dict(block_n=bn, row_len=g.in_deg, plan=plan, **lk)
         record("ell_spmv",
-               f"x f32[{n + 1}, {width}] idx[{n},{d}] row_len in_deg "
-               f"block_n {bn} classes {list(plan.class_off)} hub pieces "
-               f"{plan.pieces} sum/copy",
-               ell_spmv(xp, g.ell_idx, g.ell_w, "sum", "copy", **kw),
-               ell_spmv_plain(xp, g.ell_idx, g.ell_w, "sum", "copy",
-                              row_len=g.in_deg), "sum",
-               lambda xp=xp, kw=kw: ell_spmv(xp, g.ell_idx, g.ell_w, "sum",
-                                             "copy", **kw),
-               lambda xp=xp: ell_spmv_plain(xp, g.ell_idx, g.ell_w, "sum",
-                                            "copy", row_len=g.in_deg),
+               f"x f32[{n + 1}, {width}] idx[{n},{d}] ({lay}) row_len "
+               f"in_deg block_n {bn} classes {list(plan.class_off)} hub "
+               f"pieces {plan.pieces} sum/copy",
+               ell_spmv(xp, idx, w, "sum", "copy", **kw),
+               ell_spmv_plain(xp, idx, w, "sum", "copy", row_len=g.in_deg,
+                              **lk), "sum",
+               lambda xp=xp, kw=kw: ell_spmv(xp, idx, w, "sum", "copy",
+                                             **kw),
+               lambda xp=xp: ell_spmv_plain(xp, idx, w, "sum", "copy",
+                                            row_len=g.in_deg, **lk),
                lambda xp=xp: torch.sparse.mm(
                    a, xp[:n] if xp.ndim == 2 else xp[:n, None]),
                nbytes=m * 4 + n * 4 + (2 * n + 1) * width * 4, ops=m * width,
@@ -2353,30 +2593,29 @@ def shaped_kernels(gname: str, g, device, ways: dict) -> list:
                                   device=device, dtype=torch.int32))
     live = rows[rows < n].long()
     slots = int(g.in_deg[live].sum())
-    srcs = g.ell_idx[live]
-    distinct = int(torch.unique(srcs[srcs < n]).numel())
+    distinct = distinct_sources(g, live)
     br = auto._pull_frontier_block(g, rows_n, xi[:n], "min", "copy")
-    fkw = dict(block_r=br, row_len=g.in_deg)
+    fkw = dict(block_r=br, row_len=g.in_deg, **lk)
     plan = frontier_plan(d, 1)
     full_kw = dict(block_n=auto._pull_block_n(g, xi[:n], "min", "copy"),
-                   row_len=g.in_deg, plan=auto.pull_plan(g, 1))
+                   row_len=g.in_deg, plan=auto.pull_plan(g, 1), **lk)
     record("ell_pull_frontier",
            f"x i32[{n + 1}] rows[{rows_n}] ({cnt} live, {slots} real "
-           f"slots) idx[{n},{d}] row_len in_deg block_r {br} lanes "
-           f"{plan.group} pieces {plan.pieces} of {plan.piece} min/copy",
-           ell_pull_frontier(xi, g.ell_idx, g.ell_w, rows, "min", "copy",
-                             **fkw),
-           ell_pull_frontier_plain(xi, g.ell_idx, g.ell_w, rows, "min",
-                                   "copy", row_len=g.in_deg), "min",
-           lambda: ell_pull_frontier(xi, g.ell_idx, g.ell_w, rows, "min",
-                                     "copy", **fkw),
-           lambda: ell_pull_frontier_plain(xi, g.ell_idx, g.ell_w, rows,
-                                           "min", "copy", row_len=g.in_deg),
+           f"slots) idx[{n},{d}] ({lay}) row_len in_deg block_r {br} "
+           f"lanes {plan.group} pieces {plan.pieces} of {plan.piece} "
+           f"min/copy",
+           ell_pull_frontier(xi, idx, w, rows, "min", "copy", **fkw),
+           ell_pull_frontier_plain(xi, idx, w, rows, "min", "copy",
+                                   row_len=g.in_deg, **lk), "min",
+           lambda: ell_pull_frontier(xi, idx, w, rows, "min", "copy",
+                                     **fkw),
+           lambda: ell_pull_frontier_plain(xi, idx, w, rows, "min", "copy",
+                                           row_len=g.in_deg, **lk),
            None, nbytes=slots * 4 + cnt * 4 + rows_n * 4 + distinct * 4
            + rows_n * 4, ops=slots, reps=reps,
            extra={"full_scan_ms": time_ms(
-               lambda: ell_spmv(xi, g.ell_idx, g.ell_w, "min", "copy",
-                                **full_kw), reps)})
+               lambda: ell_spmv(xi, idx, w, "min", "copy", **full_kw),
+               reps)})
 
     # coo_push and coo_push_mxu: the (Personalized) PageRank push (f32,
     # sum, copy, every source active) at width 1 (slice 1) and at the
@@ -3633,30 +3872,43 @@ def card_erdos_renyi(n: int, m: int, seed: int, device) -> "Graph":
     b = torch.randint(0, n, (m // 2,), generator=gen, device=device)
     keep = a != b
     a, b = a[keep], b[keep]
-    key = torch.unique(torch.cat([a * n + b, b * n + a]))    # push-major
+    key = torch.unique(torch.cat([a * n + b, b * n + a]))
     del a, b, keep
-    q_src, q_dst = key // n, key % n
-    del key
-    key = torch.sort(q_dst * n + q_src).values               # pull-major
-    p_dst, p_src = key // n, key % n
-    del key
+    return card_graph(key % n, key // n, n, device)
+
+
+def card_graph(p_src: torch.Tensor, p_dst: torch.Tensor, n: int, device,
+               dense: bool = True) -> "Graph":
+    """Every view of ``build_graph`` built on the card from a symmetric
+    edge set without repeats or self loops, sorted by destination, then
+    source (so the pairs turned round are its push-major order), with
+    ``pair_weights``. ``dense`` False leaves out the dense ELL: the row
+    layout, as ``build_graph`` gives a graph whose dense ELL would be
+    mostly padding."""
+    p_src = p_src.to(device=device, dtype=torch.int64)
+    p_dst = p_dst.to(device=device, dtype=torch.int64)
+    q_src, q_dst = p_dst, p_src
     in_deg = torch.bincount(p_dst, minlength=n)
     out_deg = torch.bincount(q_src, minlength=n)
     zero = torch.zeros(1, dtype=torch.int64, device=device)
     in_ptr = torch.cat([zero, in_deg.cumsum(0)])
     out_ptr = torch.cat([zero, out_deg.cumsum(0)])
     d_ell = max(8, -(-int(in_deg.max()) // 8) * 8)
-    within = torch.arange(p_src.numel(), device=device) - in_ptr[p_dst]
     p_w, q_w = pair_weights(p_src, p_dst), pair_weights(q_src, q_dst)
-    ell_idx = torch.full((n, d_ell), n, dtype=torch.int32, device=device)
-    ell_idx[p_dst, within] = p_src.to(torch.int32)
-    ell_w = torch.zeros((n, d_ell), device=device)
-    ell_w[p_dst, within] = p_w
+    ell_idx = ell_w = None
+    if dense:
+        within = torch.arange(p_src.numel(), device=device) - in_ptr[p_dst]
+        ell_idx = torch.full((n, d_ell), n, dtype=torch.int32,
+                             device=device)
+        ell_idx[p_dst, within] = p_src.to(torch.int32)
+        ell_w = torch.zeros((n, d_ell), device=device)
+        ell_w[p_dst, within] = p_w
+        del within
     i32 = (lambda t: t.to(torch.int32))
     return Graph(coo_src=i32(p_src), coo_dst=i32(p_dst), coo_w=p_w,
                  in_ptr=i32(in_ptr), push_src=i32(q_src),
                  push_dst=i32(q_dst), push_w=q_w, out_ptr=i32(out_ptr),
-                 ell_idx=ell_idx, ell_w=ell_w, in_deg=i32(in_deg),
+                 dense_idx=ell_idx, dense_w=ell_w, in_deg=i32(in_deg),
                  out_deg=i32(out_deg), n=n, m=int(p_src.numel()),
                  d_ell=d_ell)
 
@@ -4559,7 +4811,8 @@ def main() -> int:
             "mxu": api.CudaBackend(push_strategy="mxu"),
             "auto": api.BACKEND_SHORTHANDS["cuda"]}
     tune_phase(graphs, list(ways.values()))
-    results, walls, counts = main_path(graphs)
+    results, walls, counts, dispatch = main_path(graphs)
+    main = {"launches": dict(counts), "dispatch": dispatch}
     dense = check_answers(graphs, results)
     legacy_check(graphs)
     serving = serving_path(graphs, ways)
@@ -4582,11 +4835,16 @@ def main() -> int:
     for gname, (g, _) in graphs.items():
         rows += shaped_kernels(gname, g, device, ways)
         more_kernel_rows(gname, g, ways["auto"], more, by_alg)
+    row_layout_rows("kron16", graphs["kron16"][0], BATCH["kron16"], device,
+                    main)
     # the loop's g would hold kron16 (its ELL view is 5.2 GB) to the end
     del graphs, ways, more, g
     held("graph phases")
     ppr_step_row(device)
     held("ppr_step")
+    row_layout_rows("kron21", card_kron(21, 16, 0, device), 256, device,
+                    main)
+    held("row_layout")
 
     errs.update(model_kernel_grid(device))
     lms, rec, model_counts = model_path(device)

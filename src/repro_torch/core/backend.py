@@ -117,12 +117,22 @@ class ExchangeBackend:
                                touched=touched, cost=cost)
         return out, cost, xstate
 
-    def pull_update(self, g: Graph, values, state, spec, cost: Cost):
-        """A full-scan pull of ``values`` and the program's update fused
-        into one step, for a program whose ``pull_update`` is ``spec``:
-        ``(state, frontier, converged, cost)``, exactly what the pull and
-        ``update_fn`` give, or None where this backend does not fuse
-        them (the default), and the engine runs the two."""
+    def pull_update(self, g: Graph, values_of, state, spec, cost: Cost,
+                    private: bool = False):
+        """A full-scan pull of the step's payload and the program's
+        update fused into one step, for a program whose ``pull_update``
+        is ``spec``: ``(state, frontier, converged, cost)``, exactly what
+        the pull and ``update_fn`` give, or None where this backend does
+        not fuse them (the default), and the engine runs the two.
+        ``values_of(s)`` is the program's payload of a state ``s``: of
+        ``state``, or of a state of some of its columns.
+
+        ``state``'s tensors are left as they are, except where
+        ``private`` is True: ``state`` is then the engine's own carry,
+        made by an earlier step of the running loop and held by nothing
+        outside it, and a backend may write the new state into those of
+        its tensors that it made itself in an earlier step. A caller's
+        state (the run's first step) is never written."""
         return None
 
     def predict_comm_bytes(self, g: Graph, values, frontier) -> tuple:
@@ -230,7 +240,10 @@ class CudaBackend(EllBackend):
 
     ``pull`` with no touched set runs the full-scan ``ell_spmv`` over the
     real slots of each row (``row_len=g.in_deg``, with a row plan built
-    once per graph and column-lane count). With a
+    once per graph and column-lane count). Every kernel pull reads the
+    graph's own pull layout (``Graph.pull_arrays``): the dense ELL, or on
+    a row-layout graph the CSR through its row offsets, where no path
+    here reads ``ell_idx`` or ``ell_w``. With a
     touched set it counts the set: an empty set returns the identity
     with no launch; a set that fits (at most ``pull_frontier_cap`` rows,
     ``default_pull_cap`` unless pinned, and fewer than ``m / d_ell``)
@@ -244,7 +257,15 @@ class CudaBackend(EllBackend):
     tol)``) on a float32 payload of at most ``PPR_STEP_MAX_WIDTH``
     columns runs its full-scan pull and update as one launch,
     ``ell_spmv_ppr_step``, with the full scan's charges, and counts it
-    in ``stats["fused_pull_update"]`` as well as ``kernel_pull``.
+    in ``stats["fused_pull_update"]`` as well as ``kernel_pull``. A wider
+    batch does so on the steps where at most ``PPR_STEP_MAX_WIDTH`` of
+    its columns are still active (residual at least ``tol``): those
+    columns alone, with the full width's charges, the new ranks written
+    into a copy of the rank on the loop's first such step and in place
+    after it (``private``); so a batch that waits
+    on a few slow queries (sources in small components of a Kronecker
+    graph take 74 steps where the rest take 34) pays a narrow step for
+    each of its last steps, not a [n, B] one.
 
     Block sizes and the push reduce strategy come from
     ``kernels/tune.py``, probed once per (graph shape, payload shape,
@@ -276,10 +297,14 @@ class CudaBackend(EllBackend):
                                  "kernel_pull_frontier": 0,
                                  "skip_empty_pull": 0,
                                  "fallback_pull": 0, "fallback_push": 0,
-                                 "pull_edges": 0, "fused_pull_update": 0})
+                                 "pull_edges": 0, "fused_pull_update": 0,
+                                 "row_layout_pulls": 0, "hub_slots": 0})
     _tuned: dict = dataclasses.field(default_factory=dict, repr=False)
     _plans: dict = dataclasses.field(default_factory=dict, repr=False)
     _layouts: dict = dataclasses.field(default_factory=dict, repr=False)
+    # "rank": a weak reference to the rank the last narrow fused PPR
+    # step wrote
+    _narrow: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # identity eq/hash: instances carry per-graph caches, and the engine
     # cache keys on the backend
@@ -292,9 +317,14 @@ class CudaBackend(EllBackend):
         """``stats``: kernel launches by kind, empty pulls skipped,
         fallbacks to the plain paths, ``pull_edges``, the in-edge slots
         the kernel pulls read (``m`` a full scan, ``rows · d_ell`` a
-        frontier pull, the host integers the Cost charge uses), and
+        frontier pull, the host integers the Cost charge uses),
         ``fused_pull_update``, the full-scan pulls that ran with their
-        program's update (counted in ``kernel_pull`` too)."""
+        program's update (counted in ``kernel_pull`` too),
+        ``row_layout_pulls``, the kernel pulls (full scan and frontier,
+        counted in ``kernel_pull`` and ``kernel_pull_frontier`` too) that
+        read a row-layout graph's rows through its offsets, and
+        ``hub_slots``, the in-edge slots the full-scan pulls read in hub
+        pieces (the row plan's hub rows, on either layout)."""
         return dict(self.stats)
 
     def _mode(self, values, combine, msg_fn) -> Optional[str]:
@@ -341,15 +371,21 @@ class CudaBackend(EllBackend):
             self._tuned[key] = probe() if self.autotune else default()
         return self._tuned[key]
 
+    @staticmethod
+    def _probe_layout(g: Graph) -> tuple:
+        """What the tuner probes: the graph's own pull layout."""
+        idx, w, row_ptr = g.pull_arrays
+        return (idx, w, g.in_deg, row_ptr)
+
     def _pull_block_n(self, g: Graph, values, combine, mode) -> int:
         if self.block_n is not None:
             return self.block_n
         width, dt = _width(values), values.dtype
         return self._tune(
-            ("pull", g.n, g.d_ell, width, dt, combine, mode),
+            ("pull", g.n, g.d_ell, g.pull_layout, width, dt, combine, mode),
             lambda: tune.tune_pull(g.n, g.d_ell, width, dt, combine, mode,
                                    values.device,
-                                   layout=(g.ell_idx, g.ell_w, g.in_deg)),
+                                   layout=self._probe_layout(g)),
             lambda: tune.pull_candidates(g.n)[0])
 
     def _pull_cap(self, g: Graph) -> int:
@@ -361,10 +397,11 @@ class CudaBackend(EllBackend):
                              mode) -> int:
         width, dt = _width(values), values.dtype
         return self._tune(
-            ("pullf", g.n, g.d_ell, rows, width, dt, combine, mode),
+            ("pullf", g.n, g.d_ell, g.pull_layout, rows, width, dt, combine,
+             mode),
             lambda: tune.tune_pull_frontier(
                 g.n, g.d_ell, rows, width, dt, combine, mode, values.device,
-                layout=(g.ell_idx, g.ell_w, g.in_deg)),
+                layout=self._probe_layout(g)),
             lambda: tune.pull_frontier_candidates(g.n, rows)[0])
 
     def push_blocks(self, g: Graph, values, combine,
@@ -412,6 +449,26 @@ class CudaBackend(EllBackend):
         edges, verts, _, _ = self._pull_scan_stats(g, touched)
         return counter(edges, g.device), counter(verts, g.device)
 
+    def _full_scan_plan(self, g: Graph, width: int):
+        """The row plan of a full-scan kernel pull about to run, with the
+        pull counted: ``kernel_pull``, ``hub_slots``, and on a row-layout
+        graph ``row_layout_pulls``."""
+        plan = self.pull_plan(g, width)
+        self.stats["kernel_pull"] += 1
+        self.stats["hub_slots"] += plan.hub_slots
+        self.stats["row_layout_pulls"] += g.pull_layout == "rows"
+        return plan
+
+    def _full_scan(self, g: Graph, values, combine, mode):
+        idx, w, row_ptr = g.pull_arrays
+        with region("backend.pull"):
+            return ell_spmv(pad_values(values), idx, w, combine=combine,
+                            msg=mode,
+                            block_n=self._pull_block_n(g, values, combine,
+                                                       mode),
+                            plan=self._full_scan_plan(g, _width(values)),
+                            row_ptr=row_ptr)
+
     def pull(self, g, values, touched, combine, msg_fn, cost):
         mode = self._mode(values, combine, msg_fn)
         if mode is None:
@@ -419,27 +476,21 @@ class CudaBackend(EllBackend):
             return super().pull(g, values, touched, combine, msg_fn, cost)
         width = _width(values)
         if touched is None:
-            self.stats["kernel_pull"] += 1
             self.stats["pull_edges"] += g.m
-            with region("backend.pull"):
-                out = ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
-                               combine=combine, msg=mode,
-                               block_n=self._pull_block_n(g, values,
-                                                          combine, mode),
-                               row_len=g.in_deg,
-                               plan=self.pull_plan(g, width))
+            out = self._full_scan(g, values, combine, mode)
             return out, cost.charge(reads=counter(g.m, g.device) * width,
                                     writes=counter(g.n, g.device) * width)
         edges, verts, cnt, fits = self._pull_scan_stats(g, touched)
         self.stats["pull_edges"] += edges
         if cnt == 0:
             self.stats["skip_empty_pull"] += 1
-            odt = _out_dtype(values.dtype, g.ell_w.dtype, mode, combine)
+            odt = _out_dtype(values.dtype, g.coo_w.dtype, mode, combine)
             out = torch.full((g.n,) + tuple(values.shape[1:]),
                              combine_identity(combine, odt), dtype=odt,
                              device=values.device)
         elif fits:
             self.stats["kernel_pull_frontier"] += 1
+            self.stats["row_layout_pulls"] += g.pull_layout == "rows"
             with region("backend.pull_frontier"):
                 layout = self.dual_layout(g)
                 rows_n = min(max(8, 1 << (cnt - 1).bit_length()),
@@ -450,38 +501,59 @@ class CudaBackend(EllBackend):
                     msg=mode,
                     block_r=self._pull_frontier_block(g, rows_n, values,
                                                       combine, mode),
-                    row_len=g.in_deg)
+                    row_len=g.in_deg, row_ptr=layout.in_ptr,
+                    d_ell=g.d_ell)
         else:
-            self.stats["kernel_pull"] += 1
-            with region("backend.pull"):
-                out = mask_untouched(
-                    ell_spmv(pad_values(values), g.ell_idx, g.ell_w,
-                             combine=combine, msg=mode,
-                             block_n=self._pull_block_n(g, values, combine,
-                                                        mode),
-                             row_len=g.in_deg,
-                             plan=self.pull_plan(g, width)),
-                    touched, combine)
+            out = mask_untouched(self._full_scan(g, values, combine, mode),
+                                 touched, combine)
         return out, cost.charge(reads=counter(edges * width, g.device),
                                 writes=counter(verts * width, g.device))
 
-    def pull_update(self, g, values, state, spec, cost):
-        if (spec[0] != "ppr" or values.dtype != torch.float32
-                or values.ndim != 2 or _width(values) > PPR_STEP_MAX_WIDTH):
+    def pull_update(self, g, values_of, state, spec, cost, private=False):
+        rank, base, resid = state["rank"], state["base"], state["resid"]
+        if (spec[0] != "ppr" or rank.dtype != torch.float32
+                or rank.ndim != 2):
             return None
         _, damp, tol = spec
-        width = _width(values)
-        self.stats["kernel_pull"] += 1
+        width = _width(rank)
+        cols = None
+        if width > PPR_STEP_MAX_WIDTH:
+            # a wider batch fuses the steps whose still-active columns
+            # fit the fused step: those columns alone (the others keep
+            # their ranks and residuals, as the update leaves them)
+            cols = torch.nonzero(resid >= tol).flatten()
+            if not 0 < cols.numel() <= PPR_STEP_MAX_WIDTH:
+                return None
         self.stats["pull_edges"] += g.m
         self.stats["fused_pull_update"] += 1
+        idx, w, row_ptr = g.pull_arrays
         with region("backend.pull_update"):
-            rank, resid = ell_spmv_ppr_step(
-                values, g.ell_idx, g.ell_w, state["base"], state["rank"],
-                state["resid"], damp=damp, tol=tol,
-                block_n=self._pull_block_n(g, values, "sum", "copy"),
-                plan=self.pull_plan(g, width))
-        state = {"rank": rank, "base": state["base"], "resid": resid}
-        frontier = torch.ones((g.n,), dtype=torch.bool, device=values.device)
+            block_n = self._pull_block_n(g, rank, "sum", "copy")
+            if cols is None:
+                rank, resid = ell_spmv_ppr_step(
+                    values_of(state), idx, w, base, rank, resid, damp=damp,
+                    tol=tol, block_n=block_n,
+                    plan=self._full_scan_plan(g, width), row_ptr=row_ptr)
+            else:
+                part = {"rank": rank.index_select(1, cols),
+                        "base": base.index_select(1, cols),
+                        "resid": resid.index_select(0, cols)}
+                rank_c, resid_c = ell_spmv_ppr_step(
+                    values_of(part), idx, w, part["base"], part["rank"],
+                    part["resid"], damp=damp, tol=tol, block_n=block_n,
+                    plan=self._full_scan_plan(g, cols.numel()),
+                    row_ptr=row_ptr)
+                # into the rank in place where this backend made it in
+                # the loop's previous step, else into a copy, once
+                mine = self._narrow.get("rank")
+                if private and mine is not None and mine() is rank:
+                    rank.index_copy_(1, cols, rank_c)
+                else:
+                    rank = rank.index_copy(1, cols, rank_c)
+                    self._narrow["rank"] = weakref.ref(rank)
+                resid = resid.index_copy(0, cols, resid_c)
+        state = {"rank": rank, "base": base, "resid": resid}
+        frontier = torch.ones((g.n,), dtype=torch.bool, device=rank.device)
         return state, frontier, (resid < tol).all(), cost.charge(
             reads=counter(g.m, g.device) * width,
             writes=counter(g.n, g.device) * width)

@@ -290,18 +290,23 @@ class PushPullEngine:
         prog = ph.phase.program
         frontier, step = st.frontier, st.step
         unvisited = ~st.visited
+        values_fn = prog.values_fn or (lambda g_, s, f: s)
+        tracing = ph.predictor is not None
         if prog.local_fn is not None:
             values = touched = None
         else:
-            values = (prog.values_fn or (lambda g_, s, f: s))(
-                g, st.state, frontier)
+            # a step the backend may fuse (``pull_update``) asks for the
+            # payload itself, maybe of some columns only; the payload is
+            # computed here where the step's statistics read it
+            values = (values_fn(g, st.state, frontier)
+                      if prog.pull_update is None or ph.fixed_dir is None
+                      or tracing else None)
             if prog.touched_fn is not None:
                 touched = prog.touched_fn(g, st.state, frontier, st.visited)
             elif prog.pull_touched == "unvisited":
                 touched = unvisited
             else:
                 touched = None
-        tracing = ph.predictor is not None
         stats = (self._step_stats(g, prog, frontier, unvisited, touched,
                                   values, step, st.last_push)
                  if (ph.fixed_dir is None or tracing) else None)
@@ -313,8 +318,16 @@ class PushPullEngine:
         xstate = st.xstate
         fused = None
         if not do_push and touched is None and prog.pull_update is not None:
-            fused = self.backend.pull_update(g, values, st.state,
-                                             prog.pull_update, cost0)
+            def values_of(state):
+                if state is st.state and values is not None:
+                    return values
+                return values_fn(g, state, frontier)
+            # a state made by this loop's earlier steps is the loop's own
+            fused = self.backend.pull_update(g, values_of, st.state,
+                                             prog.pull_update, cost0,
+                                             private=step > 0)
+        if values is None and prog.local_fn is None and fused is None:
+            values = values_fn(g, st.state, frontier)
         if prog.local_fn is not None:
             state, new_frontier, conv, cost = prog.local_fn(
                 g, st.state, frontier, step, do_push, cost0)

@@ -57,14 +57,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ell_spmv": ("repro_ell_spmv",
                  [_P, _I, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _P, _P,
-                  _L, _L, _L, _L, _L, _L, _P, _P, _P, _P, _P]),
+                  _L, _L, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P]),
     "ell_spmv_ppr": ("repro_ell_spmv_ppr",
                      [_P, _P, _P, _L, _L, _L, _L, _P, _P, _L, _L, _L, _L,
                       _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _F,
-                      _F, _P]),
+                      _F, _P, _P]),
     "ell_pull_frontier": ("repro_ell_pull_frontier",
                           [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
-                           _L, _I, _I, _I, _I, _L, _L, _P, _P, _P]),
+                           _L, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P]),
     "coo_push": ("repro_coo_push",
                  [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _L,
                   _P, _P, _P, _L, _P, _P, _P, _P, _P]),

@@ -3,7 +3,9 @@
 //   out[r] = combine_{j < len(v)} msg(x[idx[v, j]], w[v, j]),  v = rows[r]
 // with len(v) = row_len[v] (the row's real slots: the graph's in-degree)
 // or d_ell, and the identity for sentinel rows (rows[r] outside
-// [0, row_limit)).
+// [0, row_limit)). The rows are the dense ELL's or, in an instance of
+// its own (ROWS), the row layout's (the graph's CSR: row v at
+// [row_ptr[v], row_ptr[v+1]) of idx and w, ell_rows.cuh).
 //
 // Replaces: src/repro/kernels/ell_pull_frontier.py,
 // ell_pull_frontier_pallas (the Pallas TPU kernel that tiles the row-id
@@ -46,9 +48,10 @@ constexpr int kFrontierThreads = 256;
 
 struct FrontierArgs {
   const void* x;           // [num_sources + 1 (, B)], sentinel row last
-  const int32_t* idx;      // [n, d_ell]
-  const float* w;          // [n, d_ell]
+  const int32_t* idx;      // [n, d_ell], or the row layout's [m]
+  const float* w;          // [n, d_ell], or [m]
   const int32_t* row_len;  // [n], or null: every row has d_ell slots
+  const int32_t* row_ptr;  // [n + 1]: the row layout (idx, w [m]), or null
   const int32_t* rows;     // [R] row ids
   void* out;               // [R (, B)]
   long long R, d_ell, num_sources, row_limit, B, block_r;
@@ -59,7 +62,8 @@ struct FrontierArgs {
   cudaStream_t stream;
 };
 
-template <typename T, typename M, typename O, int C, int MSG>
+// row_len: the row lengths, or with ROWS the row offsets
+template <typename T, typename M, typename O, int C, int MSG, bool ROWS>
 __global__ void __launch_bounds__(kFrontierThreads, 4)
 ell_frontier_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                     const float* __restrict__ w,
@@ -88,20 +92,25 @@ ell_frontier_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
     const long long r = in ? u % R : 0;
     const long long v = in ? rows[r] : -1;
     const bool live = v >= 0 && v < row_limit;
-    const long long len = live ? row_length(row_len, v, d_ell) : 0;
+    RowSpan rs{0, 0, 0};
+    if constexpr (ROWS)
+      if (live) rs = row_span<true>(row_len, v, d_ell, vec);
+    const long long len = ROWS ? rs.len
+                               : live ? row_length(row_len, v, d_ell) : 0;
     const long long count = len > piece ? (len + piece - 1) / piece : 1;
     // the first piece of a sentinel or empty row writes the identity
     const bool work = in && p < count;
     const long long lo = p * piece;
     const long long hi = lo + piece < len ? lo + piece : len;
-    const int32_t* ri = idx + (live ? v : 0) * d_ell;
-    const float* rw = w + (live ? v : 0) * d_ell;
+    const long long at = ROWS ? rs.at : (live ? v : 0) * d_ell;
+    const int32_t* ri = idx + at;
+    const float* rw = w + at;
     for (long long c0 = 0; c0 < B; c0 += col_lanes) {
       const long long c = c0 + cl;
       A acc = work && live && c < B
-                  ? walk_chunks<T, M, A, C, MSG>(x, ri, rw, lo, hi, sl, S,
-                                                 d_ell, vec, c, B,
-                                                 num_sources)
+                  ? walk_chunks<T, M, A, C, MSG, ROWS>(
+                        x, ri, rw, lo, rs.from + hi, sl, S, d_ell, vec, c,
+                        B, num_sources, rs.from)
                   : identity<A, C>();
       acc = group_reduce<A, C>(acc, G, col_lanes);
       if (work && sl == 0 && c < B) {
@@ -146,16 +155,19 @@ struct FrontierLauncher {
     const long long blocks = (units + upb - 1) / upb;
     if (blocks == 0) return cudaSuccess;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    // 16-byte chunk loads need every row (and so every chunk) aligned
-    const bool vec = a.d_ell % kChunk == 0 &&
+    // 16-byte chunk loads need every row (and so every chunk) aligned;
+    // the row layout aligns each row's walk itself (ell_rows.cuh)
+    const bool vec = (a.row_ptr || a.d_ell % kChunk == 0) &&
                      reinterpret_cast<uintptr_t>(a.idx) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
-    ell_frontier_kernel<T, M, O, C, MSG>
-        <<<static_cast<unsigned>(blocks), kFrontierThreads, 0, a.stream>>>(
-            static_cast<const T*>(a.x), a.idx, a.w, a.row_len, a.rows,
-            static_cast<O*>(a.out), a.R, a.d_ell, a.num_sources, a.row_limit,
-            a.B, vec, a.group, a.col_lanes, a.piece, a.pieces, upb,
-            a.counters, static_cast<A_of<M, C>*>(a.partial));
+    auto kernel = a.row_ptr ? ell_frontier_kernel<T, M, O, C, MSG, true>
+                            : ell_frontier_kernel<T, M, O, C, MSG, false>;
+    kernel<<<static_cast<unsigned>(blocks), kFrontierThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), a.idx, a.w,
+        a.row_ptr ? a.row_ptr : a.row_len, a.rows, static_cast<O*>(a.out),
+        a.R, a.d_ell, a.num_sources, a.row_limit, a.B, vec, a.group,
+        a.col_lanes, a.piece, a.pieces, upb, a.counters,
+        static_cast<A_of<M, C>*>(a.partial));
     return cudaGetLastError();
   }
 };
@@ -168,10 +180,11 @@ extern "C" int repro_ell_pull_frontier(
     long long d_ell, long long num_sources, long long row_limit,
     long long B, long long block_r, int combine, int msg, int group,
     int col_lanes, long long piece, long long pieces, void* counters,
-    void* partial, void* stream) {
+    void* partial, const void* row_ptr, void* stream) {
   rk::FrontierArgs a{x, static_cast<const int32_t*>(idx),
                      static_cast<const float*>(w),
                      static_cast<const int32_t*>(row_len),
+                     static_cast<const int32_t*>(row_ptr),
                      static_cast<const int32_t*>(rows), out, R, d_ell,
                      num_sources, row_limit, B, block_r, group, col_lanes,
                      piece, pieces, static_cast<int32_t*>(counters), partial,

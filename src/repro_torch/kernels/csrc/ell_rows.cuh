@@ -11,6 +11,16 @@
 // of it): C column lanes (C = the power of two >= the payload width, at
 // most 32) times G / C slot lanes; each slot's index is read once per
 // tile of C columns, and row s of x is read as C contiguous values.
+//
+// Two layouts of the rows, a compile-time choice (ROWS) of each kernel:
+// the dense ELL, row v at idx + v * d_ell; and the row layout, the
+// graph's CSR, row v the slots [row_ptr[v], row_ptr[v+1]) of idx and w
+// (row_ptr takes row_len's place). A CSR row is not 16-byte aligned: its
+// walk starts at the aligned slot at or below its first (row_span), so
+// that its chunks keep their 16-byte loads, and the slots before its
+// first are loaded with the chunk but not combined. On the H100 that
+// pulls 3-4 % faster than a walk from the row's first slot with one load
+// a slot (PERF.md).
 #pragma once
 
 #include "common.cuh"
@@ -31,6 +41,29 @@ __device__ __forceinline__ long long row_length(const int32_t* row_len,
 }
 
 constexpr int kChunk = 4;   // slots a lane loads at once (16 B of indices)
+
+// where one row's walk reads, relative to idx and w: `at` its base and
+// the row's slots [from, from + len) from that base. The dense ELL: base
+// v * d_ell, from 0. The row layout (ROWS, rp the row offsets): base the
+// row's first slot, rounded down to a multiple of kChunk where `vec`
+// (its 16-byte chunks then aligned), from the slots rounded off.
+struct RowSpan {
+  long long at;
+  int from;
+  long long len;
+};
+
+template <bool ROWS>
+__device__ __forceinline__ RowSpan row_span(const int32_t* rp, long long v,
+                                            long long d_ell, bool vec) {
+  if constexpr (ROWS) {
+    const long long s = rp[v], e = rp[v + 1];
+    const long long at = vec ? s & ~static_cast<long long>(kChunk - 1) : s;
+    return {at, static_cast<int>(s - at), e - s};
+  } else {
+    return {v * d_ell, 0, row_length(rp, v, d_ell)};
+  }
+}
 
 // indices and weights of slots [j, j + kChunk) of one row, -1 / 0 at and
 // past `cap`; one 16-byte load each where `vec` says the row is aligned
@@ -63,27 +96,39 @@ __device__ __forceinline__ void load_chunk(const int32_t* __restrict__ ri,
 // combine of one row's slots [lo, hi) for column c by one lane, which
 // takes the chunks of kChunk slots at lo + kChunk * (first + k * step),
 // k = 0, 1, ... The first chunk is loaded before the row length is
-// known (any slot below d_ell may be read), and each chunk's payload
-// loads are issued together.
-template <typename T, typename M, typename A, int C, int MSG>
+// known (any slot below `cap`, d_ell, may be read), and each chunk's
+// payload loads are issued together. With ROWS nothing at or past hi is
+// loaded, and the walk's first `skip` slots (skip < kChunk: the slots
+// below the row's first in its aligned chunk) are loaded but not
+// combined.
+template <typename T, typename M, typename A, int C, int MSG,
+          bool ROWS = false>
 __device__ __forceinline__ A walk_chunks(const T* __restrict__ x,
                                          const int32_t* __restrict__ ri,
                                          const float* __restrict__ rw,
                                          long long lo, long long hi,
                                          long long first, long long step,
-                                         long long d_ell, bool vec,
+                                         long long cap, bool vec,
                                          long long c, long long B,
-                                         long long num_sources) {
+                                         long long num_sources,
+                                         int skip = 0) {
   A acc = identity<A, C>();
   long long j = lo + kChunk * first;
   int32_t s[kChunk];
   float wv[kChunk];
-  load_chunk<MSG>(ri, rw, j, d_ell, vec, s, wv);
+  load_chunk<MSG>(ri, rw, j, ROWS ? hi : cap, vec, s, wv);
+  if constexpr (ROWS) {
+    if (first == 0) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (k < skip) s[k] = -1;
+    }
+  }
   while (j < hi) {
     const long long jn = j + kChunk * step;
     int32_t sn[kChunk] = {-1, -1, -1, -1};
     float wn[kChunk] = {0.f, 0.f, 0.f, 0.f};
-    if (jn < hi) load_chunk<MSG>(ri, rw, jn, d_ell, vec, sn, wn);
+    if (jn < hi) load_chunk<MSG>(ri, rw, jn, ROWS ? hi : cap, vec, sn, wn);
     T xv[kChunk];
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {

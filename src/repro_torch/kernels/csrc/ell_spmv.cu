@@ -1,6 +1,8 @@
 // Full-scan ELL pull: out[v] = combine_{j < len(v)} msg(x[idx[v, j]], w[v, j])
 // for every row v of the [n, d_ell] ELL-in layout, where len(v) is
-// row_len[v] (the row's real slots; the graph's in-degree) or d_ell.
+// row_len[v] (the row's real slots; the graph's in-degree) or d_ell; or
+// of the row layout (the graph's CSR: row v at [row_ptr[v], row_ptr[v+1])
+// of idx and w, ell_rows.cuh), an instance of its own (ROWS).
 //
 // Replaces: src/repro/kernels/ell_spmv.py, ell_spmv_pallas (the Pallas
 // TPU kernel whose grid tiles [block_n, d_ell] VMEM blocks).
@@ -78,6 +80,7 @@ struct PullArgs {
   const int32_t* idx;
   const float* w;
   const int32_t* row_len;    // [n], or null: every row has d_ell slots
+  const int32_t* row_ptr;    // [n + 1]: the row layout (idx, w [m]), or null
   const int32_t* rows;       // [n] row ids sorted by class
   void* out;
   long long n, d_ell, num_sources, B, block_n;
@@ -99,6 +102,7 @@ struct StoreRows {
     out[v * B + c] = r;
   }
   __device__ __forceinline__ void prefetch(long long, long long, int, int) {}
+  template <bool ROWS>
   __device__ __forceinline__ void finish(long long, long long, int, int) {}
 };
 
@@ -139,7 +143,9 @@ struct PprStep {
     else lo = d > lo ? d : lo;
   }
 
-  // the CTA's maxima into its slot; every thread of the CTA calls it
+  // the CTA's maxima into its slot; every thread of the CTA calls it (a
+  // template, so each kernel instance has its own shared array)
+  template <bool ROWS>
   __device__ __forceinline__ void finish(long long blk, long long B, int t,
                                          int col_lanes) {
     __shared__ unsigned int red[kMaxCols];
@@ -153,7 +159,9 @@ struct PprStep {
   }
 };
 
-template <typename T, typename M, typename O, int C, int MSG, typename E>
+// row_len: the row lengths, or with ROWS the row offsets
+template <typename T, typename M, typename O, int C, int MSG, typename E,
+          bool ROWS>
 __global__ void __launch_bounds__(kPullThreads, 6)
 ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                 const float* __restrict__ w,
@@ -195,22 +203,35 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
       const long long i = base + t / G;
       const bool live = i < r_hi;
       const long long v = live ? rows[i] : 0;
-      const long long len = live ? row_length(row_len, v, d_ell) : 0;
-      const int32_t* ri = idx + v * d_ell;
-      const float* rw = w + v * d_ell;
+      long long len;           // with ROWS: the walk's end, skip + length
+      int skip = 0;
+      const int32_t* ri;
+      const float* rw;
+      if constexpr (ROWS) {
+        const RowSpan rs = live ? row_span<true>(row_len, v, d_ell, vec)
+                                : RowSpan{0, 0, 0};
+        len = rs.from + rs.len;
+        skip = rs.from;
+        ri = idx + rs.at;
+        rw = w + rs.at;
+      } else {
+        len = live ? row_length(row_len, v, d_ell) : 0;
+        ri = idx + v * d_ell;
+        rw = w + v * d_ell;
+      }
       if (live && sl == 0) ep.prefetch(v, B, cl, col_lanes);
       for (long long c0 = 0; c0 < B; c0 += col_lanes) {
         const long long c = c0 + cl;
-        A acc = c < B ? walk_chunks<T, M, A, C, MSG>(
+        A acc = c < B ? walk_chunks<T, M, A, C, MSG, ROWS>(
                             x, ri, rw, 0, len, sl, S, d_ell, vec, c, B,
-                            num_sources)
+                            num_sources, skip)
                       : identity<A, C>();
         acc = group_reduce<A, C>(acc, G, col_lanes);
         if (live && sl == 0 && c < B)
           ep.put(out, v, B, c, c0 != 0, from_acc<O, A>(acc));
       }
     }
-    ep.finish(blk, B, t, col_lanes);
+    ep.template finish<ROWS>(blk, B, t, col_lanes);
     return;
   }
   // ---- one piece of a hub row: the whole CTA, (256 / C) slot lanes
@@ -220,20 +241,32 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   const long long h = piece_hub[p];
   const long long v = rows[hubs_at + h];
   const long long first = hub_first[h], count = hub_first[h + 1] - first;
-  const long long len = row_length(row_len, v, d_ell);
+  long long len;
+  int off = 0;
+  const int32_t* ri;
+  const float* rw;
+  if constexpr (ROWS) {
+    const RowSpan rs = row_span<true>(row_len, v, d_ell, vec);
+    len = rs.len;
+    off = rs.from;
+    ri = idx + rs.at;
+    rw = w + rs.at;
+  } else {
+    len = row_length(row_len, v, d_ell);
+    ri = idx + v * d_ell;
+    rw = w + v * d_ell;
+  }
   const long long lo = (p - first) * piece;
   const long long hi = lo + piece < len ? lo + piece : len;
   const int S = kPullThreads / col_lanes;
   const int sl = t / col_lanes;
   const int warp = t / 32, lane = t % 32;
-  const int32_t* ri = idx + v * d_ell;
-  const float* rw = w + v * d_ell;
   if (count == 1 && t < col_lanes) ep.prefetch(v, B, cl, col_lanes);
   for (long long c0 = 0; c0 < B; c0 += col_lanes) {
     const long long c = c0 + cl;
-    A acc = c < B ? walk_chunks<T, M, A, C, MSG>(x, ri, rw, lo, hi, sl, S,
-                                                 d_ell, vec, c, B,
-                                                 num_sources)
+    A acc = c < B ? walk_chunks<T, M, A, C, MSG, ROWS>(
+                        x, ri, rw, lo, off + hi, sl, S, d_ell, vec, c, B,
+                        num_sources, off)
                   : identity<A, C>();
     acc = group_reduce<A, C>(acc, 32, col_lanes);
     if (lane < col_lanes) red[warp][lane] = acc;
@@ -248,7 +281,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
     __syncthreads();
   }
   if (count == 1) {
-    ep.finish(blk, B, t, col_lanes);
+    ep.template finish<ROWS>(blk, B, t, col_lanes);
     return;
   }
   // the last piece of this hub to arrive combines the partials in order
@@ -264,7 +297,7 @@ ell_spmv_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                                      from_acc<O, A>(r));
                             });
   if (t == 0) counters[h] = 0;     // ready for the next launch
-  ep.finish(blk, B, t, col_lanes);
+  ep.template finish<ROWS>(blk, B, t, col_lanes);
 }
 
 struct PullLauncher {
@@ -296,19 +329,21 @@ struct PullLauncher {
       next += (rows_k + sec.rpb[k] - 1) / sec.rpb[k];
     }
     const long long blocks = next;
-    // 16-byte chunk loads need every row (and so every chunk) aligned
-    const bool vec = a.d_ell % kChunk == 0 &&
+    // 16-byte chunk loads need every row (and so every chunk) aligned;
+    // the row layout aligns each row's walk itself (ell_rows.cuh)
+    const bool vec = (a.row_ptr || a.d_ell % kChunk == 0) &&
                      reinterpret_cast<uintptr_t>(a.idx) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
     if (blocks == 0) return cudaSuccess;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    ell_spmv_kernel<T, M, O, C, MSG, E>
-        <<<static_cast<unsigned>(blocks), kPullThreads, 0, a.stream>>>(
-            static_cast<const T*>(a.x), a.idx, a.w, a.row_len, a.rows,
-            static_cast<O*>(a.out), a.d_ell, a.num_sources, a.B, vec, col_lanes,
-            sec, a.class_off[kPullClasses], a.pieces, a.piece, a.piece_hub,
-            a.hub_first,
-            a.counters, static_cast<A_of<M, C>*>(a.partial), ep);
+    auto kernel = a.row_ptr ? ell_spmv_kernel<T, M, O, C, MSG, E, true>
+                            : ell_spmv_kernel<T, M, O, C, MSG, E, false>;
+    kernel<<<static_cast<unsigned>(blocks), kPullThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), a.idx, a.w,
+        a.row_ptr ? a.row_ptr : a.row_len, a.rows, static_cast<O*>(a.out),
+        a.d_ell, a.num_sources, a.B, vec, col_lanes, sec,
+        a.class_off[kPullClasses], a.pieces, a.piece, a.piece_hub,
+        a.hub_first, a.counters, static_cast<A_of<M, C>*>(a.partial), ep);
     return cudaGetLastError();
   }
 };
@@ -322,10 +357,12 @@ extern "C" int repro_ell_spmv(
     const void* rows, long long o1, long long o2, long long o3,
     long long hubs_at, long long pieces, long long piece,
     const void* piece_hub,
-    const void* hub_first, void* counters, void* partial, void* stream) {
+    const void* hub_first, void* counters, void* partial,
+    const void* row_ptr, void* stream) {
   rk::PullArgs a{x, static_cast<const int32_t*>(idx),
                  static_cast<const float*>(w),
                  static_cast<const int32_t*>(row_len),
+                 static_cast<const int32_t*>(row_ptr),
                  static_cast<const int32_t*>(rows), out, n, d_ell,
                  num_sources, B, block_n, {0, o1, o2, o3, hubs_at}, pieces,
                  piece,
@@ -338,7 +375,8 @@ extern "C" int repro_ell_spmv(
 }
 
 // one PPR power step: the full-scan pull of x [n, B] (float32, copy, sum;
-// B <= 64) with the PprStep epilogue (see the note at the top)
+// B <= 64) with the PprStep epilogue (see the note at the top); row_ptr
+// as in repro_ell_spmv
 extern "C" int repro_ell_spmv_ppr(
     const void* x, const void* idx, const void* w, long long n,
     long long d_ell, long long B, long long block_n, const void* row_len,
@@ -347,12 +385,13 @@ extern "C" int repro_ell_spmv_ppr(
     const void* piece_hub, const void* hub_first, void* counters,
     void* partial, const void* base, const void* rank, const void* resid,
     void* rank_out, void* slots, long long nslots, float damp, float tol,
-    void* stream) {
+    const void* row_ptr, void* stream) {
   if (B < 1 || B > rk::PprStep::kMaxCols || nslots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   rk::PullArgs a{x, static_cast<const int32_t*>(idx),
                  static_cast<const float*>(w),
                  static_cast<const int32_t*>(row_len),
+                 static_cast<const int32_t*>(row_ptr),
                  static_cast<const int32_t*>(rows), nullptr, n, d_ell, n, B,
                  block_n, {0, o1, o2, o3, hubs_at}, pieces, piece,
                  static_cast<const int32_t*>(piece_hub),

@@ -10,6 +10,9 @@ sentinel ``n`` (:func:`frontier_rows`); ``len(v)`` is ``row_len[v]``
 Sentinel rows give the combine identity, so
 :func:`ell_pull_frontier_full` equals
 ``mask_untouched(ell_spmv(...), touched)``.
+With ``row_ptr`` the rows are the graph's row layout (``ell_idx``,
+``ell_w`` the CSR's [m] arrays, ``d_ell`` the dense width it stands for),
+as in ``ell_spmv``.
 
 On a CUDA tensor :func:`ell_pull_frontier` launches
 ``csrc/ell_pull_frontier.cu`` over the work plan of
@@ -31,8 +34,8 @@ from ..sparse.segment import reduce_identity
 from ._build import check_status, load, zeroed_counters
 from .ell_spmv import (COMBINE_CODES, DEFAULT_BLOCK_ROWS, DTYPE_CODES,
                        MSG_CODES, SHORT_LANES, SHORT_MAX, WARP_SLOTS,
-                       _check, _out_dtype, _stream, col_lanes,
-                       gather_rows_plain)
+                       _check, _out_dtype, _ptr, _stream, col_lanes,
+                       gather_rows_plain, layout_shape)
 
 __all__ = ["ell_pull_frontier", "ell_pull_frontier_plain",
            "ell_pull_frontier_full", "frontier_rows", "default_pull_cap",
@@ -93,12 +96,15 @@ def frontier_rows(touched: torch.Tensor, size: int) -> torch.Tensor:
 def ell_pull_frontier_plain(x_padded, ell_idx, ell_w, rows,
                             combine: str = "sum", msg: str = "mul",
                             num_sources: Optional[int] = None,
-                            row_len: Optional[torch.Tensor] = None):
+                            row_len: Optional[torch.Tensor] = None,
+                            row_ptr: Optional[torch.Tensor] = None,
+                            d_ell: Optional[int] = None):
     """Plain PyTorch version of :func:`ell_pull_frontier`."""
-    n = ell_idx.shape[0]
+    n, d_ell = layout_shape(ell_idx, row_ptr, d_ell)
     ns = n if num_sources is None else num_sources
     return gather_rows_plain(x_padded, ell_idx, ell_w, rows.to(torch.int64),
-                             combine, msg, ns, min(n, ns), row_len)
+                             combine, msg, ns, min(n, ns), row_len, row_ptr,
+                             d_ell)
 
 
 def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
@@ -106,8 +112,9 @@ def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
                       combine: str = "sum", msg: str = "mul",
                       num_sources: Optional[int] = None,
                       block_r: int = DEFAULT_BLOCK_ROWS,
-                      row_len: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      row_len: Optional[torch.Tensor] = None,
+                      row_ptr: Optional[torch.Tensor] = None,
+                      d_ell: Optional[int] = None) -> torch.Tensor:
     """Frontier-restricted pull: combined messages for ``rows`` only,
     [R] or [R, B] aligned with ``rows``; sentinel slots hold the
     identity. ``row_len`` (int32 [n], the graph's ``in_deg``) bounds the
@@ -115,10 +122,11 @@ def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
     makes ``block_r // 128`` passes over the units of the plan (at least
     one, and fewer where the list would fill fewer than four CTAs per
     SM), each giving every lane group one unit. No effect on the
-    result."""
-    n, d_ell = ell_idx.shape
+    result. ``row_ptr`` and ``d_ell``: the row layout, as in
+    ``ell_spmv``; the plan is ``d_ell``'s either way."""
+    n, d_ell = layout_shape(ell_idx, row_ptr, d_ell)
     ns = n if num_sources is None else int(num_sources)
-    _check(x_padded, ell_idx, ell_w, combine, msg, ns)
+    _check(x_padded, ell_idx, ell_w, combine, msg, ns, row_ptr)
     if rows.dtype != torch.int32 or rows.ndim != 1 \
             or rows.device != x_padded.device:
         raise ValueError("rows must be int32 [R] on the payload's device")
@@ -128,12 +136,15 @@ def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
         raise ValueError(f"row_len must be int32 [{n}] on {ell_idx.device}")
     if x_padded.device.type == "cpu":
         return ell_pull_frontier_plain(x_padded, ell_idx, ell_w, rows,
-                                       combine, msg, ns, row_len)
+                                       combine, msg, ns, row_len, row_ptr,
+                                       d_ell)
     if x_padded.device.type != "cuda":
         raise ValueError(f"ell_pull_frontier runs on cuda or cpu, not "
                          f"{x_padded.device}")
     x_padded, rows = x_padded.contiguous(), rows.contiguous()
     ell_idx, ell_w = ell_idx.contiguous(), ell_w.contiguous()
+    if row_ptr is not None:
+        row_ptr = row_ptr.contiguous()
     odt = _out_dtype(x_padded.dtype, ell_w.dtype, msg, combine)
     r = rows.shape[0]
     out = torch.empty((r,) + tuple(x_padded.shape[1:]), dtype=odt,
@@ -155,7 +166,7 @@ def ell_pull_frontier(x_padded: torch.Tensor, ell_idx: torch.Tensor,
             plan.group, plan.col_lanes, plan.piece, plan.pieces,
             zeroed_counters("ell_pull_frontier", x_padded.device,
                             r).data_ptr(), partial.data_ptr(),
-            _stream())
+            _ptr(row_ptr), _stream())
     check_status(rc, "ell_pull_frontier")
     return out
 
@@ -164,14 +175,17 @@ def ell_pull_frontier_full(x_padded: torch.Tensor, ell_idx: torch.Tensor,
                            ell_w: torch.Tensor, rows: torch.Tensor,
                            combine: str = "sum", msg: str = "mul",
                            block_r: int = DEFAULT_BLOCK_ROWS,
-                           row_len: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           row_len: Optional[torch.Tensor] = None,
+                           row_ptr: Optional[torch.Tensor] = None,
+                           d_ell: Optional[int] = None) -> torch.Tensor:
     """Frontier pull scattered back to the full vertex range: touched
-    rows carry their combined messages, every other row the identity."""
-    n = ell_idx.shape[0]
+    rows carry their combined messages, every other row the identity.
+    ``row_ptr`` and ``d_ell``: the row layout, as in ``ell_spmv``."""
+    n = ell_idx.shape[0] if row_ptr is None else row_ptr.shape[0] - 1
     compact = ell_pull_frontier(x_padded, ell_idx, ell_w, rows,
                                 combine=combine, msg=msg, block_r=block_r,
-                                row_len=row_len)
+                                row_len=row_len, row_ptr=row_ptr,
+                                d_ell=d_ell)
     odt = _out_dtype(x_padded.dtype, ell_w.dtype, msg, combine)
     # one spill row past the end takes the sentinel slots, then is dropped
     base = torch.full((n + 1,) + tuple(compact.shape[1:]),

@@ -1,8 +1,10 @@
 """DualEllLayout — both edge directions in their rectangular form.
 PyTorch port of ``repro.kernels.layout``.
 
-  * **ELL-in** (``in_idx``/``in_w``) is the graph's own ELL view (shared,
-    not copied); it feeds the pull kernels.
+  * **ELL-in** (``in_idx``/``in_w``) is the graph's own pull layout
+    (shared, not copied); it feeds the pull kernels. On a row-layout
+    graph that is the CSR (``coo_src``/``coo_w`` with offsets
+    ``in_ptr``), and the dense ELL is not built.
   * **ELL-out** (``out_idx``/``out_w``) is the padded out-neighbor
     matrix packed from the push-major CSR; :func:`touched_out_mask`
     reads it to find N_out(frontier).
@@ -17,6 +19,7 @@ are built differs.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +44,9 @@ class DualEllLayout:
     push_dst: torch.Tensor = dataclasses.field(repr=False)
     push_w: torch.Tensor = dataclasses.field(repr=False)
     pad_rows_to: int = 8
+    # the in side's row offsets where it is the row layout, else None
+    in_ptr: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                       repr=False)
     _out: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def _out_side(self) -> dict:
@@ -71,13 +77,17 @@ class DualEllLayout:
 
 
 def build_dual_ell(g: Graph, pad_rows_to: int = 8) -> DualEllLayout:
-    """The dual layout of ``g``: the in side is ``g``'s ELL view; the out
-    side (max out-degree rounded up to ``pad_rows_to``) is packed from
+    """The dual layout of ``g``: the in side is ``g``'s pull layout (its
+    ELL view, or its CSR on a row-layout graph); the out side (max
+    out-degree rounded up to ``pad_rows_to``) is packed from
     ``out_ptr``/``push_dst`` on first use."""
-    return DualEllLayout(in_idx=g.ell_idx, in_w=g.ell_w, n=g.n,
+    rows = g.pull_layout == "rows"
+    return DualEllLayout(in_idx=g.coo_src if rows else g.ell_idx,
+                         in_w=g.coo_w if rows else g.ell_w, n=g.n,
                          d_in=g.d_ell, out_ptr=g.out_ptr,
                          push_dst=g.push_dst, push_w=g.push_w,
-                         pad_rows_to=pad_rows_to)
+                         pad_rows_to=pad_rows_to,
+                         in_ptr=g.in_ptr if rows else None)
 
 
 def touched_out_mask(layout: DualEllLayout, frontier: torch.Tensor,

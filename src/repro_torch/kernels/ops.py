@@ -24,9 +24,12 @@ __all__ = ["pull_spmv", "push_combine", "flash_attention", "cin_layer"]
 
 def pull_spmv(g: Graph, x: torch.Tensor, combine: str = "sum"
               ) -> torch.Tensor:
-    """Pull k-relaxation through the ELL kernel. x: f32 [n] -> f32 [n]."""
-    return ell_spmv(pad_values(x.to(torch.float32)), g.ell_idx, g.ell_w,
-                    combine=combine, row_len=g.in_deg)
+    """Pull k-relaxation through the ELL kernel, over ``g``'s own pull
+    layout. x: f32 [n] -> f32 [n]."""
+    idx, w, row_ptr = g.pull_arrays
+    return ell_spmv(pad_values(x.to(torch.float32)), idx, w,
+                    combine=combine, row_len=g.in_deg, row_ptr=row_ptr,
+                    d_ell=g.d_ell)
 
 
 def push_combine(g: Graph, x: torch.Tensor, active: torch.Tensor,

@@ -363,39 +363,54 @@ def _cached_int(key: str):
     return None
 
 
+def _layout_of(layout: tuple | None, n: int, d_ell: int, device,
+               gen: torch.Generator) -> tuple:
+    """``(idx, w, row_len, row_ptr)`` a pull probe reads: the graph's own
+    (``layout``: ``(ell_idx, ell_w, row_len)``, or with the row layout's
+    offsets as a fourth), else a random full dense layout of the shape,
+    drawn from ``gen``."""
+    if layout is not None:
+        return tuple(layout) + (None,) * (4 - len(layout))
+    idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
+                        dtype=torch.int32, device=device)
+    w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
+    return idx, w, None, None
+
+
+def _layout_dims(layout: tuple | None, dims: tuple) -> tuple:
+    """The tuner key's shape: the row layout is named in it."""
+    rows = layout is not None and len(layout) > 3 and layout[3] is not None
+    return dims + ("rows",) if rows else dims
+
+
 def tune_pull(n: int, d_ell: int, width: int, dtype, combine: str,
               msg: str, device, layout: tuple | None = None) -> int:
     """Best ``block_n`` for an ELL pull of this shape on ``device``
     (shape-and-platform-keyed, persisted). With ``layout = (ell_idx,
-    ell_w, row_len)``, the graph's own layout and in-degrees, the probe
-    pulls it over its real slots, the work the kernel does on the path;
-    else a random full layout, on which the rungs can tie where the
-    graph's own rows set them apart."""
+    ell_w, row_len)``, the graph's own layout and in-degrees (or
+    ``(coo_src, coo_w, row_len, in_ptr)``, its row layout, which the key
+    names), the probe pulls it over its real slots, the work the kernel
+    does on the path; else a random full layout, on which the rungs can
+    tie where the graph's own rows set them apart."""
     device = torch.device(device)
     cands = pull_candidates(n, width)
     if len(cands) == 1:                   # nothing to probe
         return cands[0]
-    key = _cache_key("pull", device, (n, d_ell), width, dtype, combine,
-                     msg)
+    key = _cache_key("pull", device, _layout_dims(layout, (n, d_ell)),
+                     width, dtype, combine, msg)
     hit = _cached_int(key)
     if hit is not None:
         return hit
 
     def probe(in_time):
         t0, launches0 = time.perf_counter(), launch_counts()
-        if layout is None:
-            gen = _generator(device, 0)
-            idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
-                                dtype=torch.int32, device=device)
-            w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
-            row_len = None
-        else:
-            idx, w, row_len = layout
+        idx, w, row_len, row_ptr = _layout_of(layout, n, d_ell, device,
+                                              _generator(device, 0))
         x = _ones(n + 1, width, dtype, device)
         plan = ell_row_plan(row_len, n, d_ell, width, device)
         return _ladder(key, cands, lambda b: _time(lambda: ell_spmv(
-            x, idx, w, combine=combine, msg=msg, block_n=b, plan=plan),
-            device), in_time, t0, launches0)
+            x, idx, w, combine=combine, msg=msg, block_n=b, plan=plan,
+            row_ptr=row_ptr, d_ell=d_ell), device), in_time, t0, launches0)
 
     return _probe_and_keep(key, "pull", probe, cands[0])
 
@@ -405,15 +420,15 @@ def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
                        layout: tuple | None = None) -> int:
     """Best ``block_r`` for a frontier pull of ``rows`` compacted rows
     (keyed on the row capacity on top of the usual shape key). With
-    ``layout = (ell_idx, ell_w, row_len)``, the graph's own layout and
+    ``layout`` (as in :func:`tune_pull`), the graph's own layout and
     in-degrees, the probe pulls random rows of it over their real slots,
     the work the kernel does on the path; else a random full layout."""
     device = torch.device(device)
     cands = pull_frontier_candidates(n, rows)
     if len(cands) == 1:
         return cands[0]
-    key = _cache_key("pullf", device, (n, d_ell, rows), width, dtype,
-                     combine, msg)
+    key = _cache_key("pullf", device, _layout_dims(layout, (n, d_ell, rows)),
+                     width, dtype, combine, msg)
     hit = _cached_int(key)
     if hit is not None:
         return hit
@@ -421,22 +436,16 @@ def tune_pull_frontier(n: int, d_ell: int, rows: int, width: int, dtype,
     def probe(in_time):
         t0, launches0 = time.perf_counter(), launch_counts()
         gen = _generator(device, 2)
-        if layout is None:
-            idx = torch.randint(0, n + 1, (n, d_ell), generator=gen,
-                                dtype=torch.int32, device=device)
-            w = torch.ones((n, d_ell), dtype=torch.float32, device=device)
-            row_len = None
-        else:
-            idx, w, row_len = layout
+        idx, w, row_len, row_ptr = _layout_of(layout, n, d_ell, device, gen)
         x = _ones(n + 1, width, dtype, device)
         rids = torch.randperm(n, generator=gen, device=device)[:rows]
         rids = torch.cat([rids, rids.new_full((max(0, rows - n),), n)])
         rids = rids.to(torch.int32)
         return _ladder(key, cands, lambda b: _time(
             lambda: ell_pull_frontier(x, idx, w, rids, combine=combine,
-                                      msg=msg, block_r=b,
-                                      row_len=row_len), device), in_time,
-            t0, launches0)
+                                      msg=msg, block_r=b, row_len=row_len,
+                                      row_ptr=row_ptr, d_ell=d_ell),
+            device), in_time, t0, launches0)
 
     return _probe_and_keep(key, "pullf", probe, cands[0])
 

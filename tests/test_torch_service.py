@@ -374,17 +374,93 @@ def test_fused_ppr_batch_equals_the_unfused_steps(pair, loop, monkeypatch):
 
 @pytest.mark.parametrize("case", ("ppr_width_65", "bfs"))
 def test_other_pulls_are_not_fused(pair, case):
-    """A PPR batch wider than the fused step takes and a batched BFS
-    pull run the plain full-scan pull: no fused launch."""
+    """A batched BFS pull, and each step of a PPR batch wider than the
+    fused step takes while more columns than it takes are active (the
+    first step: all are), run the plain full-scan pull: no fused
+    launch."""
     _, tg = pair
     be = CudaBackend(autotune=False, block_n=64, block_e=128,
                      push_block_n=64, push_strategy="scan")
     if case == "bfs":
         br = api.solve_batch(tg, "bfs", sources=[0, 3, 7], policy="pull",
                              backend=be)
+        assert be.stats["fused_pull_update"] == 0
     else:
         br = api.solve_batch(tg, "ppr", sources=list(range(65)),
-                             backend=be)
+                             backend=be, max_steps=1)
+        assert be.stats["fused_pull_update"] == 0
+        assert be.stats["kernel_pull"] == br.steps == 1
     assert br.steps > 0
     assert be.stats["kernel_pull"] + be.stats["kernel_pull_frontier"] > 0
-    assert be.stats["fused_pull_update"] == 0
+
+
+def test_a_wide_ppr_batch_fuses_the_steps_of_its_last_active_columns(
+        monkeypatch):
+    """A 100-wide PPR batch whose sources converge at different steps (a
+    star's hub and leaves, and vertices of small components): the steps
+    with more than 64 active columns pull and update apart, the others
+    run the fused step on their active columns alone. Steps, ``Cost``
+    and the trace's rows equal the same backend's forced apart; ranks
+    and residuals within rtol = atol = 1e-5 (the narrow pull sums each
+    column in another order)."""
+    from repro_torch.graphs import build_graph
+    from repro_torch.obs import Telemetry
+    n = 300
+    src = [0] * 199 + list(range(1, 200)) + [200, 201, 202, 203]
+    dst = list(range(1, 200)) + [0] * 199 + [201, 200, 203, 202]
+    g = build_graph(src, dst, n=n, device="cpu")
+    sources = list(range(0, 198, 2)) + [200]
+    pins = dict(autotune=False, block_n=64, block_e=128, push_block_n=64,
+                push_strategy="scan")
+
+    def solve(be):
+        tel = Telemetry()
+        br = api.solve_batch(g, "ppr", sources=sources, backend=be,
+                             telemetry=tel)
+        rows = [{k: v for k, v in e.items() if k not in ("ts_us", "us")}
+                for e in tel.events if e.get("kind") == "step"]
+        return br, rows
+    be = CudaBackend(**pins)
+    got, got_rows = solve(be)
+    with monkeypatch.context() as mp:
+        _unfused(mp)
+        apart = CudaBackend(**pins)
+        want, want_rows = solve(apart)
+    assert 0 < be.stats["fused_pull_update"] < be.stats["kernel_pull"]
+    assert apart.stats["fused_pull_update"] == 0
+    assert got.steps == want.steps and got_rows == want_rows
+    assert got.cost.as_dict() == want.cost.as_dict()
+    for k in want.state:
+        torch.testing.assert_close(got.state[k], want.state[k], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_a_narrow_fused_step_leaves_the_callers_state_as_it_was():
+    """The narrow fused step of a wide PPR batch writes its ranks into a
+    copy of a state the caller handed in (a chunk's first step), and in
+    place only into a rank it made itself in the same run: the caller's
+    state, and the state a finished chunk returned, are left bit for bit
+    as they were when the next chunk starts from them."""
+    from repro_torch.graphs import erdos_renyi
+    from repro_torch.service.batch import run_chunk
+    from repro_torch.service.programs import ppr_batch_init
+    g = erdos_renyi(200, 5.0, seed=2, device="cpu")
+    width = 100
+    state, frontier = ppr_batch_init(g, list(range(width)))
+    state["rank"] = state["base"].clone()
+    state["resid"][:70] = 0.0                # 30 columns still active
+    be = CudaBackend(autotune=False, block_n=64, block_e=128,
+                     push_block_n=64, push_strategy="scan")
+    kept = {k: v.clone() for k, v in state.items()}
+    first, _ = run_chunk(g, "ppr", width, state=state, frontier=frontier,
+                         backend=be, max_steps=3)
+    assert be.stats["fused_pull_update"] == 3
+    for k in kept:
+        assert torch.equal(_bits(state[k]), _bits(kept[k])), k
+    done = {k: v.clone() for k, v in first.state.items()}
+    second, _ = run_chunk(g, "ppr", width, state=first.state,
+                          frontier=frontier, backend=be, max_steps=3)
+    assert be.stats["fused_pull_update"] == 6
+    for k in done:
+        assert torch.equal(_bits(first.state[k]), _bits(done[k])), k
+    assert not torch.equal(second.state["rank"], first.state["rank"])
